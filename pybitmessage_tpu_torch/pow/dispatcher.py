@@ -1,0 +1,148 @@
+"""PoW solver of the port (twin of ``pow/dispatcher.py``, one-card tiers only).
+
+A single object runs :func:`ops.sha512_cuda.solve` (the single-object
+kernel) and a batch runs the dispatch-ahead pipeline (packed or batch
+kernel).  With ``device="cpu"`` the same host loops run the kernels'
+plain torch versions.  There is no fallback: without a card
+``PowDispatcher()`` raises, and a kernel that fails to build or launch
+raises out of :meth:`solve` / :meth:`solve_batch`, where ``PowService``
+requeues the batch and finally surfaces the error.  The farm, native
+C++, multi-device and breaker tiers of the reference are not part of
+this dispatcher.
+
+Timing attributes:
+
+``last_rate``
+    trials/s over the wall time of the last call, host re-check
+    included - what a caller experiences.
+``last_solve_seconds`` / ``last_solve_rate``
+    solve-only time and trials/s.
+``last_verify_seconds``
+    host double-SHA512 re-check of the last single solve's nonce.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import time
+from typing import Callable
+
+from .. import resolve_device
+from ..ops import sha512_cuda
+from ..ops.pow_search import PowInterrupted
+from .pipeline import AUTOTUNER, plan_batch, solve_batch_pipelined
+
+#: slab-stall deadline handed to the pipeline, seconds per harvest
+STALL_TIMEOUT = 120.0
+
+
+def host_trial(nonce: int, initial_hash: bytes) -> int:
+    """One double-SHA512 trial value - THE PoW formula."""
+    sha512 = hashlib.sha512
+    return int.from_bytes(sha512(sha512(
+        nonce.to_bytes(8, "big") + initial_hash).digest()
+    ).digest()[:8], "big")
+
+
+def python_solve(initial_hash: bytes, target: int, *,
+                 start_nonce: int = 0,
+                 should_stop: Callable[[], bool] | None = None,
+                 progress: Callable[[int], None] | None = None):
+    """hashlib search, one nonce at a time: the lowest nonce >=
+    ``start_nonce`` whose trial value is <= ``target``.  ``progress``
+    gets a checkpoint every 4096 trials."""
+    nonce = start_nonce
+    trials = 0
+    sha512 = hashlib.sha512
+    while True:
+        if should_stop is not None and trials % 4096 == 0 and should_stop():
+            raise PowInterrupted("python PoW interrupted")
+        if progress is not None and trials % 4096 == 0 and trials:
+            progress(nonce)
+        value = int.from_bytes(sha512(sha512(
+            nonce.to_bytes(8, "big") + initial_hash).digest()
+        ).digest()[:8], "big")
+        trials += 1
+        if value <= target:
+            return nonce, trials
+        nonce += 1
+
+
+class PowDispatcher:
+    """Callable solver for one device (``None`` = the CUDA device)."""
+
+    def __init__(self, device=None):
+        self.device = resolve_device(device)
+        self.last_backend = ""
+        self.last_rate = 0.0
+        self.last_solve_seconds = 0.0
+        self.last_solve_rate = 0.0
+        self.last_verify_seconds = 0.0
+
+    @property
+    def _backend(self) -> str:
+        return "cuda" if self.device.type == "cuda" else "torch"
+
+    def __call__(self, initial_hash: bytes, target: int, *,
+                 start_nonce: int = 0,
+                 should_stop: Callable[[], bool] | None = None):
+        t0 = time.monotonic()
+        nonce, trials = self._solve(initial_hash, target, start_nonce,
+                                    should_stop)
+        solve_dt = max(time.monotonic() - t0, 1e-9)
+        v0 = time.monotonic()
+        if host_trial(nonce, initial_hash) > target:
+            raise ArithmeticError("backend %s returned a nonce failing "
+                                  "host verification" % self.last_backend)
+        verify_dt = time.monotonic() - v0
+        self.last_solve_seconds = solve_dt
+        self.last_solve_rate = trials / solve_dt
+        self.last_verify_seconds = verify_dt
+        self.last_rate = trials / (solve_dt + verify_dt)
+        return nonce, trials
+
+    # keep the explicit name too
+    solve = __call__
+
+    def solve_batch(self, items, *, should_stop=None, start_nonces=None,
+                    progress=None):
+        """Solve ``[(initial_hash, target), ...]`` -> ``[(nonce, trials)]``.
+
+        More than one object, or one object small enough for a single
+        synchronous launch, goes through the pipeline; otherwise the
+        object takes the single-object route.  ``start_nonces`` resumes
+        each object from a checkpoint; ``progress(i, next)`` reports
+        the highest offset known fully searched for item ``i``.
+        """
+        items = list(items)
+        if not items:
+            return []
+        starts = list(start_nonces) if start_nonces else [0] * len(items)
+        t0 = time.monotonic()
+        if len(items) > 1 or plan_batch(items).mode == "single-sync":
+            self.last_backend = self._backend + "-batch"
+            results = solve_batch_pipelined(
+                items, device=self.device, should_stop=should_stop,
+                start_nonces=starts, progress=progress,
+                stall_timeout=STALL_TIMEOUT)
+        else:
+            prog = None
+            if progress is not None:
+                prog = lambda n: progress(0, n)  # noqa: E731
+            (ih, t), = items
+            results = [self._solve(ih, t, starts[0], should_stop,
+                                   progress=prog)]
+        dt = max(time.monotonic() - t0, 1e-9)
+        trials = sum(r[1] for r in results)
+        self.last_solve_seconds = dt
+        self.last_solve_rate = trials / dt
+        self.last_rate = trials / dt
+        return results
+
+    def _solve(self, initial_hash, target, start_nonce, should_stop,
+               progress=None):
+        self.last_backend = self._backend
+        return sha512_cuda.solve(
+            initial_hash, target, start_nonce=start_nonce,
+            should_stop=should_stop, tuner=AUTOTUNER, progress=progress,
+            device=self.device)

@@ -1,0 +1,1 @@
+"""Host helpers the port keeps its own copy of."""

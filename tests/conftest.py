@@ -90,6 +90,7 @@ def trivial_pow():
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "asyncio: run test via asyncio.run")
+    config.addinivalue_line("markers", "cuda: needs a CUDA card; skips itself without one")
     config.addinivalue_line(
         "markers",
         "slow: excluded from the tier-1 gate (-m 'not slow'); run "
