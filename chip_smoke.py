@@ -1,27 +1,40 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's PoW send path on one CUDA card.
+"""Drive the PyTorch/CUDA port's send and receive paths on one CUDA card.
 
     python3 chip_smoke.py [--seed N] [--report PATH]
 
 Phases (any failure exits non-zero):
 
 1. environment: the card's name and power limit (nvidia-smi), compute
-   capability 9.0, and the build of the kernels from ``csrc/``;
-2. each kernel against its plain torch version on the card, on seeded
-   inputs (hits mid-slab, no hits, always-hit pads, bases near 2^32 and
-   2^64, pack 16/4/1 for the packed kernel): outputs must be
+   capability 9.0, the build of the kernels from ``csrc/`` and their
+   SASS histograms;
+2. each PoW kernel against its plain torch version on the card, on
+   seeded inputs (hits mid-slab, no hits, always-hit pads, bases near
+   2^32 and 2^64, pack 16/4/1 for the packed kernel): outputs must be
    bit-identical;
-3. the main path, ``PowService(PowDispatcher())`` at network difficulty
+2b. each secp256k1 kernel against its plain version, bit-identical, on
+   edge lanes (also against the pure-Python oracle) and 2,048 random
+   lanes;
+3. the send path, ``PowService(PowDispatcher())`` at network difficulty
    and at real sizes: (a) one 1 KB msg object (single-object kernel),
    (b) 128 queued objects (batch kernel), (c) a 10,000-object chan
    broadcast storm (packed kernel), (d) one tiny object (packed kernel,
    pack 1).  Every nonce is re-checked with hashlib, and for (a) and 8
    objects of (b) the plain trial over [0, nonce) proves no lower valid
    nonce exists.  Each kernel must have been launched on this path;
-4. times: each kernel at its main-path slab shape (CUDA events over warm
+3b. the receive path at real sizes: (e) a 10,100-object PoW flood
+   through ``BatchVerifier()``, (f) 1,024 signatures and (g) 4 objects
+   against 10,000 candidate keys through ``BatchCryptoEngine()``, (h)
+   4,096 key derivations through ``CudaSecp().base_mult_batch``; every
+   result is checked, both secp kernels must have been launched and no
+   crypto drain may fail;
+4. times: each kernel at its main-path shape (CUDA events over warm
    launches) beside its plain version and its bound; the packed kernel
-   on the storm's own targets and on targets that mostly miss.
+   on the storm's own targets and on targets that mostly miss; the secp
+   kernels at 4,096 and 65,536 lanes.
 
+The receive phases draw their data from a second generator seeded from
+``--seed``, so phases 1-4 keep their inputs.
 The second-to-last line of output is the ``{"kernels": [...]}`` record,
 the last ``{"ok": true, "device": {...}}``.  Exits non-zero without
 printing either when no CUDA device is present.
@@ -33,6 +46,7 @@ import argparse
 import asyncio
 import hashlib
 import json
+import random
 import subprocess
 import sys
 import time
@@ -50,11 +64,18 @@ ISSUE_LANES_PER_SM = 128
 MEMORY_BYTES_PER_S = 3.35e12
 
 SOURCE = "pybitmessage_tpu_torch/csrc/pow_kernels.cu"
+SECP_SOURCE = "pybitmessage_tpu_torch/csrc/secp256k1_kernels.cu"
 REPLACES = {
     "search": "pybitmessage_tpu/ops/sha512_pallas.py:207",
     "batch_search": "pybitmessage_tpu/ops/sha512_pallas.py:233",
     "packed_search": "pybitmessage_tpu/ops/sha512_pallas.py:274",
+    "secp_verify": "pybitmessage_tpu/ops/secp256k1_pallas.py:470",
+    "secp_ecdh": "pybitmessage_tpu/ops/secp256k1_pallas.py:477",
 }
+#: the keys of an entry of the kernels line
+KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
+               "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms")
 MASK64 = (1 << 64) - 1
 ALWAYS_HIT = MASK64
 
@@ -620,6 +641,509 @@ def phase_times(rng, env: dict, launches: dict, errs: dict) -> list:
     return kernels
 
 
+# ---------------------------------------------------------------------------
+# receive path: secp256k1 kernels and the services that feed them
+# ---------------------------------------------------------------------------
+
+#: 32-bit IMAD issue slots per 256-bit modular multiplication and
+#: squaring: the 64 (a squaring: 36 distinct) 32x32->64 partial products
+#: and the 8 of the fold of the high half by 977 (the 2^32 part of
+#: 2^256 mod p is adds), each a low and a high half
+IMAD_PER_FIELD_MUL = 2 * (64 + 8)
+IMAD_PER_FIELD_SQR = 2 * (36 + 8)
+#: (multiplications, squarings) a lane needs at least for each step: a
+#: Jacobian doubling; a mixed addition (every addend, G, Q, G+Q and P,
+#: has Z = 1); G+Q from two affine points; a conversion to affine (the
+#: Fermat chain of csrc/secp256k1.cuh: 255 squarings and 15
+#: multiplications, and 3 M + 1 S more); the curve check
+FE_DOUBLE, FE_MIXED_ADD, FE_AFFINE_ADD = (3, 4), (8, 3), (4, 2)
+FE_TO_AFFINE, FE_ON_CURVE = (18, 256), (1, 2)
+#: bytes one lane reads and writes: five 32-byte inputs and ok (verify);
+#: three inputs, x, y and ok (ECDH)
+SECP_LANE_BYTES = {"secp_verify": 5 * 32 + 1, "secp_ecdh": 5 * 32 + 1}
+
+
+def _fe_plus(total, step, times: int = 1):
+    return (total[0] + step[0] * times, total[1] + step[1] * times)
+
+
+def _ladder_ops(bits_of) -> tuple:
+    """(multiplications, squarings) of one double-and-add walk from
+    infinity: ``bits_of(i)`` gives step i's addend (None = no addition,
+    "inf" = an addend at infinity); an accumulator at infinity doubles
+    and adds for free."""
+    inf = True
+    doubles = adds = 0
+    for i in range(256):
+        if not inf:
+            doubles += 1
+        add = bits_of(i)
+        if add is None or add == "inf":
+            continue
+        if inf:
+            inf = False
+        else:
+            adds += 1
+    ops = _fe_plus(_fe_plus((0, 0), FE_DOUBLE, doubles), FE_MIXED_ADD, adds)
+    return ops if inf else _fe_plus(ops, FE_TO_AFFINE)
+
+
+def secp_field_ops(kind: str, lanes) -> tuple:
+    """(multiplications, squarings) the kernels need for these lanes'
+    data: verify lanes are (u1, u2, (qx, qy), r), ECDH lanes (k, (px,
+    py))."""
+    from pybitmessage_tpu_torch.crypto import fallback
+
+    P = fallback.P
+    total = (0, 0)
+    for lane in lanes:
+        if kind == "secp_verify":
+            u1, u2, (qx, qy), _ = lane
+            q = (qx % P, qy % P)
+            total = _fe_plus(total, FE_ON_CURVE)
+            if not fallback.on_curve(*q):
+                continue
+            gq_inf = (q[0], q[1]) == (fallback.GX, P - fallback.GY)
+            total = _fe_plus(total, FE_AFFINE_ADD)
+            if not gq_inf:
+                total = _fe_plus(total, FE_TO_AFFINE)
+
+            def addend(i, u1=u1, u2=u2, gq_inf=gq_inf):
+                b1 = (u1 >> (255 - i)) & 1
+                b2 = (u2 >> (255 - i)) & 1
+                if not (b1 or b2):
+                    return None
+                return "inf" if (b1 and b2 and gq_inf) else "pt"
+            total = _fe_plus(total, _ladder_ops(addend))
+        else:
+            k, (px, py) = lane
+            total = _fe_plus(total, FE_ON_CURVE)
+            if not fallback.on_curve(px % P, py % P):
+                continue
+            total = _fe_plus(total, _ladder_ops(
+                lambda i, k=k: "pt" if (k >> (255 - i)) & 1 else None))
+    return total
+
+
+def _be(vals) -> bytes:
+    return b"".join(v.to_bytes(32, "big") for v in vals)
+
+
+def _affine_step(pt):
+    from pybitmessage_tpu_torch.crypto import fallback
+    return fallback._jac_to_affine(fallback._jac_add(
+        fallback._as_jac(pt), (fallback.GX, fallback.GY, 1)))
+
+
+def _verify_lanes(prng, count: int, corrupt_every: int = 7):
+    """(u1, u2, (qx, qy), r) ECDSA lanes and their expected results:
+    signature relations e = s*k - r*d with R = k*G and Q = d*G walked
+    by one affine addition per lane; one lane in ``corrupt_every`` has a
+    corrupted e."""
+    from pybitmessage_tpu_torch.crypto import fallback
+
+    N = fallback.N
+    k0, d0 = prng.randrange(1, N - count), prng.randrange(1, N - count)
+    rpt, q = fallback.base_mult(k0), fallback.base_mult(d0)
+    lanes, want = [], []
+    for i in range(count):
+        r = rpt[0] % N
+        s = prng.randrange(1, N)
+        e = (s * (k0 + i) - r * (d0 + i)) % N
+        bad = i % corrupt_every == corrupt_every - 1
+        if bad:
+            e = (e + 1) % N
+        w = pow(s, -1, N)
+        lanes.append(((e * w) % N, (r * w) % N, q, r))
+        want.append(not bad)
+        rpt, q = _affine_step(rpt), _affine_step(q)
+    return lanes, want
+
+
+def _ecdh_lanes(prng, count: int):
+    """(k, (px, py)) lanes: random scalars on a walk of points."""
+    from pybitmessage_tpu_torch.crypto import fallback
+
+    pt = fallback.base_mult(prng.randrange(1, fallback.N - count))
+    lanes = []
+    for _ in range(count):
+        lanes.append((prng.randrange(1, fallback.N), pt))
+        pt = _affine_step(pt)
+    return lanes
+
+
+def _small_x_point():
+    """The on-curve point with the least x > 0 (so x + p fits 256 bits)."""
+    from pybitmessage_tpu_torch.crypto import fallback
+
+    P = fallback.P
+    x = 1
+    while True:
+        v = (x ** 3 + 7) % P
+        y = pow(v, (P + 1) // 4, P)
+        if y * y % P == v:
+            return x, y
+        x += 1
+
+
+def _oracle_verify(u1: int, u2: int, q, r: int) -> bool:
+    """The kernel's contract on Python integers: coordinates reduced mod
+    p, False off the curve or at infinity, else (u1*G + u2*Q).x mod n
+    == r."""
+    from pybitmessage_tpu_torch.crypto import fallback as f
+
+    q = (q[0] % f.P, q[1] % f.P)
+    if not f.on_curve(*q):
+        return False
+    pt = f._jac_add(f._as_jac(f.base_mult(u1) if u1 % f.N else None),
+                    f._as_jac(f.point_mult(u2, q) if u2 % f.N else None))
+    aff = f._jac_to_affine(pt)
+    return aff is not None and aff[0] % f.N == r
+
+
+def _secp_edges(prng):
+    """Edge lanes of both kernels with their oracle results: u1 = u2 = 0,
+    Q = G, Q = -G, r = 0, a corrupted e, off-curve Q and P, coordinates
+    at and above p, k = 0, 1, n - 1, n, P = G."""
+    from pybitmessage_tpu_torch.crypto import fallback
+
+    P, N, G = fallback.P, fallback.N, (fallback.GX, fallback.GY)
+    lanes, _ = _verify_lanes(prng, 8, corrupt_every=4)
+    u1, u2, q, r = lanes[5]
+    x0, y0 = _small_x_point()
+    lanes += [(0, 0, q, r), (1, 1, G, fallback.base_mult(2)[0] % N),
+              (1, 1, (G[0], P - G[1]), 1), (u1, u2, q, 0),
+              (u1, u2, (q[0], q[1] ^ 1), r), (u1, u2, (P, q[1]), r),
+              (u1, 0, (x0 + P, y0), fallback.base_mult(u1)[0] % N),
+              (u1, u2, (x0 + P, y0), 1), (N - 1, 1, G, 1)]
+    want = [_oracle_verify(*lane) for lane in lanes]
+    require(sum(want) >= 8, "edge lanes: the oracle accepts too few")
+    ecdh = _ecdh_lanes(prng, 8)
+    for i, k in enumerate((0, N, 1, N - 1)):
+        ecdh[i] = (k, ecdh[i][1])
+    ecdh[4] = (ecdh[4][0], (ecdh[4][1][0], ecdh[4][1][1] ^ 1))
+    ecdh[5] = (ecdh[5][0], G)
+    ecdh[6] = (ecdh[6][0], (x0 + P, y0))
+    ecdh[7] = (ecdh[7][0], (P - 1, P - 2))
+    ecdh_want = [fallback.point_mult(k, (x % P, y % P))
+                 if fallback.on_curve(x % P, y % P) else None
+                 for k, (x, y) in ecdh]
+    return lanes, want, ecdh, ecdh_want
+
+
+def _verify_tensors(lanes, device):
+    import torch
+
+    cols = [[ln[0] for ln in lanes], [ln[1] for ln in lanes],
+            [ln[2][0] for ln in lanes], [ln[2][1] for ln in lanes],
+            [ln[3] for ln in lanes]]
+    return [torch.frombuffer(bytearray(_be(c)), dtype=torch.uint8)
+            .reshape(-1, 32).to(device) for c in cols]
+
+
+def _ecdh_tensors(lanes, device):
+    import torch
+
+    cols = [[ln[0] for ln in lanes], [ln[1][0] for ln in lanes],
+            [ln[1][1] for ln in lanes]]
+    return [torch.frombuffer(bytearray(_be(c)), dtype=torch.uint8)
+            .reshape(-1, 32).to(device) for c in cols]
+
+
+def _max_byte_err(got, want) -> int:
+    """max |kernel - plain| over the output bytes."""
+    import torch
+    return max(int((g.cpu().to(torch.int16) - w.cpu().to(torch.int16))
+                   .abs().max()) if g.numel() else 0
+               for g, w in zip(got, want))
+
+
+def phase_compare_secp(prng, device: str = "cuda",
+                       random_lanes: int = 2048) -> dict:
+    """Phase 2b: each secp kernel against its plain version on the card,
+    bit-identical, on the edge lanes and 2,048 random lanes (valid, one
+    in seven corrupted); the edge lanes also against the oracle.
+    (``device="cpu"`` rehearses the phase with the plain versions.)"""
+    import torch
+
+    from pybitmessage_tpu_torch.ops import secp256k1 as plain
+    from pybitmessage_tpu_torch.ops import secp256k1_cuda as scc
+
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    edges, want, ecdh_edges, ecdh_want = _secp_edges(prng)
+    rand, rand_want = _verify_lanes(prng, random_lanes)
+    lanes = edges + rand
+    args = _verify_tensors(lanes, dev)
+    got = scc.secp_verify(*args)
+    ref = plain.verify_ref(*args)
+    sync()
+    err_v = _max_byte_err([got], [ref])
+    require(torch.equal(got, ref),
+            "secp_verify differs from its plain version at lanes %s" % (
+                torch.nonzero(got != ref).flatten()[:8].tolist(),))
+    require(got.cpu().tolist() == [int(w) for w in want + rand_want],
+            "secp_verify disagrees with the oracle")
+    elanes = ecdh_edges + _ecdh_lanes(prng, random_lanes)
+    eargs = _ecdh_tensors(elanes, dev)
+    got_e = scc.secp_ecdh(*eargs)
+    ref_e = plain.ecdh_ref(*eargs)
+    sync()
+    err_e = _max_byte_err(got_e, ref_e)
+    require(all(torch.equal(g, r) for g, r in zip(got_e, ref_e)),
+            "secp_ecdh differs from its plain version")
+    x, y, ok = (t.cpu() for t in got_e)
+    for i, w in enumerate(ecdh_want):
+        pair = (int.from_bytes(x[i].numpy().tobytes(), "big"),
+                int.from_bytes(y[i].numpy().tobytes(), "big"))
+        require((bool(ok[i]), pair) == ((True, w) if w else (False, (0, 0))),
+                "secp_ecdh disagrees with the oracle at edge lane %d" % i)
+    print("compare secp: %d verify and %d ECDH lanes (%d and %d edge lanes "
+          "also against the oracle), kernels bit-identical to plain versions"
+          % (len(lanes), len(elanes), len(edges), len(ecdh_edges)))
+    return {"secp_verify": err_v, "secp_ecdh": err_e}
+
+
+def _storm_pow_objects(rng, n: int):
+    """(e)'s objects before their nonce: 116 bytes, expiring in an hour,
+    type 2, version 1, stream 1; their initial hashes and target."""
+    from pybitmessage_tpu_torch.models.pow_math import (pow_initial_hash,
+                                                        pow_target)
+    expires = int(time.time()) + 3600
+    head = expires.to_bytes(8, "big") + (2).to_bytes(4, "big") + b"\x01\x01"
+    bodies = [head + rng.bytes(94) for _ in range(n)]
+    target = pow_target(116, 3600, 10, 10, clamp=False)
+    return bodies, [pow_initial_hash(b) for b in bodies], target
+
+
+def phase_receive(rng, prng, *, device=None, flood: int = 10000,
+                  flipped: int = 100, signatures: int = 1024,
+                  signers: int = 64, keyring: int = 10000,
+                  derive: int = 4096) -> dict:
+    """Phase 3b: the receive path at real sizes through its entry
+    points.  (e) a PoW flood through ``BatchVerifier()``, (f) a
+    signature drain and (g) a trial-decrypt sweep through
+    ``BatchCryptoEngine()``, (h) key derivation through
+    ``CudaSecp().base_mult_batch``.  The secp launch counts are zeroed
+    just before and read just after.  (``device="cpu"`` and smaller
+    sizes rehearse the phase with the plain versions.)"""
+    from pybitmessage_tpu_torch.crypto import ecies, fallback, keys
+    from pybitmessage_tpu_torch.crypto.batch import BatchCryptoEngine
+    from pybitmessage_tpu_torch.crypto.gpu import CudaSecp
+    from pybitmessage_tpu_torch.models.pow_math import check_pow
+    from pybitmessage_tpu_torch.ops import secp256k1_cuda as scc
+    from pybitmessage_tpu_torch.pow.dispatcher import PowDispatcher
+    from pybitmessage_tpu_torch.pow.service import PowService
+    from pybitmessage_tpu_torch.pow.verify_service import BatchVerifier
+
+    N = fallback.N
+    # -- inputs (set-up, not timed) --------------------------------------
+    bodies, ihs, target = _storm_pow_objects(rng, flood)
+
+    async def solve_all():
+        service = PowService(PowDispatcher(device))
+        service.start()
+        try:
+            return await asyncio.gather(
+                *(service.solve(ih, target) for ih in ihs))
+        finally:
+            await service.stop()
+
+    t0 = time.perf_counter()
+    solved = asyncio.run(solve_all())
+    objects = [nonce.to_bytes(8, "big") + body
+               for (nonce, _), body in zip(solved, bodies)]
+    flips = []
+    for i in range(flipped):
+        ob = bytearray(objects[i * 97 % len(objects)])
+        bit = 0
+        while True:        # a flip that leaves a valid nonce is no test
+            trial = bytearray(ob)
+            trial[7 - bit // 8] ^= 1 << (bit % 8)
+            if not check_pow(bytes(trial), 10, 10, clamp=False):
+                break
+            bit += 1
+        flips.append(bytes(trial))
+    flood_objects = objects + flips
+    flood_want = [True] * len(objects) + [False] * len(flips)
+    require(all(check_pow(ob, 10, 10, clamp=False) for ob in objects),
+            "(e) a solved object fails hashlib's check")
+    print("inputs (e): %d objects solved by PowService in %.1f s"
+          % (len(objects), time.perf_counter() - t0))
+
+    t0 = time.perf_counter()
+    signer_keys = [prng.randrange(1, N).to_bytes(32, "big")
+                   for _ in range(signers)]
+    pubs = [keys.priv_to_pub(k) for k in signer_keys]
+    sig_items, sig_want = [], []
+    for i in range(signatures):
+        data = b"signed object %d " % i + prng.randbytes(64)
+        digest = "sha1" if i % 16 == 15 else "sha256"
+        hasher = hashlib.sha1 if digest == "sha1" else hashlib.sha256
+        sig = fallback.ecdsa_sign_digest(hasher(data).digest(),
+                                         signer_keys[i % signers])
+        bad = i % 7 == 6
+        sig_items.append((data + b"!" if bad else data, sig,
+                          pubs[i % signers]))
+        sig_want.append(not bad)
+    ring = [prng.randrange(1, N).to_bytes(32, "big") for _ in range(keyring)]
+    candidates = [(k, i) for i, k in enumerate(ring)]
+    texts = [b"sealed object %d " % i + prng.randbytes(200) for i in range(4)]
+    recipients = [keys.priv_to_pub(ring[-1]), None,
+                  keys.priv_to_pub(ring[-1]), None]
+    payloads = [ecies.encrypt(
+        text, pub or keys.priv_to_pub(prng.randrange(1, N).to_bytes(32, "big")),
+        ephem_priv=prng.randrange(1, N).to_bytes(32, "big"),
+        iv=prng.randbytes(16)) for text, pub in zip(texts, recipients)]
+    payload_want = [[(texts[0], keyring - 1)], [],
+                    [(texts[2], keyring - 1)], []]
+    scalars = [prng.randrange(1, N).to_bytes(32, "big")
+               for _ in range(derive)]
+    print("inputs (f)-(h): %d signatures, %d keys, 4 payloads, %d scalars "
+          "in %.1f s" % (signatures, keyring, derive,
+                         time.perf_counter() - t0))
+
+    # -- the receive path --------------------------------------------------
+    report: dict = {}
+
+    def record(name, items, wall, before, extra):
+        delta = {k: scc.LAUNCHES[k] - before[k] for k in before}
+        report[name] = dict(items=items, wall_s=wall,
+                            items_per_s=items / wall, launches=delta,
+                            **extra)
+        print("receive %s: %d items in %.4f s (%.1f items/s), %s, "
+              "launches %s" % (name, items, wall, items / wall,
+                               ", ".join("%s %s" % kv
+                                         for kv in extra.items()), delta))
+
+    async def drive():
+        verifier = BatchVerifier(device, ntpb=10, extra=10, clamp=False)
+        verifier.start()
+        try:
+            before = dict(scc.LAUNCHES)
+            t = time.perf_counter()
+            got = await asyncio.gather(*(verifier.check(ob)
+                                         for ob in flood_objects))
+            wall = time.perf_counter() - t
+        finally:
+            await verifier.stop()
+        require(list(got) == flood_want,
+                "(e) BatchVerifier results differ from the expected ones")
+        require(verifier.device_batches > 0, "(e) no device batch ran")
+        record("e_pow_flood", len(flood_objects), wall, before,
+               {"device_batches": verifier.device_batches,
+                "host_checked": verifier.host_checked})
+
+        engine = BatchCryptoEngine(device)
+        engine.start()
+        try:
+            before = dict(scc.LAUNCHES)
+            t = time.perf_counter()
+            got = await asyncio.gather(*(engine.verify(*it)
+                                         for it in sig_items))
+            wall = time.perf_counter() - t
+            require(list(got) == sig_want,
+                    "(f) signature results differ from the expected ones")
+            record("f_signature_drain", len(sig_items), wall, before,
+                   {"verify_calls": engine.backend.calls["verify"]})
+
+            before = dict(scc.LAUNCHES)
+            drains0 = engine.drains
+            t = time.perf_counter()
+            got = await asyncio.gather(*(engine.try_decrypt(pl, candidates)
+                                         for pl in payloads))
+            wall = time.perf_counter() - t
+            require(list(got) == payload_want,
+                    "(g) trial decrypts differ from the expected matches")
+            record("g_trial_decrypt", len(payloads) * len(candidates), wall,
+                   before, {"drains": engine.drains - drains0,
+                            "drain_pairs": engine.drain_pairs})
+        finally:
+            await engine.stop()
+        require(engine.failed_drains == 0,
+                "%d crypto drains failed" % engine.failed_drains)
+        return engine
+
+    scc.reset_launches()
+    engine = asyncio.run(drive())
+    before = dict(scc.LAUNCHES)
+    t = time.perf_counter()
+    points = CudaSecp(device).base_mult_batch(b"".join(scalars), derive)
+    wall = time.perf_counter() - t
+    sample = range(0, derive, max(1, derive // 64))
+    for i in sample:
+        require(b"\x04" + points[i] == fallback.priv_to_pub(scalars[i]),
+                "(h) base_mult_batch differs from the oracle at %d" % i)
+    record("h_key_derivation", derive, wall, before,
+           {"checked": len(sample)})
+    launches = dict(scc.LAUNCHES)
+    for kernel, count in launches.items():
+        require(count > 0, "kernel %s not launched on the receive path"
+                % kernel)
+    return {"phases": report, "launches": launches,
+            "failed_drains": engine.failed_drains}
+
+
+def phase_times_secp(prng, env: dict, launches: dict, errs: dict) -> list:
+    """Each secp kernel at the main path's drain (4,096 lanes) and on a
+    full card (65,536 lanes): CUDA-event times over warm launches, the
+    bound for these lanes' data, and the plain version at 4,096 lanes."""
+    import torch
+
+    from pybitmessage_tpu_torch.ops import secp256k1 as plain
+    from pybitmessage_tpu_torch.ops import secp256k1_cuda as scc
+
+    dev = torch.device("cuda")
+    rate = INT_ALU_LANES_PER_SM * env["sms"] * env["clock_mhz"] * 1e6
+    vlanes, _ = _verify_lanes(prng, 4096)
+    elanes = _ecdh_lanes(prng, 4096)
+    cases = {
+        "secp_verify": (vlanes, _verify_tensors, scc.secp_verify,
+                        plain.verify_ref),
+        "secp_ecdh": (elanes, _ecdh_tensors, scc.secp_ecdh, plain.ecdh_ref),
+    }
+    kernels = []
+    for name, (lanes, tensors, kernel, ref) in cases.items():
+        mults, sqrs = secp_field_ops(name, lanes)
+        slots = mults * IMAD_PER_FIELD_MUL + sqrs * IMAD_PER_FIELD_SQR
+        entry = {"name": name, "route": "cuda", "source": SECP_SOURCE,
+                 "replaces": REPLACES[name], "launches": launches[name],
+                 "bound_by": "operations", "library_ms": None,
+                 "lanes": {}}
+        for reps, count in ((3, 4096), (3, 65536)):
+            args = tensors(lanes * (count // len(lanes)), dev)
+            kernel(*args)                               # warm
+            ms = _event_ms(lambda: kernel(*args), reps)
+            ops_ms = slots * (count // len(lanes)) / rate * 1e3
+            bytes_ms = count * SECP_LANE_BYTES[name] / MEMORY_BYTES_PER_S \
+                * 1e3
+            bound_ms = max(ops_ms, bytes_ms)
+            entry["lanes"][count] = {"ms": ms, "bound_ms": bound_ms,
+                                     "imad_slots": slots * (count //
+                                                            len(lanes))}
+            print("time %s x %d lanes: %.3f ms/launch, bound %.4f ms "
+                  "(%.1f%%; %.1f field multiplies and %.1f squarings a "
+                  "lane)" % (name, count, ms, bound_ms, bound_ms / ms * 100,
+                             mults / len(lanes), sqrs / len(lanes)))
+            if count == 4096:
+                got = kernel(*args)
+                plain_ms = _event_ms(lambda: ref(*args), 1)
+                want = ref(*args)
+                if isinstance(got, torch.Tensor):
+                    got, want = [got], [want]
+                err = _max_byte_err(got, want)
+                require(all(torch.equal(g, w) for g, w in zip(got, want)),
+                        "%s differs from its plain version at 4096 lanes"
+                        % name)
+                entry.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             max_abs_err=max(err, errs[name]))
+                print("time %s plain version x 4096 lanes: %.1f ms"
+                      % (name, plain_ms))
+        entry["main"] = True
+        kernels.append(entry)
+    return kernels
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -634,20 +1158,27 @@ def main() -> int:
     import pybitmessage_tpu_torch  # noqa: F401  (the port must be present)
 
     rng = np.random.default_rng(args.seed)
+    # the receive path's data: a second generator, so phases 1-4 keep
+    # their inputs whatever the receive phases draw
+    rng2 = np.random.default_rng([args.seed, 2])
+    prng = random.Random(int(rng2.integers(1 << 62)))
     t_start = time.perf_counter()
     env = phase_environment()
     errs = phase_compare(rng)
+    errs.update(phase_compare_secp(prng))
     main_path = phase_main_path(rng)
+    receive = phase_receive(rng2, prng)
     kernels = phase_times(rng, env, main_path["launches"], errs)
+    kernels += phase_times_secp(prng, env, receive["launches"], errs)
     wall = time.perf_counter() - t_start
     print("chip_smoke wall %.1f s" % wall)
     if args.report:
         with open(args.report, "w") as fh:
             json.dump({"env": env, "main_path": main_path,
-                       "kernels": kernels, "wall_s": wall}, fh, indent=1)
+                       "receive": receive, "kernels": kernels,
+                       "wall_s": wall}, fh, indent=1)
     print(json.dumps({"kernels": [
-        {k: v for k, v in entry.items()
-         if k not in ("inputs", "trials", "trials_per_s", "shape", "main")}
+        {k: entry[k] for k in KERNEL_KEYS}
         for entry in kernels if entry["main"]]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,11 @@
-"""PyTorch + CUDA port of the PoW send path of ``pybitmessage_tpu``.
+"""PyTorch + CUDA port of ``pybitmessage_tpu``'s device paths.
 
 The JAX package stays the reference; this package twins the modules a
 sent object's proof-of-work runs through (``pow.service`` ->
-``pow.dispatcher`` -> ``pow.pipeline`` / ``ops.sha512_cuda`` -> the
-hand-written sm_90a kernels in ``csrc/``).  It imports torch, numpy
+``pow.dispatcher`` -> ``pow.pipeline`` / ``ops.sha512_cuda``) and those
+a received object's checks run through (``pow.verify_service``,
+``crypto.batch`` -> ``crypto.gpu`` -> ``ops.secp256k1_cuda``), down to
+the hand-written sm_90a kernels in ``csrc/``.  It imports torch, numpy
 and the standard library only.
 
 Every entry point takes a ``device``: ``None`` means the CUDA device

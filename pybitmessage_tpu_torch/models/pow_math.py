@@ -11,6 +11,8 @@ where ``len`` includes the 8-byte nonce, with floor division throughout
 
 from __future__ import annotations
 
+import time
+
 from ..utils.hashes import double_sha512, sha512
 from .constants import DEFAULT_EXTRA_BYTES, DEFAULT_NONCE_TRIALS_PER_BYTE
 
@@ -45,6 +47,31 @@ def pow_value(object_bytes: bytes) -> int:
     """The trial value of a full object (nonce || payload)."""
     trial = double_sha512(bytes(object_bytes[:8]) + sha512(object_bytes[8:]))
     return int.from_bytes(trial[:8], "big")
+
+
+def check_pow(
+    object_bytes: bytes,
+    nonce_trials_per_byte: int = 0,
+    extra_bytes: int = 0,
+    recv_time: float = 0,
+    clamp: bool = True,
+) -> bool:
+    """Validate an object's embedded PoW (reference: protocol.py:258-286).
+
+    ``object_bytes`` = nonce(8) || expires(8) || type(4) || ...
+    TTL is clamped to >= 300s so stale objects still verify cheaply.
+    ``clamp=False`` honors sub-minimum difficulty values (test mode).
+    """
+    expires = int.from_bytes(object_bytes[8:16], "big")
+    ttl = expires - int(recv_time if recv_time else time.time())
+    ttl = max(ttl, 300)
+    target = pow_target(
+        len(object_bytes), ttl,
+        nonce_trials_per_byte or DEFAULT_NONCE_TRIALS_PER_BYTE,
+        extra_bytes or DEFAULT_EXTRA_BYTES,
+        clamp=clamp,
+    )
+    return pow_value(object_bytes) <= target
 
 
 def expected_trials(payload_length: int, ttl: int,

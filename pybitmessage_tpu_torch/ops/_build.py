@@ -1,10 +1,11 @@
 """Build and load the CUDA kernels of ``csrc/`` (nvcc -> ctypes).
 
-``nvcc`` compiles ``csrc/pow_kernels.cu`` into a shared library with a
-plain C interface, for ``sm_90a`` only, at first use.  The library goes
-to ``build/torch_kernels/`` in the checkout, beside a stamp holding a
-hash of the sources and the command; a library whose stamp differs is
-stale and is rebuilt, never loaded.  A failed build raises: there is no
+``nvcc`` compiles every ``csrc/*.cu`` (one process per source, all
+started together) and links them into one shared library with a plain C
+interface, for ``sm_90a`` only, at first use.  The library goes to
+``build/torch_kernels/`` in the checkout, beside a stamp holding a hash
+of the sources and the command; a library whose stamp differs is stale
+and is rebuilt, never loaded.  A failed build raises: there is no
 fallback.  The first build prints ptxas' register and spill lines.
 """
 
@@ -20,13 +21,14 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 LIB_NAME = "libbmpow.so"
-_MAIN_SOURCE = CSRC / "pow_kernels.cu"
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+          "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib = None
@@ -47,6 +49,10 @@ _ENTRY_POINTS = {
     "bm_pow_packed_search": [_c.c_void_p, _c.c_void_p, _c.c_void_p,
                              _c.c_int, _c.c_int, _c.c_uint64, _c.c_uint64,
                              _c.c_void_p, _c.c_void_p],
+    # (u1, u2, qx, qy, r, ok, n, stream)
+    "bm_secp_verify": [_c.c_void_p] * 6 + [_c.c_int, _c.c_void_p],
+    # (k, px, py, x, y, ok, n, stream)
+    "bm_secp_ecdh": [_c.c_void_p] * 6 + [_c.c_int, _c.c_void_p],
 }
 
 
@@ -71,20 +77,41 @@ def source_digest() -> str:
     return h.hexdigest()
 
 
+def _run(cmds: list[list[str]]) -> str:
+    """Run the commands at once; raise on the first that fails.  Returns
+    their joined output."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc failed (%d): %s\n%s" % (
+                proc.returncode, " ".join(cmd), out))
+    return "\n".join(outs)
+
+
 def _build(lib_path: Path, stamp: Path, digest: str) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_name("%s.%d.tmp" % (LIB_NAME, os.getpid()))
-    cmd = [nvcc(), *_FLAGS, "-o", str(tmp), str(_MAIN_SOURCE)]
+    tag = "%d" % os.getpid()
+    sources = sorted(CSRC.glob("*.cu"))
+    objects = [BUILD_DIR / ("%s.%s.o" % (src.stem, tag)) for src in sources]
+    tmp = lib_path.with_name("%s.%s.tmp" % (LIB_NAME, tag))
     t0 = time.monotonic()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.monotonic() - t0
-    if proc.returncode != 0:
+    try:
+        out = _run([[nvcc(), *_FLAGS, "-c", "-o", str(obj), str(src)]
+                    for src, obj in zip(sources, objects)])
+        _run([[nvcc(), "-shared", "-o", str(tmp), *map(str, objects)]])
+    except Exception:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError("nvcc failed (%d): %s\n%s" % (
-            proc.returncode, " ".join(cmd), proc.stderr or proc.stdout))
+        raise
+    finally:
+        for obj in objects:
+            obj.unlink(missing_ok=True)
+    seconds = time.monotonic() - t0
     os.replace(tmp, lib_path)
     stamp.write_text(digest)
-    ptxas = [line.strip() for line in (proc.stderr + proc.stdout).splitlines()
+    ptxas = [line.strip() for line in out.splitlines()
              if "registers" in line or "spill" in line
              or "Compiling entry" in line]
     build_info.update(built=True, seconds=seconds, ptxas=ptxas)
@@ -122,3 +149,38 @@ def check(lib, err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError("%s failed: CUDA error %d (%s)" % (
             what, err, lib.bm_error_string(err).decode(errors="replace")))
+
+
+# ---------------------------------------------------------------------------
+# what every kernel wrapper checks before it launches
+# ---------------------------------------------------------------------------
+
+
+def check_tensor(name: str, t, dtype: torch.dtype, shape: tuple,
+                 device: torch.device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape``
+    on ``device``."""
+    if not isinstance(t, torch.Tensor) or t.dtype != dtype:
+        raise TypeError("%s must be a %s tensor" % (name, dtype))
+    if tuple(t.shape) != shape:
+        raise ValueError("%s has shape %r, expected %r"
+                         % (name, tuple(t.shape), shape))
+    if t.device != device:
+        raise ValueError("%s is on %s, expected %s" % (name, t.device, device))
+    if not t.is_contiguous():
+        raise ValueError("%s must be contiguous" % name)
+
+
+def on_cpu(t: torch.Tensor) -> bool:
+    """True for CPU tensors (the wrapper runs its plain version); CUDA
+    tensors launch the kernel; any other device is refused."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError("no kernel for tensors on %s" % t.device)
+    return False
+
+
+def stream(device: torch.device) -> int:
+    """The current CUDA stream of ``device``, as the launchers take it."""
+    return torch.cuda.current_stream(device).cuda_stream

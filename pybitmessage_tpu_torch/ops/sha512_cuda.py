@@ -20,9 +20,9 @@ the first step with a hit and its lowest nonce, so the host drivers and
 the pipeline account trials exactly as the reference does.  How a kernel
 spreads its threads over a launch's range is its own business.
 
-:func:`solve` and :func:`solve_batch` are the single-object and batched
-host loops, each keeping one launch in flight ahead of the one being
-harvested.
+:func:`solve` is the single-object host loop; it keeps one launch in
+flight ahead of the one being harvested.  Batches go through
+``pow/pipeline.py``.
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ from ..utils.hashes import double_sha512
 from . import _build
 from .pow_search import PowInterrupted
 from .sha512 import double_sha512_trial, initial_hash_words
-from .u64 import ALWAYS_HIT, MASK64, le_u, shr, to_i64, words_from_bytes
+from .u64 import MASK64, le_u, shr, to_i64
 
 LANE_COLS = 128
 
@@ -163,29 +163,7 @@ def packed_search_ref(ih_words, bases, targets, *, rows: int = DEFAULT_ROWS,
 
 def _check_words(name: str, t: torch.Tensor, shape: tuple,
                  device: torch.device) -> None:
-    if not isinstance(t, torch.Tensor) or t.dtype != torch.int64:
-        raise TypeError("%s must be an int64 tensor" % name)
-    if tuple(t.shape) != shape:
-        raise ValueError("%s has shape %r, expected %r"
-                         % (name, tuple(t.shape), shape))
-    if t.device != device:
-        raise ValueError("%s is on %s, expected %s" % (name, t.device, device))
-    if not t.is_contiguous():
-        raise ValueError("%s must be contiguous" % name)
-
-
-def _on_cpu(t: torch.Tensor) -> bool:
-    """True for CPU tensors (plain version); CUDA tensors launch; any
-    other device is refused."""
-    if t.device.type == "cpu":
-        return True
-    if t.device.type != "cuda":
-        raise ValueError("no kernel for tensors on %s" % t.device)
-    return False
-
-
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    _build.check_tensor(name, t, torch.int64, shape, device)
 
 
 def cuda_search(ih_words: torch.Tensor, base: int, target: int, *,
@@ -201,7 +179,7 @@ def cuda_search(ih_words: torch.Tensor, base: int, target: int, *,
     """
     dev = ih_words.device
     _check_words("ih_words", ih_words, (8,), dev)
-    if _on_cpu(ih_words):
+    if _build.on_cpu(ih_words):
         return search_ref(ih_words, base, target, rows=rows, chunks=chunks,
                           unroll=unroll)
     step = rows * LANE_COLS * unroll
@@ -210,7 +188,7 @@ def cuda_search(ih_words: torch.Tensor, base: int, target: int, *,
     with torch.cuda.device(dev):
         err = lib.bm_pow_search(ih_words.data_ptr(), base & MASK64,
                                 target & MASK64, step * chunks,
-                                best.data_ptr(), _stream(dev))
+                                best.data_ptr(), _build.stream(dev))
     _build.check(lib, err, "bm_pow_search")
     LAUNCHES["search"] += 1
     return _step_outputs(best[:1], base, step, chunks)
@@ -232,7 +210,7 @@ def cuda_batch_search(ih_words: torch.Tensor, bases: torch.Tensor,
     _check_words("ih_words", ih_words, (n_obj, 8), dev)
     _check_words("bases", bases, (n_obj,), dev)
     _check_words("targets", targets, (n_obj,), dev)
-    if _on_cpu(ih_words):
+    if _build.on_cpu(ih_words):
         return batch_search_ref(ih_words, bases, targets, rows=rows,
                                 chunks=chunks, unroll=unroll)
     step = rows * LANE_COLS * unroll
@@ -241,7 +219,7 @@ def cuda_batch_search(ih_words: torch.Tensor, bases: torch.Tensor,
     with torch.cuda.device(dev):
         err = lib.bm_pow_batch_search(
             ih_words.data_ptr(), bases.data_ptr(), targets.data_ptr(),
-            step * chunks, n_obj, best.data_ptr(), _stream(dev))
+            step * chunks, n_obj, best.data_ptr(), _build.stream(dev))
     _build.check(lib, err, "bm_pow_batch_search")
     LAUNCHES["batch_search"] += 1
     return _rows(best[:n_obj], bases, step)
@@ -269,7 +247,7 @@ def cuda_packed_search(ih_words: torch.Tensor, bases: torch.Tensor,
     _check_words("ih_words", ih_words, (n_obj, 8), dev)
     _check_words("bases", bases, (n_obj,), dev)
     _check_words("targets", targets, (n_obj,), dev)
-    if _on_cpu(ih_words):
+    if _build.on_cpu(ih_words):
         return packed_search_ref(ih_words, bases, targets, rows=rows,
                                  chunks=chunks, pack=pack, unroll=unroll)
     span = rows // pack * LANE_COLS
@@ -279,7 +257,7 @@ def cuda_packed_search(ih_words: torch.Tensor, bases: torch.Tensor,
         err = lib.bm_pow_packed_search(
             ih_words.data_ptr(), bases.data_ptr(), targets.data_ptr(),
             n_obj // pack, pack, chunks * unroll, span, best.data_ptr(),
-            _stream(dev))
+            _build.stream(dev))
     _build.check(lib, err, "bm_pow_packed_search")
     LAUNCHES["packed_search"] += 1
     return _rows(best[:n_obj], bases, span * unroll)
@@ -410,105 +388,3 @@ def solve(initial_hash: bytes, target: int, *, start_nonce: int = 0,
             if progress is not None:
                 progress(pending[2])
         pending = current
-
-
-class _BatchGroup:
-    """Host state for one ``BATCH_OBJS``-wide launch group."""
-
-    __slots__ = ("idx", "ih_dev", "targets", "t_dev", "bases", "trials",
-                 "done", "harvested")
-
-    def __init__(self, items, idx, device):
-        pad = BATCH_OBJS - len(idx)
-        ihs = [items[i][0] for i in idx] + [b"\x00" * 64] * pad
-        self.ih_dev = upload([words_from_bytes(ih) for ih in ihs], device)
-        self.targets = ([items[i][1] & MASK64 for i in idx]
-                        + [ALWAYS_HIT] * pad)
-        self.t_dev = None       # re-uploaded only after a target flips
-        self.idx = idx
-        self.bases = [0] * BATCH_OBJS
-        self.trials = [0] * BATCH_OBJS
-        self.done = [i >= len(idx) for i in range(BATCH_OBJS)]
-        self.harvested = 0
-
-    @property
-    def finished(self) -> bool:
-        return all(self.done)
-
-
-def solve_batch(items, *, rows: int = DEFAULT_ROWS,
-                chunks_per_call: int = BATCH_CHUNKS,
-                unroll: int = BATCH_UNROLL,
-                should_stop: Callable[[], bool] | None = None,
-                device=None):
-    """Solve ``[(initial_hash, target), ...]`` in batched launches of up
-    to ``BATCH_OBJS`` objects; returns ``[(nonce, trials), ...]``.
-
-    Solved and pad objects take the always-hit target and stop costing
-    hashes.  One launch stays in flight ahead of the one harvested: the
-    next group (round-robin), or another slab of a group that already
-    needed more than one.  A speculative launch for a group that its
-    pending launch finishes is abandoned unread.
-    """
-    n = len(items)
-    if n == 0:
-        return []
-    dev = resolve_device(device)
-    results: list = [None] * n
-    trials_per_slab = rows * LANE_COLS * chunks_per_call * unroll
-    step_trials = rows * LANE_COLS * unroll
-    groups = [_BatchGroup(items, list(range(s, min(s + BATCH_OBJS, n))), dev)
-              for s in range(0, n, BATCH_OBJS)]
-
-    def dispatch(g: _BatchGroup) -> HostCopy:
-        if g.t_dev is None:
-            g.t_dev = upload([to_i64(t) for t in g.targets], dev)
-        out = cuda_batch_search(
-            g.ih_dev, upload([to_i64(b) for b in g.bases], dev), g.t_dev,
-            rows=rows, chunks=chunks_per_call, unroll=unroll)
-        for k in range(BATCH_OBJS):
-            if not g.done[k]:
-                g.bases[k] = (g.bases[k] + trials_per_slab) & MASK64
-        return HostCopy(out)
-
-    def harvest(g: _BatchGroup, copy: HostCopy) -> None:
-        (out,) = copy.result()
-        for k in range(BATCH_OBJS):
-            if g.done[k]:
-                continue
-            step1 = int(out[k, 0])
-            if step1:
-                g.trials[k] += step1 * step_trials
-                value = (int(out[k, 1]) << 32) | int(out[k, 2])
-                check_nonce(value, items[g.idx[k]][0], g.targets[k])
-                results[g.idx[k]] = (value, g.trials[k])
-                g.done[k] = True
-                g.targets[k] = ALWAYS_HIT
-                g.t_dev = None
-            else:
-                g.trials[k] += trials_per_slab
-        g.harvested += 1
-
-    pending = None      # (group, HostCopy)
-    rr = 0
-    while True:
-        if should_stop is not None and should_stop():
-            raise PowInterrupted("batched CUDA PoW interrupted")
-        live = [g for g in groups if not g.finished]
-        if not live and pending is None:
-            return results
-        pending_g = pending[0] if pending is not None else None
-        cand = None
-        for off in range(len(groups)):
-            g = groups[(rr + off) % len(groups)]
-            if not g.finished and g is not pending_g:
-                cand = g
-                rr = (rr + off + 1) % len(groups)
-                break
-        if cand is None and pending_g is not None \
-                and pending_g.harvested >= 1 and not pending_g.finished:
-            cand = pending_g
-        cur = (cand, dispatch(cand)) if cand is not None else None
-        if pending is not None and not pending[0].finished:
-            harvest(*pending)
-        pending = cur

@@ -1,1 +1,3 @@
-"""PoW send path of the port: pipeline, dispatcher and coalescing service."""
+"""PoW of the port: the send path (pipeline, dispatcher, coalescing
+service) and the batched verification of received objects
+(``verify_service``)."""

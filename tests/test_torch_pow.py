@@ -186,14 +186,6 @@ def test_wrapped_nonce_range():
     assert nonce == n
 
 
-def test_batch_host_loop_matches_python_solve():
-    items = _items(3, EASY << 2, tag=b"batch")
-    got = sha512_cuda.solve_batch(items, rows=1, chunks_per_call=2,
-                                  unroll=1, device="cpu")
-    assert [n for n, _ in got] == [python_solve(ih, t)[0]
-                                   for ih, t in items]
-
-
 @pytest.mark.parametrize("mode,pack", [("packed", 4), ("batched", 1)])
 def test_pipeline_modes_match_python_solve(mode, pack):
     items = _items(5, tag=mode.encode())
