@@ -12,9 +12,14 @@ Phases (any failure exits non-zero):
    seeded inputs (hits mid-slab, no hits, always-hit pads, bases near
    2^32 and 2^64, pack 16/4/1 for the packed kernel): outputs must be
    bit-identical;
+2a. the secp256k1 header's field and scalar primitives on the card (its
+   PTX carry chains: mul, sqr, add, sub, the fold, canonical form,
+   inverse, the GLV split) against Python integers on the carry
+   boundaries and 4,096 random operand pairs;
 2b. each secp256k1 kernel against its plain version, bit-identical, on
-   edge lanes (also against the pure-Python oracle) and 2,048 random
-   lanes;
+   edge lanes (also against the pure-Python oracle; among them x in
+   [n, p) and lanes whose two halves meet equal or inverse) and 2,048
+   random lanes;
 3. the send path, ``PowService(PowDispatcher())`` at network difficulty
    and at real sizes: (a) one 1 KB msg object (single-object kernel),
    (b) 128 queued objects (batch kernel), (c) a 10,000-object chan
@@ -31,7 +36,11 @@ Phases (any failure exits non-zero):
 4. times: each kernel at its main-path shape (CUDA events over warm
    launches) beside its plain version and its bound; the packed kernel
    on the storm's own targets and on targets that mostly miss; the secp
-   kernels at 4,096 and 65,536 lanes.
+   kernels at 4,096 and 65,536 lanes, their bound from the least work
+   these lanes need (``secp_field_ops``: one GLV walk whose halves share
+   their doublings), with the count of the kernels' own two-thread
+   design and of the first port's double-and-add ladder
+   (``ladder_field_ops``) printed beside it.
 
 The receive phases draw their data from a second generator seeded from
 ``--seed``, so phases 1-4 keep their inputs.
@@ -651,47 +660,146 @@ def phase_times(rng, env: dict, launches: dict, errs: dict) -> list:
 #: 2^256 mod p is adds), each a low and a high half
 IMAD_PER_FIELD_MUL = 2 * (64 + 8)
 IMAD_PER_FIELD_SQR = 2 * (36 + 8)
-#: (multiplications, squarings) a lane needs at least for each step: a
-#: Jacobian doubling; a mixed addition (every addend, G, Q, G+Q and P,
-#: has Z = 1); G+Q from two affine points; a conversion to affine (the
-#: Fermat chain of csrc/secp256k1.cuh: 255 squarings and 15
-#: multiplications, and 3 M + 1 S more); the curve check
-FE_DOUBLE, FE_MIXED_ADD, FE_AFFINE_ADD = (3, 4), (8, 3), (4, 2)
-FE_TO_AFFINE, FE_ON_CURVE = (18, 256), (1, 2)
+#: (multiplications, squarings) of each step of the kernels' algorithm
+#: (csrc/secp256k1.cuh): a doubling for a = 0 (dbl-2009-l); a mixed
+#: addition of an affine addend (comb entries, window tables); the
+#: complete addition that joins a lane's two halves; a conversion to
+#: affine (the Fermat chain: 255 squarings and 15 multiplications, and
+#: 3 M + 1 S more); the curve check; the GLV split (six 256 x 256-bit
+#: products, counted as multiplications); a window table of 1..15 * P
+#: with one Z (a doubling, 13 mixed additions, then 3 M + 1 S to bring
+#: each of 14 points to the last Z and 13 M for the running product),
+#: and the multiplication of the walk's Z by it; the projective r check
+#: (Z^2 and r * Z^2)
+FE_DOUBLE, FE_MIXED_ADD, FE_JAC_ADD = (2, 5), (8, 3), (12, 4)
+FE_TO_AFFINE, FE_ON_CURVE, FE_GLV_SPLIT = (18, 256), (1, 2), (6, 0)
+FE_WINDOW_TABLE = (2 + 13 * 8 + 14 * 3 + 13 + 1, 5 + 13 * 3 + 14)
+FE_R_CHECK = (1, 1)
+#: the double-and-add ladder of the first port of these kernels (a
+#: doubling of 3 M + 4 S and a mixed addition per set bit, G + Q from two
+#: affine points), kept beside the count above so the fall in work and
+#: the rise in speed read apart
+FE_LADDER_DOUBLE, FE_AFFINE_ADD = (3, 4), (4, 2)
 #: bytes one lane reads and writes: five 32-byte inputs and ok (verify);
 #: three inputs, x, y and ok (ECDH)
 SECP_LANE_BYTES = {"secp_verify": 5 * 32 + 1, "secp_ecdh": 5 * 32 + 1}
+GLV_LAMBDA = 0x5363AD4CC05C30E0A5261C028812645A122E22EA20816678DF02967C1B23BD72
+GLV_A1 = 0x3086D221A7D46BCDE86C90E49284EB15
+GLV_B1 = -0xE4437ED6010E88286F547FA90ABFE4C3
+GLV_A2 = 0x114CA50F7A8E2F3F657C1108D9D44CFD8
 
 
 def _fe_plus(total, step, times: int = 1):
     return (total[0] + step[0] * times, total[1] + step[1] * times)
 
 
-def _ladder_ops(bits_of) -> tuple:
-    """(multiplications, squarings) of one double-and-add walk from
-    infinity: ``bits_of(i)`` gives step i's addend (None = no addition,
-    "inf" = an addend at infinity); an accumulator at infinity doubles
-    and adds for free."""
-    inf = True
-    doubles = adds = 0
-    for i in range(256):
-        if not inf:
-            doubles += 1
-        add = bits_of(i)
-        if add is None or add == "inf":
-            continue
-        if inf:
-            inf = False
+def glv_split(k: int) -> tuple:
+    """The kernels' GLV split on Python integers: (k1, k2), signed, with
+    k1 + k2 * lambda == k (mod n) and |k1|, |k2| < 2^128."""
+    from pybitmessage_tpu_torch.crypto import fallback
+
+    n = fallback.N
+    k %= n
+    g1 = ((GLV_A1 << 384) + n // 2) // n
+    g2 = ((-GLV_B1 << 384) + n // 2) // n
+    c1 = (k * g1 + (1 << 383)) >> 384
+    c2 = (k * g2 + (1 << 383)) >> 384
+    return k - c1 * GLV_A1 - c2 * GLV_A2, -c1 * GLV_B1 - c2 * GLV_A1
+
+
+def _nibbles(k: int, count: int) -> list:
+    """k's low ``count`` nibbles, most significant first."""
+    return [(k >> (4 * i)) & 15 for i in reversed(range(count))]
+
+
+def _ladder_ops(windows, step=FE_DOUBLE, bits: int = 4,
+                finite: bool = False) -> tuple:
+    """(multiplications, squarings) of a walk over ``windows``, one tuple
+    of digits per window (most significant first), from infinity unless
+    ``finite``: ``bits`` doublings a window once the sum is finite and a
+    mixed addition per nonzero digit (one landing on infinity is a
+    select).  ``bits=0`` is the comb: additions only."""
+    ops = (0, 0)
+    for digits in windows:
+        if finite:
+            ops = _fe_plus(ops, step, bits)
+        for d in digits:
+            if d:
+                if finite:
+                    ops = _fe_plus(ops, FE_MIXED_ADD)
+                finite = True
+    return ops, finite
+
+
+def _mul_walks(k: int, point, joined: bool) -> tuple:
+    """k * P as a walk: the comb over k's 64 nibbles for P = G, else the
+    GLV split, one window table of P, its copy as phi(P) (15 M), the
+    walk of |k1| and |k2| and the scaling of the sum's Z by the table's
+    (1 M).  ``joined``: one Strauss walk whose halves share each
+    window's doublings (the least work).  Otherwise the kernels' two
+    threads: each half walks alone, the comb's 32 nibbles or |k1| or
+    |k2|.  Returns (ops, [finite after each walk])."""
+    from pybitmessage_tpu_torch.crypto import fallback
+
+    if point == (fallback.GX, fallback.GY):
+        halves = [_nibbles(k, 64)] if joined else \
+            [_nibbles(k >> (128 * h), 32) for h in (0, 1)]
+        walks = [_ladder_ops([(d,) for d in h], bits=0) for h in halves]
+        extra = []
+    else:
+        k1, k2 = (_nibbles(abs(kh), 32) for kh in glv_split(k))
+        walks = [_ladder_ops(list(zip(k1, k2)))] if joined else \
+            [_ladder_ops([(d,) for d in h]) for h in (k1, k2)]
+        extra = [FE_GLV_SPLIT, FE_WINDOW_TABLE, (16, 0)]
+    total = (0, 0)
+    for ops in [w[0] for w in walks] + extra:
+        total = _fe_plus(total, ops)
+    return total, [w[1] for w in walks]
+
+
+def secp_field_ops(kind: str, lanes, design: bool = False) -> tuple:
+    """(multiplications, squarings) that these lanes' data needs: verify
+    lanes are (u1, u2, (qx, qy), r), ECDH lanes (k, (px, py)).  The
+    least work, the bound's: k * P as one walk (u2 * Q for verify, which
+    then adds u1 * G's 64 comb nibbles onto it), then for ECDH a
+    conversion to affine, for verify the projective r check.
+    ``design``: the kernels' own count instead, two threads a lane, each
+    walking its half alone (verify's adding 32 of the comb's nibbles),
+    joined by a complete addition."""
+    from pybitmessage_tpu_torch.crypto import fallback
+
+    P = fallback.P
+    total = (0, 0)
+    for lane in lanes:
+        if kind == "secp_verify":
+            u1, k, (x, y), _ = lane
         else:
-            adds += 1
-    ops = _fe_plus(_fe_plus((0, 0), FE_DOUBLE, doubles), FE_MIXED_ADD, adds)
-    return ops if inf else _fe_plus(ops, FE_TO_AFFINE)
+            k, (x, y) = lane
+        point = (x % P, y % P)
+        total = _fe_plus(total, FE_ON_CURVE)
+        if not fallback.on_curve(*point):
+            continue
+        ops, finite = _mul_walks(k, point, joined=not design)
+        total = _fe_plus(total, ops)
+        if kind == "secp_verify":
+            combs = [_nibbles(u1, 64)] if not design else \
+                [_nibbles(u1 >> (128 * h), 32) for h in (0, 1)]
+            for h, nibbles in enumerate(combs):
+                ops, finite[h] = _ladder_ops([(d,) for d in nibbles],
+                                             bits=0, finite=finite[h])
+                total = _fe_plus(total, ops)
+        if design and all(finite):
+            total = _fe_plus(total, FE_JAC_ADD)
+        if any(finite) or design:
+            total = _fe_plus(total, FE_R_CHECK if kind == "secp_verify"
+                             else FE_TO_AFFINE)
+    return total
 
 
-def secp_field_ops(kind: str, lanes) -> tuple:
-    """(multiplications, squarings) the kernels need for these lanes'
-    data: verify lanes are (u1, u2, (qx, qy), r), ECDH lanes (k, (px,
-    py))."""
+def ladder_field_ops(kind: str, lanes) -> tuple:
+    """(multiplications, squarings) of the double-and-add ladders the
+    first port of these kernels ran (Strauss-Shamir over {G, Q, G + Q}
+    for verify, a bit at a time), for the same lanes."""
     from pybitmessage_tpu_torch.crypto import fallback
 
     P = fallback.P
@@ -707,21 +815,24 @@ def secp_field_ops(kind: str, lanes) -> tuple:
             total = _fe_plus(total, FE_AFFINE_ADD)
             if not gq_inf:
                 total = _fe_plus(total, FE_TO_AFFINE)
-
-            def addend(i, u1=u1, u2=u2, gq_inf=gq_inf):
-                b1 = (u1 >> (255 - i)) & 1
-                b2 = (u2 >> (255 - i)) & 1
-                if not (b1 or b2):
-                    return None
-                return "inf" if (b1 and b2 and gq_inf) else "pt"
-            total = _fe_plus(total, _ladder_ops(addend))
+            bits = [((u1 >> (255 - i)) & 1, (u2 >> (255 - i)) & 1)
+                    for i in range(256)]
+            # G + Q at infinity adds nothing when both bits are set
+            bits = [(1,) if b1 or b2 else (0,) for b1, b2 in bits] \
+                if not gq_inf else \
+                [(1,) if b1 != b2 else (0,) for b1, b2 in bits]
+            ops, finite = _ladder_ops(bits, step=FE_LADDER_DOUBLE, bits=1)
         else:
             k, (px, py) = lane
             total = _fe_plus(total, FE_ON_CURVE)
             if not fallback.on_curve(px % P, py % P):
                 continue
-            total = _fe_plus(total, _ladder_ops(
-                lambda i, k=k: "pt" if (k >> (255 - i)) & 1 else None))
+            ops, finite = _ladder_ops(
+                [((k >> (255 - i)) & 1,) for i in range(256)],
+                step=FE_LADDER_DOUBLE, bits=1)
+        total = _fe_plus(total, ops)
+        if finite:
+            total = _fe_plus(total, FE_TO_AFFINE)
     return total
 
 
@@ -772,18 +883,23 @@ def _ecdh_lanes(prng, count: int):
     return lanes
 
 
-def _small_x_point():
-    """The on-curve point with the least x > 0 (so x + p fits 256 bits)."""
+def _point_from_x(x: int):
+    """The on-curve point with the least x' >= x (p = 3 mod 4, so a
+    square root is one power)."""
     from pybitmessage_tpu_torch.crypto import fallback
 
     P = fallback.P
-    x = 1
     while True:
         v = (x ** 3 + 7) % P
         y = pow(v, (P + 1) // 4, P)
         if y * y % P == v:
             return x, y
         x += 1
+
+
+def _small_x_point():
+    """The on-curve point with the least x > 0 (so x + p fits 256 bits)."""
+    return _point_from_x(1)
 
 
 def _oracle_verify(u1: int, u2: int, q, r: int) -> bool:
@@ -816,8 +932,17 @@ def _secp_edges(prng):
               (u1, u2, (q[0], q[1] ^ 1), r), (u1, u2, (P, q[1]), r),
               (u1, 0, (x0 + P, y0), fallback.base_mult(u1)[0] % N),
               (u1, u2, (x0 + P, y0), 1), (N - 1, 1, G, 1)]
+    # x in [n, p): x mod n is r = x - n (accepted), never x itself; the
+    # join of the halves doubles (u1 G == u2 G) and meets its inverse
+    xn, yn = _point_from_x(N)
+    xw, yw = _point_from_x(N + 1)
+    lanes += [(0, 1, (xn, yn), xn - N), (0, 1, (xn, yn), xn),
+              (0, 1, (xw, yw), xw - N), (0, 1, (xw, yw), xw),
+              (u1, 0, (xn, yn), fallback.base_mult(u1)[0] % N),
+              (u1, u1, G, fallback.base_mult(2 * u1)[0] % N),
+              (u1, N - u1, G, 1)]
     want = [_oracle_verify(*lane) for lane in lanes]
-    require(sum(want) >= 8, "edge lanes: the oracle accepts too few")
+    require(sum(want) >= 12, "edge lanes: the oracle accepts too few")
     ecdh = _ecdh_lanes(prng, 8)
     for i, k in enumerate((0, N, 1, N - 1)):
         ecdh[i] = (k, ecdh[i][1])
@@ -825,6 +950,11 @@ def _secp_edges(prng):
     ecdh[5] = (ecdh[5][0], G)
     ecdh[6] = (ecdh[6][0], (x0 + P, y0))
     ecdh[7] = (ecdh[7][0], (P - 1, P - 2))
+    # P = G through the comb: halves that are equal (k_lo = k_hi 2^128 -
+    # n, so the join doubles) and inverse (k = n)
+    k_hi = (1 << 128) - 1
+    ecdh += [((k_hi << 128) + k_hi * (1 << 128) - N, G), (N, G),
+             (2 ** 256 - 1, G), (N - 1, G)]
     ecdh_want = [fallback.point_mult(k, (x % P, y % P))
                  if fallback.on_curve(x % P, y % P) else None
                  for k, (x, y) in ecdh]
@@ -856,6 +986,109 @@ def _max_byte_err(got, want) -> int:
     return max(int((g.cpu().to(torch.int16) - w.cpu().to(torch.int16))
                    .abs().max()) if g.numel() else 0
                for g, w in zip(got, want))
+
+
+#: the field self-test's operations, in the order of the kernel's op codes
+SELFTEST_OPS = ("mul", "sqr", "add", "sub", "fold", "canon", "inv", "split")
+
+
+def _selftest_operands(prng, count: int):
+    """Operand pairs (a, b), both any 256-bit value: every pair of the
+    carry boundaries (0, 1, 2^32 + 977 and its neighbours, p and its
+    neighbours, 2^256 - 1, n, lambda, ...), folds whose last step
+    carries once more, and ``count`` random pairs."""
+    from pybitmessage_tpu_torch.crypto import fallback
+
+    P, N, M = fallback.P, fallback.N, 1 << 256
+    rc = M - P
+    edges = [0, 1, 2, 976, 977, rc - 1, rc, rc + 1, 2 ** 32 - 1,
+             2 ** 224 - 1, 2 ** 255, P - 1, P, P + 1, M - rc - 1, M - 2,
+             M - 1, N - 1, N, GLV_LAMBDA]
+    a = [x for x in edges for _ in edges]
+    b = [y for _ in edges for y in edges]
+    # hi * 2^256 + lo with lo + hi * (2^32 + 977) = t 2^256 + 2^256 - 1 - j
+    # (t >= 1): the fold's last addition carries out of 2^256 again
+    for hi in edges[-9:] + [prng.randrange(M) for _ in range(8)]:
+        for j in (0, 1, 977):
+            a.append(hi)
+            b.append((M - 1 - j - hi * rc) % M)
+    a += [prng.randrange(M) for _ in range(count)]
+    b += [prng.randrange(M) for _ in range(count)]
+    return a, b
+
+
+def _selftest_bad(op: str, a, b, out1, out2) -> list:
+    """Indices where the self-test's outputs break the primitive's
+    contract on Python integers (field results lazily below 2^256 and
+    equal mod p; canon exact; the split exactly the Python split)."""
+    from pybitmessage_tpu_torch.crypto import fallback
+
+    P, M = fallback.P, 1 << 256
+    want = {"mul": lambda x, y: x * y % P, "sqr": lambda x, y: x * x % P,
+            "add": lambda x, y: (x + y) % P, "sub": lambda x, y: (x - y) % P,
+            "fold": lambda x, y: (x * M + y) % P,
+            "canon": lambda x, y: x % P,
+            "inv": lambda x, y: pow(x, P - 2, P)}
+    bad = []
+    for i, (x, y) in enumerate(zip(a, b)):
+        if op == "split":
+            k1 = out1[i] - M if out1[i] >> 255 else out1[i]
+            k2 = out2[i] - M if out2[i] >> 255 else out2[i]
+            ok = (k1, k2) == glv_split(x) and abs(k1) < 1 << 128 \
+                and abs(k2) < 1 << 128
+        elif op == "canon":
+            ok = out1[i] == want[op](x, y)
+        else:
+            ok = out1[i] % P == want[op](x, y)
+        if not ok:
+            bad.append(i)
+    return bad
+
+
+def phase_selftest_secp(prng, count: int = 4096) -> dict:
+    """Phase 2a: the field and scalar primitives of csrc/secp256k1.cuh on
+    the card (their PTX carry chains), op by op, against Python
+    integers; a squaring must also equal the multiplication a * a word
+    for word."""
+    import torch
+
+    from pybitmessage_tpu_torch.ops import _build
+
+    lib = _build.load()
+    dev = torch.device("cuda")
+    a, b = _selftest_operands(prng, count)
+    n = len(a)
+
+    def upload(vals):
+        return torch.frombuffer(bytearray(_be(vals)),
+                                dtype=torch.uint8).to(dev)
+
+    ta, tb = upload(a), upload(b)
+    out = torch.empty(n * 64, dtype=torch.uint8, device=dev)
+
+    def run(op, x, y):
+        err = lib.bm_secp_selftest(op, x.data_ptr(), y.data_ptr(),
+                                   out.data_ptr(), n, _build.stream(dev))
+        _build.check(lib, err, "bm_secp_selftest")
+        raw = out.cpu().numpy().tobytes()
+        return ([int.from_bytes(raw[64 * i:64 * i + 32], "big")
+                 for i in range(n)],
+                [int.from_bytes(raw[64 * i + 32:64 * i + 64], "big")
+                 for i in range(n)])
+
+    results = {}
+    for code, op in enumerate(SELFTEST_OPS):
+        out1, out2 = run(code, ta, tb)
+        bad = _selftest_bad(op, a, b, out1, out2)
+        require(not bad, "self-test %s differs from Python integers at "
+                "%s" % (op, [(a[i], b[i]) for i in bad[:3]]))
+        results[op] = out1
+    square_as_product, _ = run(0, ta, ta)
+    require(square_as_product == results["sqr"],
+            "self-test: a squaring differs from the product a * a")
+    print("self-test secp: %d operand pairs x %d operations on the card "
+          "equal Python integers" % (n, len(SELFTEST_OPS)))
+    return {"pairs": n, "ops": list(SELFTEST_OPS)}
 
 
 def phase_compare_secp(prng, device: str = "cuda",
@@ -1106,25 +1339,43 @@ def phase_times_secp(prng, env: dict, launches: dict, errs: dict) -> list:
     for name, (lanes, tensors, kernel, ref) in cases.items():
         mults, sqrs = secp_field_ops(name, lanes)
         slots = mults * IMAD_PER_FIELD_MUL + sqrs * IMAD_PER_FIELD_SQR
+        counts = {"design": secp_field_ops(name, lanes, design=True),
+                  "ladder": ladder_field_ops(name, lanes)}
         entry = {"name": name, "route": "cuda", "source": SECP_SOURCE,
                  "replaces": REPLACES[name], "launches": launches[name],
                  "bound_by": "operations", "library_ms": None,
+                 "field_ops_per_lane": [mults / len(lanes),
+                                        sqrs / len(lanes)],
                  "lanes": {}}
+        for key, (m, s) in counts.items():
+            entry[key + "_field_ops_per_lane"] = [m / len(lanes),
+                                                  s / len(lanes)]
         for reps, count in ((3, 4096), (3, 65536)):
             args = tensors(lanes * (count // len(lanes)), dev)
             kernel(*args)                               # warm
             ms = _event_ms(lambda: kernel(*args), reps)
-            ops_ms = slots * (count // len(lanes)) / rate * 1e3
+            copies = count // len(lanes)
+            ops_ms = slots * copies / rate * 1e3
             bytes_ms = count * SECP_LANE_BYTES[name] / MEMORY_BYTES_PER_S \
                 * 1e3
             bound_ms = max(ops_ms, bytes_ms)
-            entry["lanes"][count] = {"ms": ms, "bound_ms": bound_ms,
-                                     "imad_slots": slots * (count //
-                                                            len(lanes))}
+            at = entry["lanes"][count] = {"ms": ms, "bound_ms": bound_ms,
+                                          "imad_slots": slots * copies}
+            for key, (m, s) in counts.items():
+                at[key + "_bound_ms"] = (
+                    m * IMAD_PER_FIELD_MUL + s * IMAD_PER_FIELD_SQR) \
+                    * copies / rate * 1e3
             print("time %s x %d lanes: %.3f ms/launch, bound %.4f ms "
-                  "(%.1f%%; %.1f field multiplies and %.1f squarings a "
-                  "lane)" % (name, count, ms, bound_ms, bound_ms / ms * 100,
-                             mults / len(lanes), sqrs / len(lanes)))
+                  "(%.1f%%; the least work, %.1f field multiplies and %.1f "
+                  "squarings a lane); the kernels' two-thread design: "
+                  "%.1f and %.1f, %.4f ms; the double-and-add ladder: "
+                  "%.1f and %.1f, %.4f ms" % (
+                      name, count, ms, bound_ms, bound_ms / ms * 100,
+                      mults / len(lanes), sqrs / len(lanes),
+                      *entry["design_field_ops_per_lane"],
+                      at["design_bound_ms"],
+                      *entry["ladder_field_ops_per_lane"],
+                      at["ladder_bound_ms"]))
             if count == 4096:
                 got = kernel(*args)
                 plain_ms = _event_ms(lambda: ref(*args), 1)
@@ -1165,6 +1416,7 @@ def main() -> int:
     t_start = time.perf_counter()
     env = phase_environment()
     errs = phase_compare(rng)
+    selftest = phase_selftest_secp(prng)
     errs.update(phase_compare_secp(prng))
     main_path = phase_main_path(rng)
     receive = phase_receive(rng2, prng)
@@ -1175,7 +1427,7 @@ def main() -> int:
     if args.report:
         with open(args.report, "w") as fh:
             json.dump({"env": env, "main_path": main_path,
-                       "receive": receive, "kernels": kernels,
+                       "selftest": selftest, "receive": receive, "kernels": kernels,
                        "wall_s": wall}, fh, indent=1)
     print(json.dumps({"kernels": [
         {k: entry[k] for k in KERNEL_KEYS}

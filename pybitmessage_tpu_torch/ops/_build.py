@@ -49,10 +49,13 @@ _ENTRY_POINTS = {
     "bm_pow_packed_search": [_c.c_void_p, _c.c_void_p, _c.c_void_p,
                              _c.c_int, _c.c_int, _c.c_uint64, _c.c_uint64,
                              _c.c_void_p, _c.c_void_p],
-    # (u1, u2, qx, qy, r, ok, n, stream)
-    "bm_secp_verify": [_c.c_void_p] * 6 + [_c.c_int, _c.c_void_p],
-    # (k, px, py, x, y, ok, n, stream)
-    "bm_secp_ecdh": [_c.c_void_p] * 6 + [_c.c_int, _c.c_void_p],
+    # (u1, u2, qx, qy, r, comb, ok, n, stream)
+    "bm_secp_verify": [_c.c_void_p] * 7 + [_c.c_int, _c.c_void_p],
+    # (k, px, py, comb, x, y, ok, n, stream)
+    "bm_secp_ecdh": [_c.c_void_p] * 7 + [_c.c_int, _c.c_void_p],
+    # (op, a, b, out, n, stream)
+    "bm_secp_selftest": [_c.c_int] + [_c.c_void_p] * 3 + [_c.c_int,
+                                                          _c.c_void_p],
 }
 
 

@@ -59,7 +59,8 @@ def _imported_modules(path: Path):
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
-                         + [ROOT / "chip_smoke.py"],
+                         + [ROOT / "chip_smoke.py"]
+                         + sorted((ROOT / "torch_tools").glob("*.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_neither_jax_nor_the_reference(path):
     for name in _imported_modules(path):
