@@ -10,8 +10,12 @@ Phases (any failure exits non-zero):
    SASS histograms;
 2. each PoW kernel against its plain torch version on the card, on
    seeded inputs (hits mid-slab, no hits, always-hit pads, bases near
-   2^32 and 2^64, pack 16/4/1 for the packed kernel): outputs must be
-   bit-identical;
+   2^32 and 2^64, pack 16/4/1 for the packed kernel), and the packed
+   kernel at the storm's shape (1,024 objects, pack 16, chunks 64) with
+   every edge case of its contract (``packed_edges``: hits at offset 0
+   and in the last slot, two hits in a round, no hit, wraps past 2^32 and
+   2^64, pads), then one object alone at pack 1: outputs must be
+   bit-identical and every hit valid by hashlib;
 2a. the secp256k1 header's field and scalar primitives on the card (its
    PTX carry chains: mul, sqr, add, sub, the fold, canonical form,
    inverse, the GLV split) against Python integers on the carry
@@ -35,11 +39,12 @@ Phases (any failure exits non-zero):
    crypto drain may fail;
 4. times: each kernel at its main-path shape (CUDA events over warm
    launches) beside its plain version and its bound; the packed kernel
-   on the storm's own targets and on targets that mostly miss; the secp
-   kernels at 4,096 and 65,536 lanes, their bound from the least work
-   these lanes need (``secp_field_ops``: one GLV walk whose halves share
-   their doublings), with the count of the kernels' own two-thread
-   design and of the first port's double-and-add ladder
+   on the storm's own targets and on targets that mostly miss, with the
+   trials it executed (its launch counters) against those the data
+   needs; the secp kernels at 4,096 and 65,536 lanes, their bound from
+   the least work these lanes need (``secp_field_ops``: one GLV walk
+   whose halves share their doublings), with the count of the kernels'
+   own two-thread design and of the first port's double-and-add ladder
    (``ladder_field_ops``) printed beside it.
 
 The receive phases draw their data from a second generator seeded from
@@ -323,7 +328,91 @@ def _same(name: str, got, want, ihs, targets, step_rows) -> int:
     return err
 
 
-def phase_compare(rng) -> dict:
+#: the packed kernel's shape in the storm (c): 1,024 objects a launch
+STORM_PACKED = dict(rows=128, chunks=64, pack=16, unroll=1)
+STORM_OBJECTS = 64 * 16
+
+
+def _hit_offsets(ih: bytes, target: int, start: int, count: int,
+                 device) -> list:
+    """Offsets in [0, count) whose nonce start + offset (mod 2^64) hits
+    ``target``, from the plain trial on ``device``."""
+    import torch
+
+    from pybitmessage_tpu_torch.ops.sha512 import (initial_hash_words,
+                                                   trial_values)
+    from pybitmessage_tpu_torch.ops.u64 import le_u, to_i64
+
+    words = initial_hash_words(ih, device)
+    hits = []
+    chunk = 1 << 22
+    for first in range(0, count, chunk):
+        values, _ = trial_values(to_i64((start + first) & MASK64), words,
+                                 min(chunk, count - first))
+        hits += (torch.nonzero(le_u(values, to_i64(target))).flatten()
+                 + first).tolist()
+    return hits
+
+
+def packed_edges(rng, n: int, device) -> list:
+    """(ih, base, target) for each edge case of the packed kernel's
+    contract over n offsets: a hit at offset 0, a hit in the last slot
+    (n - 1), two hits in one round of 32 (the lower not at its start), no
+    hit, hits past bases near 2^32 and 2^64, an always-hit pad."""
+    def fresh():
+        return rng.bytes(64), int(rng.integers(1 << 20, 1 << 40))
+
+    edges = []
+    ih, start = fresh()
+    target = (1 << 64) // 1024
+    edges.append((ih, start + _hit_offsets(ih, target, start, 1 << 16,
+                                           device)[0], target))
+    # the last slot: a hit with none in the n - 1 nonces before it
+    ih, start = fresh()
+    target = (1 << 64) // (16 * n)
+    hits = _hit_offsets(ih, target, start, 256 * n, device)
+    last = next(b for a, b in zip([-1] + hits, hits) if b - a >= n)
+    edges.append((ih, start + last - (n - 1), target))
+    # two hits in one round
+    ih, start = fresh()
+    target = (1 << 64) // 8
+    rounds: dict = {}
+    for h in _hit_offsets(ih, target, start, 32 * 64, device):
+        rounds.setdefault(h // 32, []).append(h % 32)
+    rnd = next(r for r, lanes in sorted(rounds.items())
+               if len(lanes) >= 2 and lanes[0] > 0)
+    edges.append((ih, start + 32 * rnd, target))
+    edges.append((rng.bytes(64), fresh()[1], 1))
+    mid = (1 << 64) // max(1, n // 2)
+    edges.append((rng.bytes(64), (1 << 32) - n // 4, mid))
+    edges.append((rng.bytes(64), (1 << 64) - n // 4, mid))
+    edges.append((rng.bytes(64), fresh()[1], ALWAYS_HIT))
+    return edges
+
+
+def packed_edge_cases(rng, device) -> list:
+    """Launches of the packed kernel that hold every edge case at the
+    storm's shape: (shape, ihs, bases, targets).  First 1,024 objects at
+    pack 16 (the edge cases, more pads, the rest the storm's own objects,
+    shuffled), then single objects at pack 1 (the last-slot hit and the
+    wrap past 2^64), where every warp works on the one object."""
+    shape = STORM_PACKED
+    n = shape["rows"] // shape["pack"] * 128 * shape["chunks"]
+    edges = packed_edges(rng, n, device)
+    edges += [(rng.bytes(64), 0, ALWAYS_HIT) for _ in range(9)]
+    ihs, bases, targets = _storm_objects(rng, STORM_OBJECTS - len(edges))
+    objs = edges + list(zip(ihs, bases, targets))
+    order = rng.permutation(len(objs))
+    cases = [(shape, *map(list, zip(*[objs[i] for i in order])))]
+    alone = dict(rows=128, chunks=8, pack=1, unroll=1)
+    n = 128 * 128 * alone["chunks"]
+    edges = packed_edges(rng, n, device)
+    for ih, base, target in (edges[1], edges[5]):
+        cases.append((alone, [ih], [base], [target]))
+    return cases
+
+
+def phase_compare(rng, edge_rng) -> dict:
     import torch
 
     from pybitmessage_tpu_torch.ops import sha512_cuda as sc
@@ -382,6 +471,15 @@ def phase_compare(rng) -> dict:
             "cuda_packed_search pack %d" % pack, [got], [want], ihs,
             targets, True))
         cases += n_obj
+    # kernel 3 at the storm's shape with every edge case of its contract
+    for shape, ihs, bases, targets in packed_edge_cases(edge_rng, dev):
+        args = _tensors(ihs, bases, targets, dev)
+        got = sc.cuda_packed_search(*args, **shape)
+        want = sc.packed_search_ref(*args, **shape)
+        errs["packed_search"] = max(errs["packed_search"], _same(
+            "cuda_packed_search edge cases, %d objects at pack %d"
+            % (len(ihs), shape["pack"]), [got], [want], ihs, targets, True))
+        cases += len(ihs)
     torch.cuda.synchronize()
     print("compare: %d objects, kernels bit-identical to plain versions"
           % cases)
@@ -568,7 +666,6 @@ def phase_times(rng, env: dict, launches: dict, errs: dict) -> list:
     from pybitmessage_tpu_torch.ops import sha512_cuda as sc
 
     dev = torch.device("cuda")
-    packed = dict(rows=sc.DEFAULT_ROWS, chunks=64, pack=16, unroll=1)
     cases = [
         ("search", "miss", dict(rows=sc.DEFAULT_ROWS,
                                 chunks=sc.DEFAULT_CHUNKS,
@@ -577,8 +674,8 @@ def phase_times(rng, env: dict, launches: dict, errs: dict) -> list:
                                       chunks=sc.BATCH_CHUNKS,
                                       unroll=sc.BATCH_UNROLL),
          sc.BATCH_OBJS),
-        ("packed_search", "storm", packed, 64 * 16),
-        ("packed_search", "miss", packed, 64 * 16),
+        ("packed_search", "storm", STORM_PACKED, STORM_OBJECTS),
+        ("packed_search", "miss", STORM_PACKED, STORM_OBJECTS),
     ]
     kernels = []
     for name, inputs, shape, n_obj in cases:
@@ -609,6 +706,7 @@ def phase_times(rng, env: dict, launches: dict, errs: dict) -> list:
                 return ref(*args, **shape)
         got = kernel()                              # warm
         ms = _event_ms(kernel, 5)
+        counters = sc.packed_counters() if name == "packed_search" else {}
         plain_ms = _event_ms(plain, 1)
         want = plain()
         if name == "search":
@@ -629,6 +727,13 @@ def phase_times(rng, env: dict, launches: dict, errs: dict) -> list:
               "bound %.3f ms (%.1f%%)"
               % (name, inputs, shape, n_obj, ms, trials, trials / ms * 1e3,
                  plain_ms, bound_ms, bound_ms / ms * 100))
+        if counters:
+            executed = 32 * counters["hashed_rounds"]
+            counters.update(executed_trials=executed,
+                            executed_per_needed=executed / trials)
+            print("  packed counters (%s targets): %d trials executed / %d "
+                  "needed = %.4f; %s" % (inputs, executed, trials,
+                                         executed / trials, counters))
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name], "launches": launches[name],
@@ -636,7 +741,7 @@ def phase_times(rng, env: dict, launches: dict, errs: dict) -> list:
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": None,
-            "inputs": inputs, "trials": trials,
+            "inputs": inputs, "trials": trials, "counters": counters,
             "trials_per_s": trials / ms * 1e3,
             "shape": dict(shape, objects=n_obj)})
     # the kernels line holds each kernel once, at the main path's inputs
@@ -1415,7 +1520,9 @@ def main() -> int:
     prng = random.Random(int(rng2.integers(1 << 62)))
     t_start = time.perf_counter()
     env = phase_environment()
-    errs = phase_compare(rng)
+    # the packed kernel's edge cases: a third generator, so the later
+    # phases' inputs do not depend on them
+    errs = phase_compare(rng, np.random.default_rng([args.seed, 3]))
     selftest = phase_selftest_secp(prng)
     errs.update(phase_compare_secp(prng))
     main_path = phase_main_path(rng)

@@ -28,23 +28,37 @@
 //
 // Early exit without losing the lowest hit.  The TPU grid ran in order, so
 // "first hit step, lowest lane" came for free there and later steps were
-// skipped.  Here blocks run concurrently and in no order, so a counter in
-// global memory hands each warp the next 256 slots of the launch, in
-// increasing order, whatever blocks happen to be resident: the card always
-// works on the lowest slots still open.  Slots are numbered so that each
-// object's offsets rise with the counter.  Before each 32 slots a warp
-// reads the object's best hit (an atomic read, so never a stale cached
-// copy) and skips them when they lie ABOVE it; a slot below the best is
-// always hashed, which keeps the lowest-nonce contract.  Three ways out
-// keep a solved object from costing a walk over its remaining slots:
+// skipped.  Here blocks run concurrently and in no order.
 //
-//   * kernel 1 (one object): a warp whose round starts above the best is
-//     done, since every later round does too;
-//   * every kernel counts its objects' first hits; once all have one, a
-//     warp about to take new slots returns instead (any slot not yet
-//     handed out lies above its object's best);
-//   * kernel 2 (object-major slots): a warp that finds its object solved
-//     moves the counter past the rest of that object's slots.
+// Kernels 1 and 2: a counter in global memory hands each warp the next
+// 256 slots of the launch, in increasing order, whatever blocks happen to
+// be resident: the card always works on the lowest slots still open.
+// Slots are numbered so that each object's offsets rise with the counter.
+// Before each 32 slots a warp reads the object's best hit (an atomic
+// read) and skips them when they lie ABOVE it; a slot below the best is
+// always hashed, which keeps the lowest-nonce contract.  Kernel 1 (one
+// object) ends a warp whose round starts above the best; kernel 2
+// (object-major slots) moves the counter past a solved object's slots
+// and returns once every object has a hit.
+//
+// Kernel 3 (storms: many tiny objects, most solved within a few thousand
+// nonces, the slowest several times later) claims per object instead
+// (packed_claims.cuh).  Each object has its own counter; a block claims
+// the next 256 offsets of its object with one atomicAdd and its 8 warps
+// hash them side by side, in step, until a claim finds the object
+// finished (the claim above its best or past its range); then the block
+// moves to a live object from a start of its own.  No slot of a finished
+// object is visited again (the first port walked 8.7 skipped rounds, each
+// an atomic read at L2, for every round it hashed on the storm's targets),
+// and the last object gets every block.  Reads of best and next are plain
+// loads.  Why blocks: warps that each claim for themselves drift out of
+// step and then hash a round about a fifth slower; a barrier that hands
+// each claim to the block's warps keeps them in step
+// (torch_tools/pow_packed_bench.py times both).  What bounds it: the
+// integer instruction rate, as for kernels 1 and 2, over the trials the
+// data needs plus the ones in flight on an object when its hit is found
+// (the claims above the hit and the rest of the hit's own claim): on the
+// storm's targets about 1.45x the needed trials.
 //
 // Hoisting the schedule words that depend only on the initial hash, and
 // more instruction-level parallelism per thread, are left to later tuning.
@@ -52,6 +66,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "packed_claims.cuh"
 #include "sha512_pow.cuh"
 
 namespace {
@@ -141,41 +156,20 @@ bm_batch_search_kernel(const u64* __restrict__ ih,
     }
 }
 
-// Kernel 3: groups of `pack` objects; object k of group g owns `span` =
-// rows/pack*128 consecutive nonces per sub-step, as in the TPU tiles.
-// Slots run step-major, (step, group, object, lane), so every object of
-// the launch advances together and a storm of tiny objects, which all hit
-// in their first steps, ends the launch early.  Each warp derives its
-// object and reads that object's words, target and base itself (the
-// reference gathered them into per-lane tiles before the launch).  span
-// is a multiple of 32.
+// Kernel 3: `objs` objects, each over offsets [0, n), n a multiple of 32.
+// The TPU tiles (groups of `pack` objects, rows/pack*128 nonces an object
+// a sub-step) are only the output geometry, which the wrapper rebuilds;
+// the order of work is packed_claims.cuh's.  scratch: best[objs],
+// next[objs], then the launch counters (BmPackedCounter).
+static_assert(kThreads == 32 * kBmBlockWarps, "a claim is a block's");
+
 __global__ void __launch_bounds__(kThreads)
 bm_packed_search_kernel(const u64* __restrict__ ih,
                         const u64* __restrict__ bases,
-                        const u64* __restrict__ targets, u64 pack,
-                        u64 groups, u64 span, u64 total, u64* best,
-                        u64* counter, u64* solved) {
-    const u64 objs = groups * pack;
-    for (;;) {
-        if (read_shared(solved) >= objs) return;
-        const u64 first = grab_slots(counter);
-        for (u64 round = 0; round < kWarpChunk; round += 32) {
-            const u64 i0 = first + round;
-            if (i0 >= total) return;
-            u64 q = i0 / span;
-            const u64 local0 = i0 - q * span;
-            const u64 k = q % pack;
-            q /= pack;
-            const u64 obj = (q % groups) * pack + k;
-            const u64 off0 = (q / groups) * span + local0;
-            if (off0 > read_shared(best + obj)) continue;
-            uint64_t words[8];
-            load_words(ih + 8 * obj, words);
-            const u64 off = off0 + lane_id();
-            if (bm_pow_trial(bases[obj] + off, words) <= targets[obj])
-                record_hit(best + obj, solved, off);
-        }
-    }
+                        const u64* __restrict__ targets, u64 objs, u64 n,
+                        u64* scratch) {
+    bm_packed_search_block<true>((const uint64_t*)ih, (const uint64_t*)bases,
+                                 (const uint64_t*)targets, objs, n, scratch);
 }
 
 // Blocks for `total` slots: no more than fit on the card at once.
@@ -196,21 +190,23 @@ cudaError_t grid_for(Kernel kernel, u64 total, int* blocks) {
     return cudaSuccess;
 }
 
-// best[0..objs) = UINT64_MAX (no hit); best[objs] (the slot counter) and
-// best[objs + 1] (the count of solved objects) = 0.
-cudaError_t reset(void* best, int objs, cudaStream_t stream) {
+// best[0..objs) = UINT64_MAX (no hit); the `zeros` words after them = 0
+// (kernels 1 and 2: the slot counter and the count of solved objects).
+cudaError_t reset(void* best, u64 objs, cudaStream_t stream, u64 zeros = 2) {
     cudaError_t err =
         cudaMemsetAsync(best, 0xFF, sizeof(u64) * (size_t)objs, stream);
     if (err != cudaSuccess) return err;
-    return cudaMemsetAsync((u64*)best + objs, 0, 2 * sizeof(u64), stream);
+    return cudaMemsetAsync((u64*)best + objs, 0, sizeof(u64) * zeros,
+                           stream);
 }
 
 }  // namespace
 
 // Plain C entry points (bound with ctypes).  Pointers are device pointers
 // of contiguous int64 tensors holding u64 bit patterns; `best` has objs + 2
-// words (then the kernel's slot counter and its count of solved objects); `stream` is the caller's
-// cudaStream_t.  Each resets best[], launches, and returns
+// words (then the kernel's slot counter and its count of solved objects;
+// the packed kernel's scratch is larger, see its entry); `stream` is the
+// caller's cudaStream_t.  Each resets best[], launches, and returns
 // cudaGetLastError() (0 = launched).  None synchronises.
 
 extern "C" int bm_pow_search(const void* ih, u64 base, u64 target, u64 n,
@@ -246,24 +242,25 @@ extern "C" int bm_pow_batch_search(const void* ih, const void* bases,
     return (int)cudaGetLastError();
 }
 
+// `best` here is the packed kernel's scratch: 2 * objs + kBmCounters
+// words (best[], next[], the launch counters), reset on the stream.
 extern "C" int bm_pow_packed_search(const void* ih, const void* bases,
                                     const void* targets, int groups,
                                     int pack, u64 steps, u64 span,
                                     void* best, void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
     if (span % 32) return (int)cudaErrorInvalidValue;
-    const int objs = groups * pack;
-    cudaError_t err = reset(best, objs, s);
-    const u64 total = (u64)groups * steps * (u64)pack * span;
+    const u64 objs = (u64)groups * (u64)pack;
+    const u64 n = steps * span;
+    cudaError_t err = reset(best, objs, s, objs + kBmCounters);
     int blocks = 0;
-    if (err == cudaSuccess && total > 0)
-        err = grid_for(bm_packed_search_kernel, total, &blocks);
+    if (err == cudaSuccess && objs * n > 0)
+        err = grid_for(bm_packed_search_kernel, objs * n, &blocks);
     if (err != cudaSuccess) return (int)err;
     if (blocks > 0)
         bm_packed_search_kernel<<<blocks, kThreads, 0, s>>>(
-            (const u64*)ih, (const u64*)bases, (const u64*)targets,
-            (u64)pack, (u64)groups, span, total, (u64*)best,
-            (u64*)best + objs, (u64*)best + objs + 1);
+            (const u64*)ih, (const u64*)bases, (const u64*)targets, objs, n,
+            (u64*)best);
     return (int)cudaGetLastError();
 }
 

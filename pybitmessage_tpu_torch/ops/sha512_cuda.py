@@ -57,6 +57,13 @@ BATCH_UNROLL = 4
 #: kernel launches per wrapper, counted where the kernel is launched
 LAUNCHES = {"search": 0, "batch_search": 0, "packed_search": 0}
 
+#: the packed kernel's launch counters, the words of its scratch after
+#: best[B] and next[B] (``csrc/packed_claims.cuh`` BmPackedCounter)
+PACKED_COUNTERS = ("solved", "hashed_rounds", "skipped_rounds", "claims",
+                   "switches")
+#: the last CUDA launch of the packed kernel's scratch, kept on the card
+_last_packed: dict = {}
+
 
 def reset_launches() -> None:
     for name in LAUNCHES:
@@ -252,15 +259,29 @@ def cuda_packed_search(ih_words: torch.Tensor, bases: torch.Tensor,
                                  chunks=chunks, pack=pack, unroll=unroll)
     span = rows // pack * LANE_COLS
     lib = _build.load()
-    best = torch.empty(n_obj + 2, dtype=torch.int64, device=dev)
+    # best[B], next[B] (each object's claim counter), the launch counters
+    scratch = torch.empty(2 * n_obj + len(PACKED_COUNTERS),
+                          dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         err = lib.bm_pow_packed_search(
             ih_words.data_ptr(), bases.data_ptr(), targets.data_ptr(),
-            n_obj // pack, pack, chunks * unroll, span, best.data_ptr(),
+            n_obj // pack, pack, chunks * unroll, span, scratch.data_ptr(),
             _build.stream(dev))
     _build.check(lib, err, "bm_pow_packed_search")
     LAUNCHES["packed_search"] += 1
-    return _rows(best[:n_obj], bases, span * unroll)
+    _last_packed.update(scratch=scratch, objs=n_obj)
+    return _rows(scratch[:n_obj], bases, span * unroll)
+
+
+def packed_counters() -> dict:
+    """The counters of the last CUDA launch of :func:`cuda_packed_search`
+    (``PACKED_COUNTERS``: rounds of 32 offsets hashed, claims that found
+    their object finished, claims, objects picked).  Reads the card, so
+    it waits for that launch; the search itself never does."""
+    if not _last_packed:
+        raise RuntimeError("no CUDA launch of the packed kernel yet")
+    words = _last_packed["scratch"][2 * _last_packed["objs"]:].tolist()
+    return dict(zip(PACKED_COUNTERS, words))
 
 
 # ---------------------------------------------------------------------------

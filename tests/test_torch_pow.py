@@ -389,6 +389,19 @@ def test_cuda_kernels_match_plain_versions(cuda):
         want = sha512_cuda.search_ref(ih[b], base, target, rows=2, chunks=4,
                                       unroll=2)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
+    # the packed kernel at the storm's shape (1,024 objects, pack 16,
+    # chunks 64) with every edge case of its contract, then pack 1 alone;
+    # every hit re-checked with hashlib
+    import chip_smoke
+    for shape, ihs, bases, targets in chip_smoke.packed_edge_cases(
+            np.random.default_rng(12), cuda):
+        args = chip_smoke._tensors(ihs, bases, targets, cuda)
+        got = sha512_cuda.cuda_packed_search(*args, **shape)
+        want = sha512_cuda.packed_search_ref(*args, **shape)
+        assert torch.equal(got, want)
+        for (step1, hi, lo), ih_b, target in zip(got.tolist(), ihs, targets):
+            if step1:
+                assert _trial((hi << 32) | lo, ih_b) <= target
 
 
 @pytest.mark.cuda
