@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's send and receive paths on one CUDA card.
+"""Drive the PyTorch/CUDA port's send and receive paths and its node on a card.
 
     python3 chip_smoke.py [--seed N] [--report PATH]
 
@@ -37,6 +37,15 @@ Phases (any failure exits non-zero):
    4,096 key derivations through ``CudaSecp().base_mult_batch``; every
    result is checked, both secp kernels must have been launched and no
    crypto drain may fail;
+5. the node (``phase_node``), two and three ``Node()``s on the card
+   joined by a bridge in this script at network difficulty: (i) the
+   two-node flow getpubkey -> pubkey -> msg -> ack and a broadcast to a
+   subscriber, (j) an ingest flood of 256 1 KB messages to 8 identities
+   plus 64 to a node the receiver does not hold, each inbox row held to
+   what was sent and each ack to its message; every nonce re-checked
+   with hashlib (a sample also proven lowest), every crypto check on
+   the batch engine, no drain failed; kernels 1, 2, 4 and 5 must have
+   been launched in the phase (kernel 3 when the planner packs);
 4. times: each kernel at its main-path shape (CUDA events over warm
    launches) beside its plain version and its bound; the packed kernel
    on the storm's own targets and on targets that mostly miss, with the
@@ -49,6 +58,9 @@ Phases (any failure exits non-zero):
 
 The receive phases draw their data from a second generator seeded from
 ``--seed``, so phases 1-4 keep their inputs.
+Phase 5 runs before phase 4 and draws from a fourth generator; each
+kernel's entry in the kernels line carries its launches on the send or
+receive path (``launches``) and in the node phase (``node_launches``).
 The second-to-last line of output is the ``{"kernels": [...]}`` record,
 the last ``{"ok": true, "device": {...}}``.  Exits non-zero without
 printing either when no CUDA device is present.
@@ -89,7 +101,7 @@ REPLACES = {
 #: the keys of an entry of the kernels line
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-               "library_ms")
+               "library_ms", "node_launches")
 MASK64 = (1 << 64) - 1
 ALWAYS_HIT = MASK64
 
@@ -502,7 +514,8 @@ def _msg(rng, length: int, ttl: int, ntpb: int = 1000, extra: int = 1000,
             pow_target(length, ttl, ntpb, extra, clamp=clamp))
 
 
-def _no_lower_nonce(ih: bytes, target: int, nonce: int) -> None:
+def _no_lower_nonce(ih: bytes, target: int, nonce: int,
+                    device: str = "cuda") -> None:
     """Plain trial over [0, nonce) on the card: nothing may hit."""
     import torch
 
@@ -510,14 +523,15 @@ def _no_lower_nonce(ih: bytes, target: int, nonce: int) -> None:
                                                    trial_values)
     from pybitmessage_tpu_torch.ops.u64 import le_u, to_i64
 
-    words = initial_hash_words(ih, "cuda")
+    words = initial_hash_words(ih, device)
     chunk = 1 << 23
     t = to_i64(target)
     for start in range(0, nonce, chunk):
         values, _ = trial_values(start, words, min(chunk, nonce - start))
         require(not bool(le_u(values, t).any()),
                 "a valid nonce below %d exists" % nonce)
-    torch.cuda.synchronize()
+    if device == "cuda":
+        torch.cuda.synchronize()
 
 
 def phase_main_path(rng) -> dict:
@@ -1422,6 +1436,408 @@ def phase_receive(rng, prng, *, device=None, flood: int = 10000,
             "failed_drains": engine.failed_drains}
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the node
+# ---------------------------------------------------------------------------
+
+
+class Bridge:
+    """The network between this script's nodes: an object a node
+    announces goes to the acceptance function
+    (``network.connection.accept_object``) of each node linked to it.
+    A held link keeps its objects until :meth:`release`."""
+
+    def __init__(self):
+        #: accept_object outcomes ("accepted", "duplicate", ...), and
+        #: "error" for an acceptance that raised
+        self.outcomes: dict = {}
+        self._links: dict = {}
+        self._held: dict = {}
+        self._tasks: set = set()
+
+    def link(self, src, *dsts) -> None:
+        self._links[src] = dsts
+
+        def on_announce(h, stream, local):
+            payload = src.inventory[h].payload
+            if src in self._held:
+                self._held[src].append(payload)
+            else:
+                self._send(payload, dsts)
+        src.pool.on_announce = on_announce
+
+    def _send(self, payload: bytes, dsts) -> None:
+        from pybitmessage_tpu_torch.network.connection import accept_object
+        for dst in dsts:
+            task = asyncio.get_running_loop().create_task(
+                accept_object(dst.ctx, dst.pool, payload))
+            self._tasks.add(task)
+            task.add_done_callback(self._done)
+
+    def _done(self, task) -> None:
+        self._tasks.discard(task)
+        if task.cancelled():
+            return
+        outcome = "error" if task.exception() is not None else task.result()
+        self.outcomes[outcome] = self.outcomes.get(outcome, 0) + 1
+
+    def hold(self, src) -> None:
+        self._held[src] = []
+
+    def held(self, src) -> int:
+        return len(self._held.get(src, ()))
+
+    def release(self, src) -> int:
+        held = self._held.pop(src)
+        for payload in held:
+            self._send(payload, self._links[src])
+        return len(held)
+
+    async def settle(self) -> None:
+        while self._tasks:
+            await asyncio.gather(*list(self._tasks), return_exceptions=True)
+
+
+class _Clock:
+    """Host seconds spent in wrapped callables, by name (summed over the
+    threads that call them)."""
+
+    def __init__(self):
+        self.seconds: dict = {}
+        self._undo: list = []
+
+    def wrap(self, owner, attr: str, name: str) -> None:
+        fn = getattr(owner, attr)
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.seconds[name] = self.seconds.get(name, 0.0) + \
+                    time.perf_counter() - t0
+        setattr(owner, attr, timed)
+        self._undo.append((owner, attr, fn))
+
+    def lap(self) -> dict:
+        """The seconds since the last lap."""
+        out, self.seconds = self.seconds, {}
+        return out
+
+    def restore(self) -> None:
+        for owner, attr, fn in reversed(self._undo):
+            setattr(owner, attr, fn)
+        self._undo = []
+
+
+async def _until(pred, what: str, timeout: float) -> float:
+    """Wait (polling) until ``pred()``; the seconds it took."""
+    t0 = time.perf_counter()
+    while not pred():
+        require(time.perf_counter() - t0 < timeout,
+                "timed out after %.0f s waiting for %s" % (timeout, what))
+        await asyncio.sleep(0.01)
+    return time.perf_counter() - t0
+
+
+def _text(rng, n: int) -> str:
+    """``n`` seeded printable ASCII characters."""
+    return rng.integers(32, 127, size=n).astype(np.uint8).tobytes().decode()
+
+
+def phase_node(rng, *, device=None, test_mode: bool = False,
+               flood: int = 256, foreign: int = 64, idents: int = 8,
+               body_bytes: int = 1024, timeout: float = 600.0) -> dict:
+    """Phase 5: the node's main path, ``Node`` to ``Node`` through the
+    bridge.  (i) the two-node flow: A knows only B's address; getpubkey
+    -> pubkey -> msg with its embedded ack -> the ack; then a broadcast
+    to B, which subscribes to A.  (j) an ingest flood: B holds
+    ``idents`` identities, A has their pubkeys and queues ``flood``
+    messages of ``body_bytes`` to them (TTL 1 h - 4 d) plus ``foreign``
+    to a third node C that B does not hold; A's sending, B's ingest and
+    A's ingest of the acks are timed apart (each node's announcements
+    are held until the step before has finished).
+    Every PoW is re-checked with hashlib; the launch counts are zeroed
+    just before (i) and read after (j).  (``device="cpu"``,
+    ``test_mode=True`` and small sizes rehearse the phase with the
+    plain versions.)"""
+    from pybitmessage_tpu_torch.core import Node
+    from pybitmessage_tpu_torch.crypto import batch as engine_mod
+    from pybitmessage_tpu_torch.models.pow_math import check_pow
+    from pybitmessage_tpu_torch.ops import secp256k1_cuda as scc
+    from pybitmessage_tpu_torch.ops import sha512_cuda as sc
+    from pybitmessage_tpu_torch.pow.pipeline import plan_batch
+    from pybitmessage_tpu_torch.storage.messages import ACKRECEIVED, MSGSENT
+    from pybitmessage_tpu_torch.workers import sender as sender_mod
+
+    day = 86400
+    ntpb = 10 if test_mode else 1000
+    solves: list = []        # (initial_hash, target, nonce) of every PoW
+    routes: dict = {}        # (objects, route, plan mode) -> calls
+    nodes: list = []
+
+    def make():
+        node = Node(device=device, test_mode=test_mode)
+        solve, solve_batch = node.pow_service.solve, node.solver.solve_batch
+
+        async def recorded(ih, target):
+            nonce, trials = await solve(ih, target)
+            solves.append((ih, target, nonce))
+            return nonce, trials
+
+        def routed(items, **kw):
+            items = list(items)
+            out = solve_batch(items, **kw)
+            key = "%d objects: %s, %s" % (
+                len(items), node.solver.last_backend, plan_batch(items).mode)
+            routes[key] = routes.get(key, 0) + 1
+            return out
+        node.pow_service.solve, node.solver.solve_batch = recorded, routed
+        nodes.append(node)
+        return node
+
+    def identity(node, label, **kw):
+        ident = node.create_identity(label, **kw)
+        # the difficulty its pubkey demands of senders: the network's,
+        # or test mode's when rehearsing
+        ident.nonce_trials_per_byte = ident.extra_bytes = ntpb
+        return ident
+
+    def launches() -> dict:
+        return {**sc.LAUNCHES, **scc.LAUNCHES}
+
+    def delta(before: dict) -> dict:
+        return {k: v - before[k] for k, v in launches().items()}
+
+    def check_objects(node) -> int:
+        """hashlib's check of every object in a node's inventory."""
+        count = 0
+        for h in node.inventory.hashes():
+            require(check_pow(node.inventory[h].payload, ntpb, ntpb,
+                              clamp=False),
+                    "an object in the inventory fails hashlib's PoW check")
+            count += 1
+        return count
+
+    def crypto_stats(node) -> dict:
+        engine = node.crypto.batch
+        return {"drains": engine.drains, "drain_pairs": engine.drain_pairs,
+                "engine_items": engine.gpu_items,
+                "failed_drains": engine.failed_drains,
+                "host_verifies": node.crypto.host_verifies,
+                "host_decrypts": node.crypto.host_decrypts,
+                "accepted": node.pool.objects_received,
+                "pow_device_checked": node.pow_verifier.device_checked,
+                "pow_host_checked": node.pow_verifier.host_checked}
+
+    report: dict = {}
+    stats: dict = {}
+    checked = [0]
+
+    async def finish(bridge, *group):
+        await bridge.settle()
+        require(not bridge.outcomes.get("error"),
+                "an object's acceptance raised")
+        for node in group:
+            checked[0] += check_objects(node)
+        for name, node in zip("abc", group):
+            stats.setdefault(name, []).append(crypto_stats(node))
+        for node in group:
+            await node.stop()
+
+    async def flow():
+        a, b = make(), make()
+        bridge = Bridge()
+        bridge.link(a, b)
+        bridge.link(b, a)
+        await a.start()
+        await b.start()
+        alice = identity(a, "alice")
+        bob = identity(b, "bob", deterministic=rng.bytes(16).hex().encode())
+        subject, body = _text(rng, 40), _text(rng, body_bytes)
+        before, t0 = launches(), time.perf_counter()
+        ack = await a.send_message(bob.address, alice.address, subject, body)
+        await _until(lambda: a.message_status(ack) == ACKRECEIVED,
+                     "(i) the ack", timeout)
+        wall = time.perf_counter() - t0
+        await _until(lambda: b.store.inbox(), "(i) B's inbox row", timeout)
+        rows = b.store.inbox()
+        require(len(rows) == 1, "(i) B's inbox holds %d rows" % len(rows))
+        row = rows[0]
+        require((row.subject, row.message, row.fromaddress, row.toaddress,
+                 row.encodingtype) == (subject, body, alice.address,
+                                       bob.address, 2),
+                "(i) B's inbox row differs from what A sent")
+        report["i_message"] = {"wall_s": wall, "launches": delta(before)}
+        b.keystore.subscribe(alice.address, "alice")
+        subject2, body2 = _text(rng, 40), _text(rng, body_bytes)
+        before, t0 = launches(), time.perf_counter()
+        await a.send_broadcast(alice.address, subject2, body2)
+        await _until(lambda: len(b.store.inbox()) == 2,
+                     "(i) the broadcast", timeout)
+        wall2 = time.perf_counter() - t0
+        row = [r for r in b.store.inbox() if r.toaddress == "[Broadcast]"]
+        require(len(row) == 1 and (row[0].subject, row[0].message,
+                                   row[0].fromaddress)
+                == (subject2, body2, alice.address),
+                "(i) the broadcast row differs from what A sent")
+        report["i_broadcast"] = {"wall_s": wall2, "launches": delta(before)}
+        print("node (i): getpubkey -> pubkey -> msg -> ack in %.3f s, "
+              "launches %s; broadcast in %.3f s, launches %s"
+              % (wall, report["i_message"]["launches"], wall2,
+                 report["i_broadcast"]["launches"]))
+        await finish(bridge, a, b)
+
+    async def ingest_flood():
+        a, b, c = make(), make(), make()
+        bridge = Bridge()
+        bridge.link(a, b)
+        bridge.link(b, a)
+        bridge.link(c, a)
+        for node in (a, b, c):
+            await node.start()
+        # set-up: B's identities and C's, their pubkeys in A's inventory
+        t0 = time.perf_counter()
+        mine = [identity(b, "b%d" % i) for i in range(idents)]
+        carol = identity(c, "carol")
+        me = identity(a, "sender")
+        await asyncio.gather(*(b.sender.send_my_pubkey(i.address)
+                               for i in mine),
+                             c.sender.send_my_pubkey(carol.address))
+        await bridge.settle()
+        require(a.pool.objects_received == idents + 1,
+                "(j) A holds %d of the %d pubkeys"
+                % (a.pool.objects_received, idents + 1))
+        plan = [(mine[k % idents], "flood %d" % k, _text(rng, body_bytes),
+                 int(rng.integers(3600, 4 * day + 1))) for k in range(flood)]
+        plan += [(carol, "foreign %d" % k, _text(rng, body_bytes),
+                  int(rng.integers(3600, 4 * day + 1)))
+                 for k in range(foreign)]
+        print("node (j) set-up: %d identities on B, 1 on C, %d pubkeys "
+              "in A's inventory in %.1f s"
+              % (idents, idents + 1, time.perf_counter() - t0))
+
+        # where the host time goes: the sender's pure-Python signing and
+        # encryption, the nonce searches (dispatcher calls, executor
+        # thread), the engine's drains and within them the kernel calls
+        # and the pure-Python AES of the matched payloads
+        clock = _Clock()
+        clock.wrap(sender_mod, "sign", "sign")
+        clock.wrap(sender_mod, "encrypt", "encrypt")
+        clock.wrap(a.solver, "solve_batch", "pow_solve_batch")
+        for name, node in (("a", a), ("b", b)):
+            engine = node.crypto.batch
+            clock.wrap(engine, "_execute", name + "_engine_drains")
+            clock.wrap(engine.backend, "verify_prepared",
+                       name + "_verify_calls")
+            clock.wrap(engine.backend, "ecdh_batch", name + "_ecdh_calls")
+        clock.wrap(engine_mod.ecies, "finish_decrypt", "aes_decrypt")
+        bridge.hold(a)
+        total = flood + foreign
+        clock.lap()
+        before, t0 = launches(), time.perf_counter()
+        acks = [await a.send_message(to.address, me.address, subj, text,
+                                     ttl=ttl)
+                for to, subj, text, ttl in plan]
+        await _until(lambda: len(a.store.sent_by_status(MSGSENT)) == total,
+                     "(j) A's sends", timeout)
+        send_wall = time.perf_counter() - t0
+        report["j_send"] = {"objects": total, "wall_s": send_wall,
+                            "objects_per_s": total / send_wall,
+                            "launches": delta(before),
+                            "host_s": clock.lap()}
+
+        # B's acks are held too, so B's ingest and A's ack ingest are
+        # timed apart and each verifier gets the flood at once
+        bridge.hold(b)
+        before, t0 = launches(), time.perf_counter()
+        require(bridge.release(a) == total,
+                "(j) A announced another count of objects than it sent")
+        await _until(lambda: b.processor.messages_processed >= total
+                     and not b.processor.pending()
+                     and len(b.store.inbox()) == flood
+                     and bridge.held(b) == flood,
+                     "(j) B's ingest", timeout)
+        ingest_wall = time.perf_counter() - t0
+        report["j_ingest"] = {"objects": total, "wall_s": ingest_wall,
+                              "objects_per_s": total / ingest_wall,
+                              "delivered": flood, "launches": delta(before),
+                              "host_s": clock.lap()}
+        before, t0 = launches(), time.perf_counter()
+        require(bridge.release(b) == flood, "(j) B flooded another count "
+                "of acks than it delivered")
+        await _until(lambda: len(a.store.sent_by_status(ACKRECEIVED))
+                     == flood, "(j) the acks", timeout)
+        ack_wall = time.perf_counter() - t0
+        report["j_acks"] = {"objects": flood, "wall_s": ack_wall,
+                            "objects_per_s": flood / ack_wall,
+                            "launches": delta(before),
+                            "host_s": clock.lap()}
+        clock.restore()
+        for step in ("j_send", "j_ingest", "j_acks"):
+            print("node %s host seconds: %s"
+                  % (step, json.dumps(report[step]["host_s"])))
+        rows = {(r.toaddress, r.subject): r for r in b.store.inbox()}
+        require(len(rows) == flood == len(b.store.inbox()),
+                "(j) B's inbox does not hold each message once")
+        for to, subj, text, _ in plan[:flood]:
+            row = rows.get((to.address, subj))
+            require(row is not None and row.message == text
+                    and row.fromaddress == me.address,
+                    "(j) %s missing or altered in B's inbox" % subj)
+        require(not any(r.toaddress == carol.address for r in rows.values()),
+                "(j) a message meant for C was delivered")
+        require([a.message_status(k) for k in acks[flood:]]
+                == [MSGSENT] * foreign, "(j) a message to C was acked")
+        print("node (j): A sent %d in %.3f s (%.1f obj/s), launches %s; "
+              "B ingested %d (%d delivered) in %.3f s (%.1f obj/s), "
+              "launches %s; A ingested the %d acks in %.3f s (%.1f obj/s), "
+              "launches %s"
+              % (total, send_wall, total / send_wall,
+                 report["j_send"]["launches"], total, flood, ingest_wall,
+                 total / ingest_wall, report["j_ingest"]["launches"], flood,
+                 ack_wall, flood / ack_wall, report["j_acks"]["launches"]))
+        await finish(bridge, a, b, c)
+
+    sc.reset_launches()
+    scc.reset_launches()
+    asyncio.run(flow())
+    asyncio.run(ingest_flood())
+    node_launches = launches()
+
+    for ih, target, nonce in solves:
+        require(trial(nonce, ih) <= target, "a node PoW nonce fails hashlib")
+    t0 = time.perf_counter()
+    sample = [0] + sorted(int(i) for i in rng.choice(
+        range(1, len(solves)), size=min(8, len(solves) - 1), replace=False))
+    for i in sample:
+        _no_lower_nonce(*solves[i], device=device or "cuda")
+    print("node PoW: %d nonces valid by hashlib, %d objects in the "
+          "inventories pass hashlib's check, %d have no valid nonce below "
+          "theirs (%.1f s)" % (len(solves), checked[0], len(sample),
+                               time.perf_counter() - t0))
+    for name, per_node in stats.items():
+        for s in per_node:
+            require(s["failed_drains"] == 0, "a crypto drain failed")
+            require(s["host_verifies"] == s["host_decrypts"] == 0,
+                    "a node checked crypto on host threads")
+    for per_node in stats.values():
+        for s in per_node:
+            require(s["pow_device_checked"] + s["pow_host_checked"]
+                    >= s["accepted"], "an object skipped the verifier")
+    require(stats["a"][1]["pow_device_checked"] > 0
+            and stats["b"][1]["pow_device_checked"] > 0,
+            "(j) a node's verifier checked no device batch")
+    print("node crypto (per node, (i) then (j)): %s" % json.dumps(stats))
+    print("node PoW routes: %s" % json.dumps(routes))
+    print("node launches: %s" % node_launches)
+    for kernel in ("search", "batch_search", "secp_verify", "secp_ecdh"):
+        require(node_launches[kernel] > 0,
+                "kernel %s not launched on the node path" % kernel)
+    return {"phases": report, "launches": node_launches, "routes": routes,
+            "crypto": stats, "solves": len(solves)}
+
+
 def phase_times_secp(prng, env: dict, launches: dict, errs: dict) -> list:
     """Each secp kernel at the main path's drain (4,096 lanes) and on a
     full card (65,536 lanes): CUDA-event times over warm launches, the
@@ -1527,14 +1943,19 @@ def main() -> int:
     errs.update(phase_compare_secp(prng))
     main_path = phase_main_path(rng)
     receive = phase_receive(rng2, prng)
+    # the node's data: a fourth generator
+    node = phase_node(np.random.default_rng([args.seed, 4]))
     kernels = phase_times(rng, env, main_path["launches"], errs)
     kernels += phase_times_secp(prng, env, receive["launches"], errs)
+    for entry in kernels:
+        entry["node_launches"] = node["launches"][entry["name"]]
     wall = time.perf_counter() - t_start
     print("chip_smoke wall %.1f s" % wall)
     if args.report:
         with open(args.report, "w") as fh:
             json.dump({"env": env, "main_path": main_path,
-                       "selftest": selftest, "receive": receive, "kernels": kernels,
+                       "selftest": selftest, "receive": receive,
+                       "node": node, "kernels": kernels,
                        "wall_s": wall}, fh, indent=1)
     print(json.dumps({"kernels": [
         {k: entry[k] for k in KERNEL_KEYS}

@@ -1,0 +1,183 @@
+"""The Node application object: storage + workers + object acceptance,
+wired to the card (copy of ``pybitmessage_tpu.core.node``, the ``all``
+role in one process with an SQLite inventory).
+
+Startup order mirrors the reference (bitmessagemain.py:85-287): storage
+first, key caches, workers; shutdown unwinds in reverse with an
+inventory flush (shutdown.py:19-91).
+
+Every device service is built for ``device`` (``None``: the CUDA card,
+raising without one; ``"cpu"``: the kernels' plain torch versions):
+``PowService(PowDispatcher)`` for every PoW the sender needs,
+``BatchVerifier`` for every received object's PoW, and the
+``BatchCryptoEngine`` for every trial decrypt and signature check of the
+ingest path; identities are ground through ``priv_to_pub_many``.
+``crypto_batch=False`` asks for host threads for the secp work instead.
+
+Objects enter through ``network.connection.accept_object(node.ctx,
+node.pool, payload)``; the socket protocol, sync, TLS, UDP discovery,
+the PoW farm, federation, health probes, the PoW journal, the cleaner
+and the roles other than ``all`` are not part of this package yet.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+import os
+from pathlib import Path
+
+from .. import resolve_device
+from ..crypto.keys import priv_to_pub_many
+from ..models.payloads import gen_ack_payload
+from ..network.pool import ConnectionPool, NodeContext
+from ..pow.dispatcher import PowDispatcher
+from ..pow.service import PowService
+from ..pow.verify_service import BatchVerifier
+from ..storage.db import Database
+from ..storage.inventory import Inventory
+from ..storage.messages import MessageStore
+from ..utils.addresses import decode_address
+from ..workers.cryptopool import CryptoPool
+from ..workers.keystore import KeyStore
+from ..workers.processor import ObjectProcessor
+from ..workers.sender import SendWorker
+
+logger = logging.getLogger("pybitmessage_tpu_torch.node")
+
+
+class Node:
+    """A Bitmessage node on one device.
+
+    ``data_dir=None`` keeps everything in memory (tests); a directory
+    holds ``keys.dat`` and ``messages.dat`` in the JAX package's
+    formats.  ``test_mode`` divides the consensus difficulty by 100;
+    ``pow_window`` is the PowService coalescing window.
+    """
+
+    def __init__(self, data_dir: str | None = None, *,
+                 stream: int = 1, test_mode: bool = False,
+                 pow_window: float | None = None, device=None,
+                 crypto_batch: bool = True):
+        self.device = resolve_device(device)
+        self.data_dir = Path(data_dir) if data_dir else None
+        if self.data_dir:
+            self.data_dir.mkdir(parents=True, exist_ok=True)
+        db_path = str(self.data_dir / "messages.dat") if self.data_dir \
+            else ":memory:"
+        keys_path = self.data_dir / "keys.dat" if self.data_dir else None
+
+        # test mode divides the consensus difficulty by 100
+        # (reference bitmessagemain.py:167-172)
+        min_ntpb = 1000 // 100 if test_mode else 1000
+        min_extra = 1000 // 100 if test_mode else 1000
+
+        self.shutdown = asyncio.Event()
+        self.db = Database(db_path)
+        self.store = MessageStore(self.db)
+        self.inventory = Inventory(self.db)
+        derive = None
+        if crypto_batch:
+            def derive(privkeys, _device=self.device):
+                return priv_to_pub_many(privkeys, _device)
+        self.keystore = KeyStore(keys_path, derive=derive)
+        #: incoming-object PoW checks batched onto the device
+        self.pow_verifier = BatchVerifier(
+            self.device, ntpb=min_ntpb, extra=min_extra, clamp=False)
+        self.ctx = NodeContext(inventory=self.inventory,
+                               pow_verifier=self.pow_verifier,
+                               streams=(stream,))
+        self.pool = ConnectionPool(self.ctx)
+        self.solver = PowDispatcher(self.device)
+        self.pow_service = PowService(self.solver, shutdown=self.shutdown,
+                                      window=pow_window)
+        #: the ingest path's crypto route, shared by the sender's pubkey
+        #: lookups and the processor
+        self.crypto = CryptoPool()
+        if crypto_batch:
+            from ..crypto.batch import BatchCryptoEngine
+            self.crypto.batch = BatchCryptoEngine(self.device)
+        self.sender = SendWorker(
+            keystore=self.keystore, store=self.store,
+            inventory=self.inventory, pool=self.pool,
+            pow_service=self.pow_service, crypto=self.crypto,
+            shutdown=self.shutdown, min_ntpb=min_ntpb, min_extra=min_extra)
+        self.processor = ObjectProcessor(
+            keystore=self.keystore, store=self.store,
+            inventory=self.inventory, sender=self.sender, pool=self.pool,
+            shutdown=self.shutdown, min_ntpb=min_ntpb, min_extra=min_extra,
+            crypto=self.crypto)
+        self._pump_task: asyncio.Task | None = None
+
+    # -- lifecycle -----------------------------------------------------------
+
+    async def start(self) -> None:
+        self.pow_service.start()
+        self.pow_verifier.start()
+        self.sender.start()
+        self.processor.start()
+        self._pump_task = asyncio.create_task(self._pump_objects())
+        logger.info("node started on %s", self.device)
+
+    async def _pump_objects(self) -> None:
+        """Forward validated objects to the processor."""
+        while not self.shutdown.is_set():
+            _, _, payload = await self.ctx.object_queue.get()
+            await self.processor.queue.put(payload)
+
+    async def stop(self) -> None:
+        """Orderly shutdown (reference shutdown.py:19-91).  The
+        processor persists what it has not processed, for the next
+        node on this ``data_dir``; objects still between acceptance and
+        the processor go with them."""
+        self.shutdown.set()
+        if self._pump_task:
+            self._pump_task.cancel()
+            try:
+                await self._pump_task
+            except asyncio.CancelledError:
+                pass
+            self._pump_task = None
+        while not self.ctx.object_queue.empty():
+            _, _, payload = self.ctx.object_queue.get_nowait()
+            self.processor.queue.put_nowait(payload)
+        await self.sender.stop()
+        await self.processor.stop()
+        await self.pow_service.stop()
+        await self.pow_verifier.stop()
+        self.inventory.flush()
+        self.db.close()
+        logger.info("node stopped")
+
+    # -- high-level API ------------------------------------------------------
+
+    def create_identity(self, label: str = "", *, deterministic: bytes | None
+                        = None, chan: bool = False):
+        if deterministic is not None:
+            return self.keystore.create_deterministic(
+                deterministic, label, chan=chan)
+        return self.keystore.create_random(label)
+
+    async def send_message(self, to_address: str, from_address: str,
+                           subject: str, body: str, *,
+                           ttl: int = 4 * 24 * 3600,
+                           encoding: int = 2) -> bytes:
+        """Queue a message; returns its ackdata handle."""
+        to = decode_address(to_address)  # validates
+        ack = gen_ack_payload(to.stream, 0)
+        self.store.queue_sent(
+            msgid=os.urandom(16), toaddress=to_address, toripe=to.ripe,
+            fromaddress=from_address, subject=subject, message=body,
+            ackdata=ack, ttl=ttl, encoding=encoding)
+        await self.sender.queue.put(("sendmessage",))
+        return ack
+
+    async def send_broadcast(self, from_address: str, subject: str,
+                             body: str, *, ttl: int = 4 * 24 * 3600,
+                             encoding: int = 2) -> bytes:
+        return self.sender.queue_broadcast(from_address, subject, body,
+                                           ttl=ttl, encoding=encoding)
+
+    def message_status(self, ackdata: bytes) -> str:
+        m = self.store.sent_by_ackdata(ackdata)
+        return m.status if m else "notfound"

@@ -1,4 +1,6 @@
 """Receive-side crypto of the port: batch ECDSA verification and ECIES
-trial decryption (``batch.BatchCryptoEngine``) over the secp256k1
-kernels on the card (``gpu.CudaSecp``), with the host-side pieces they
-need (``fallback``, ``keys``, ``signing``, ``ecies``)."""
+trial decryption (``batch.BatchCryptoEngine``, behind the negative
+``screen``) over the secp256k1 kernels on the card (``gpu.CudaSecp``),
+bulk key derivation for the address grinders (``keys.priv_to_pub_many``),
+and the host-side pure-Python pieces (``fallback``, ``keys``,
+``signing``, ``ecies``)."""

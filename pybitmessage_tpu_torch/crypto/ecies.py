@@ -1,6 +1,5 @@
 """ECIES over secp256k1, the Bitmessage encrypted-payload wire format
-(copy of ``pybitmessage_tpu.crypto.ecies``, trimmed to what the batch
-engine's trial decryption uses, plus ``encrypt`` to make payloads).
+(copy of ``pybitmessage_tpu.crypto.ecies``, on the pure-Python tier).
 
 Layout::
 
@@ -105,3 +104,21 @@ def encrypt(data: bytes, recipient_pubkey: bytes, *,
     ct = fallback.aes256_cbc(True, key_e, iv, _pkcs7_pad(data))
     blob = iv + encode_pubkey_wire(fallback.priv_to_pub(ephem_priv)) + ct
     return blob + hmac_mod.new(key_m, blob, sha256).digest()
+
+
+def decrypt(payload: bytes, privkey: bytes) -> bytes:
+    """Decrypt an ECIES payload with a 32-byte private key.
+
+    Raises :class:`DecryptionError` on any malformation or MAC failure
+    (one exception type so callers can't leak which check failed).
+    """
+    parsed = parse_payload(payload)
+    try:
+        key_e, key_m = kdf(fallback.ecdh_x(privkey, parsed.ephem_pub))
+        if not mac_ok(key_m, parsed.macdata, parsed.tag):
+            raise ValueError("MAC mismatch")
+        return finish_decrypt(key_e, parsed)
+    except DecryptionError:
+        raise
+    except Exception as exc:
+        raise DecryptionError("decryption failed") from exc

@@ -250,6 +250,11 @@ def ecdsa_sign_digest(digest: bytes, privkey: bytes) -> bytes:
 
 _SBOX: list[int] = []
 _INV_SBOX: list[int] = []
+#: GF(2^8) products by InvMixColumns' coefficients 9, 11, 13 and 14
+_MUL9: list[int] = []
+_MUL11: list[int] = []
+_MUL13: list[int] = []
+_MUL14: list[int] = []
 _AES_TABLES_LOCK = _threading.Lock()
 
 
@@ -284,8 +289,11 @@ def _init_aes_tables() -> None:
                 b = ((b << 1) | (b >> 7)) & 0xFF
             sbox[i] = s
             inv_sbox[s] = i
-        # publish fully built, inverse table first: _SBOX doubles as
-        # the "ready" flag for the lock-free fast path above
+        # publish fully built, the others first: _SBOX doubles as the
+        # "ready" flag for the lock-free fast path above
+        for table, c in ((_MUL9, 9), (_MUL11, 11), (_MUL13, 13),
+                         (_MUL14, 14)):
+            table.extend(_gmul(x, c) for x in range(256))
         _INV_SBOX.extend(inv_sbox)
         _SBOX.extend(sbox)
 
@@ -339,16 +347,13 @@ def _decrypt_block(rk: list[list[int]], block: bytes) -> bytes:
         st = [_INV_SBOX[x] for x in st]
         st = [x ^ k for x, k in zip(st, rk[rnd])]
         mixed = []
+        m9, m11, m13, m14 = _MUL9, _MUL11, _MUL13, _MUL14
         for c in range(0, 16, 4):
             a0, a1, a2, a3 = st[c:c + 4]
-            mixed += [_gmul(a0, 14) ^ _gmul(a1, 11) ^ _gmul(a2, 13)
-                      ^ _gmul(a3, 9),
-                      _gmul(a0, 9) ^ _gmul(a1, 14) ^ _gmul(a2, 11)
-                      ^ _gmul(a3, 13),
-                      _gmul(a0, 13) ^ _gmul(a1, 9) ^ _gmul(a2, 14)
-                      ^ _gmul(a3, 11),
-                      _gmul(a0, 11) ^ _gmul(a1, 13) ^ _gmul(a2, 9)
-                      ^ _gmul(a3, 14)]
+            mixed += [m14[a0] ^ m11[a1] ^ m13[a2] ^ m9[a3],
+                      m9[a0] ^ m14[a1] ^ m11[a2] ^ m13[a3],
+                      m13[a0] ^ m9[a1] ^ m14[a2] ^ m11[a3],
+                      m11[a0] ^ m13[a1] ^ m9[a2] ^ m14[a3]]
         st = mixed
     st = [st[(i - 4 * (i % 4)) % 16] for i in range(16)]
     st = [_INV_SBOX[x] for x in st]

@@ -1,6 +1,11 @@
-"""secp256k1 key forms and wire codecs (copy of
-``pybitmessage_tpu.crypto.keys``, trimmed to what the receive path
-uses).
+"""secp256k1 key management and wire formats (copy of
+``pybitmessage_tpu.crypto.keys``, on the pure-Python tier).
+
+Bulk derivation, :func:`priv_to_pub_many`, is one fixed-base launch on
+the card (``CudaSecp.base_mult_batch``: the ECDH kernel with P = G);
+the address grinders derive their candidates through it in batches of
+:data:`GRIND_BATCH` tries and keep the reference's order, so a
+passphrase gives the same address here as in the JAX package.
 
 The batch engine consumes raw forms: 64-byte X||Y points and 32-byte
 scalars.  Validation (curve membership, scalar range) costs a field
@@ -12,8 +17,13 @@ integers (``fallback``).
 from __future__ import annotations
 
 import functools
+import hashlib
 import secrets
+from typing import Callable
 
+from ..utils.base58 import b58decode, b58encode
+from ..utils.hashes import address_ripe
+from ..utils.varint import encode_varint
 from . import fallback
 
 #: OpenSSL NID for secp256k1: the 2-byte curve tag on wire pubkeys
@@ -56,6 +66,92 @@ def priv_to_pub(privkey: bytes) -> bytes:
     return fallback.priv_to_pub(privkey)
 
 
+def priv_to_pub_many(privkeys: list[bytes], device=None) -> list[bytes]:
+    """Batch key derivation: one ``CudaSecp(device).base_mult_batch``
+    call (``None``: the CUDA card, raising without one; ``"cpu"``: the
+    kernel's plain torch version).  Raises ValueError on any
+    out-of-range scalar, like :func:`priv_to_pub`, before the device is
+    involved; a device failure reaches the caller."""
+    from .gpu import CudaSecp
+    if not privkeys:
+        return []
+    scalars = b"".join(priv_scalar32(k) for k in privkeys)
+    points = CudaSecp(device).base_mult_batch(scalars, len(privkeys))
+    if any(p is None for p in points):
+        raise ValueError("private scalar out of range")
+    return [b"\x04" + p for p in points]
+
+
+def host_priv_to_pub_many(privkeys: list[bytes]) -> list[bytes]:
+    """Key derivation one pure-Python multiplication at a time: the
+    ``derive`` of a caller that asks for host crypto."""
+    return [fallback.priv_to_pub(k) for k in privkeys]
+
+
+# --- address grinding --------------------------------------------------------
+
+#: candidate tries derived per batch by the grinders
+GRIND_BATCH = 256
+
+#: ``derive(privkeys) -> pubkeys``: how a grinder derives its candidates
+Derive = Callable[[list], list]
+
+
+def deterministic_private_key(passphrase: bytes, nonce: int) -> bytes:
+    """sha512(passphrase || varint(nonce))[:32] — the deterministic-
+    address derivation (reference: class_addressGenerator.py:246-271)."""
+    return hashlib.sha512(passphrase + encode_varint(nonce)).digest()[:32]
+
+
+def grind_deterministic_keys(passphrase: bytes, leading_zeros: int = 1,
+                             start_nonce: int = 0, *,
+                             derive: Derive | None = None,
+                             batch: int = GRIND_BATCH):
+    """Find the first (signing, encryption) deterministic key pair whose
+    combined RIPE starts with ``leading_zeros`` zero bytes.
+
+    Nonce pairs (n, n+1) advance by 2 per attempt (reference:
+    class_addressGenerator.py:246-271); ``batch`` attempts are derived
+    in one ``derive`` call (default :func:`priv_to_pub_many` on the
+    card) and scanned in order, so the first hit is the reference's.
+    Returns (priv_signing, priv_encryption, ripe, signing_nonce).
+    """
+    derive = derive or priv_to_pub_many
+    zeros = b"\x00" * leading_zeros
+    nonce = start_nonce
+    while True:
+        privs = [deterministic_private_key(passphrase, nonce + i)
+                 for i in range(2 * batch)]
+        pubs = derive(privs)
+        for i in range(0, 2 * batch, 2):
+            ripe = address_ripe(pubs[i], pubs[i + 1])
+            if ripe[:leading_zeros] == zeros:
+                return privs[i], privs[i + 1], ripe, nonce + i
+        nonce += 2 * batch
+
+
+def grind_random_keys(leading_zeros: int = 1, *,
+                      derive: Derive | None = None,
+                      batch: int = GRIND_BATCH):
+    """Random-address grind: fixed signing key, fresh encryption keys
+    until the RIPE has the demanded zero prefix (reference:
+    class_addressGenerator.py:119-214), ``batch`` candidates per
+    ``derive`` call.  Returns (sk, ek, ripe)."""
+    derive = derive or priv_to_pub_many
+    zeros = b"\x00" * leading_zeros
+    sk = random_private_key()
+    pub_sk = None
+    while True:
+        eks = [random_private_key() for _ in range(batch)]
+        pubs = derive(eks if pub_sk is not None else [sk] + eks)
+        if pub_sk is None:
+            pub_sk, pubs = pubs[0], pubs[1:]
+        for ek, pub in zip(eks, pubs):
+            ripe = address_ripe(pub_sk, pub)
+            if ripe[:leading_zeros] == zeros:
+                return sk, ek, ripe
+
+
 # --- 0x02CA curve-tagged wire format ---------------------------------------
 
 def _strip(b: bytes) -> bytes:
@@ -96,3 +192,23 @@ def decode_pubkey_wire(data: bytes) -> tuple[bytes, int]:
         coords.append(data[i:i + n].rjust(32, b"\x00"))
         i += n
     return b"\x04" + coords[0] + coords[1], i
+
+
+# --- WIF --------------------------------------------------------------------
+
+def wif_encode(privkey: bytes) -> str:
+    """0x80 || key || first4(sha256d) in base58 (reference:
+    class_addressGenerator.py WIF encode, shared.py:79-105 decode)."""
+    raw = b"\x80" + privkey
+    check = hashlib.sha256(hashlib.sha256(raw).digest()).digest()[:4]
+    return b58encode(raw + check)
+
+
+def wif_decode(wif: str) -> bytes:
+    raw = b58decode(wif)
+    payload, check = raw[:-4], raw[-4:]
+    if hashlib.sha256(hashlib.sha256(payload).digest()).digest()[:4] != check:
+        raise ValueError("WIF checksum mismatch")
+    if not payload.startswith(b"\x80"):
+        raise ValueError("WIF missing 0x80 prefix")
+    return payload[1:]

@@ -1,8 +1,11 @@
-"""ECDSA digest bookkeeping of the receive path (copy of
-``pybitmessage_tpu.crypto.signing``, trimmed to what the batch engine
-uses).
+"""ECDSA signatures (DER) over secp256k1 with SHA256 / legacy SHA1 (copy
+of ``pybitmessage_tpu.crypto.signing``, on the pure-Python tier only).
 
-Verification accepts a signature under SHA256 or legacy SHA1.  The
+Reference behavior (src/highlevelcrypto.py:70-108): sign with the
+configured digest (sha256 default, sha1 legacy); verify accepts either
+digest so old-network signatures keep validating.  The node's receive
+path verifies through ``crypto/batch.py`` on the card; :func:`verify`
+here is the scalar check of a caller that asks for host threads.  The
 digest-hint table remembers which digest a pubkey last verified under
 and tries it first, so a legacy-SHA1 peer stops paying a doomed SHA256
 attempt per object.
@@ -13,6 +16,9 @@ from __future__ import annotations
 import hashlib
 import threading
 from collections import OrderedDict
+
+from . import fallback
+from .keys import priv_scalar32
 
 _DIGESTS = ("sha256", "sha1")
 
@@ -51,3 +57,40 @@ def note_digest(pubkey: bytes, digest: str, *, fallback: bool) -> None:
         _HINTS.move_to_end(pubkey)
         while len(_HINTS) > _HINT_CAP:
             _HINTS.popitem(last=False)
+
+
+def _hash(data: bytes, digest: str) -> bytes:
+    return _HASHERS[digest](data).digest()
+
+
+def sign(data: bytes, privkey: bytes, digest: str = "sha256") -> bytes:
+    """DER-encoded ECDSA signature of ``data`` (RFC 6979 nonce)."""
+    if digest not in _DIGESTS:
+        raise KeyError(digest)
+    return fallback.ecdsa_sign_digest(_hash(data, digest),
+                                      priv_scalar32(privkey))
+
+
+def _verify_one(data: bytes, signature: bytes, pubkey: bytes,
+                digest: str) -> bool:
+    """One (digest, signature) attempt; False on any malformation."""
+    try:
+        pub = fallback.decode_point(pubkey)
+        r, s = fallback.der_decode_sig(signature)
+        e = fallback.digest_to_scalar(_hash(data, digest))
+    except ValueError:
+        return False
+    return fallback.ecdsa_verify_scalars(e, r, s, pub)
+
+
+def verify(data: bytes, signature: bytes, pubkey: bytes) -> bool:
+    """True if ``signature`` verifies under SHA1 *or* SHA256.
+
+    Never raises: malformed signatures/keys simply fail verification.
+    Attempt order follows the per-pubkey digest hint.
+    """
+    for i, digest in enumerate(digest_order(pubkey)):
+        if _verify_one(data, signature, pubkey, digest):
+            note_digest(pubkey, digest, fallback=i > 0)
+            return True
+    return False

@@ -1,9 +1,27 @@
-"""PoW consensus constants (copy of ``pybitmessage_tpu.models.constants``).
+"""Protocol constants (copy of ``pybitmessage_tpu.models.constants``,
+trimmed to what the node path uses).
 
-Network consensus values (reference src/defaults.py:20-24): changing
-them breaks interop.
+Reference: src/protocol.py:22-56, src/network/constants.py:7-17,
+src/defaults.py:5-24.  These are network consensus values — changing them
+breaks interop.
 """
 
+MAGIC = 0xE9BEB4D9
+
+# object types
+OBJECT_GETPUBKEY = 0
+OBJECT_PUBKEY = 1
+OBJECT_MSG = 2
+OBJECT_BROADCAST = 3
+
+# limits (src/network/constants.py)
+MAX_OBJECT_PAYLOAD_SIZE = 2**18  # bytes per object payload
+
+# object TTL bounds (src/network/bmobject.py:46-49)
+MAX_TTL = 28 * 24 * 60 * 60      # 28 days
+MIN_TTL_SLACK = 3600             # objects may be expired up to 1h
+
+# PoW consensus parameters (src/defaults.py:20-24)
 DEFAULT_NONCE_TRIALS_PER_BYTE = 1000
 DEFAULT_EXTRA_BYTES = 1000
 #: sanity cap against absurd demanded difficulty (src/defaults.py:5-7)

@@ -1,0 +1,112 @@
+"""Object inventory: RAM cache of new objects over the SQL table (copy of
+``pybitmessage_tpu.storage.inventory``, without its metrics, the sync
+digest and the expiry purge of the cleaner).
+
+Same two-tier semantics as the reference (src/storage/sqlite.py:12-124):
+``_pending`` holds objects received since the last flush; ``_known``
+caches hash->stream existence so inv floods don't hit SQL per lookup.
+``flush()`` bulk-inserts.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from dataclasses import dataclass
+from typing import Iterable
+
+from .db import Database
+
+
+@dataclass(frozen=True)
+class InventoryItem:
+    type: int
+    stream: int
+    payload: bytes
+    expires: int
+    tag: bytes
+
+
+class Inventory:
+    """Dict-like object store keyed by 32-byte inventory hash."""
+
+    def __init__(self, db: Database):
+        self._db = db
+        self._lock = threading.RLock()
+        self._pending: dict[bytes, InventoryItem] = {}
+        self._known: dict[bytes, int] = {}  # hash -> stream existence cache
+
+    def __contains__(self, hash_: bytes) -> bool:
+        with self._lock:
+            if hash_ in self._pending or hash_ in self._known:
+                return True
+            rows = self._db.query(
+                "SELECT streamnumber FROM inventory WHERE hash=?", (hash_,))
+            if not rows:
+                return False
+            self._known[hash_] = rows[0][0]
+            return True
+
+    def __getitem__(self, hash_: bytes) -> InventoryItem:
+        with self._lock:
+            if hash_ in self._pending:
+                return self._pending[hash_]
+            rows = self._db.query(
+                "SELECT objecttype, streamnumber, payload, expirestime, tag"
+                " FROM inventory WHERE hash=?", (hash_,))
+            if not rows:
+                raise KeyError(hash_.hex())
+            t, s, p, e, tag = rows[0]
+            return InventoryItem(t, s, bytes(p), e, bytes(tag))
+
+    def __setitem__(self, hash_: bytes, item: InventoryItem) -> None:
+        with self._lock:
+            self._pending[hash_] = item
+            self._known[hash_] = item.stream
+
+    def add(self, hash_: bytes, type_: int, stream: int, payload: bytes,
+            expires: int, tag: bytes = b"") -> None:
+        self[hash_] = InventoryItem(type_, stream, payload, expires, tag)
+
+    def by_type_and_tag(self, object_type: int,
+                        tag: bytes | None = None) -> list[InventoryItem]:
+        sql = ("SELECT objecttype, streamnumber, payload, expirestime, tag"
+               " FROM inventory WHERE objecttype=?")
+        params: list = [object_type]
+        if tag is not None:
+            sql += " AND tag=?"
+            params.append(tag)
+        with self._lock:
+            out = [v for v in self._pending.values()
+                   if v.type == object_type
+                   and (tag is None or v.tag == tag)]
+            out += [InventoryItem(t, s, bytes(p), e, bytes(g))
+                    for t, s, p, e, g in self._db.query(sql, params)]
+            return out
+
+    def unexpired_hashes_by_stream(self, stream: int) -> list[bytes]:
+        now = int(time.time())
+        with self._lock:
+            hashes = [h for h, v in self._pending.items()
+                      if v.stream == stream and v.expires > now]
+            hashes += [bytes(h) for h, in self._db.query(
+                "SELECT hash FROM inventory WHERE streamnumber=?"
+                " AND expirestime>?", (stream, now))]
+            return hashes
+
+    def flush(self) -> None:
+        with self._lock:
+            if not self._pending:
+                return
+            self._db.executemany(
+                "INSERT INTO inventory VALUES (?, ?, ?, ?, ?, ?)",
+                [(h, v.type, v.stream, v.payload, v.expires, v.tag)
+                 for h, v in self._pending.items()])
+            self._pending.clear()
+
+    def hashes(self) -> Iterable[bytes]:
+        with self._lock:
+            out = list(self._pending.keys())
+            out += [bytes(h) for h, in self._db.query(
+                "SELECT hash FROM inventory")]
+            return out
