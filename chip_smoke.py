@@ -46,6 +46,15 @@ Phases (any failure exits non-zero):
    with hashlib (a sample also proven lowest), every crypto check on
    the batch engine, no drain failed; kernels 1, 2, 4 and 5 must have
    been launched in the phase (kernel 3 when the planner packs);
+6. the node over sockets (``phase_sockets``), ``Node()``s on the card
+   meeting over TCP on loopback through their connection pools (inv ->
+   getdata -> object, the JAX package's protocol), network difficulty:
+   (k) B dials A, the two-node flow and a broadcast as (i), then a raw
+   socket sends A an object whose header ends in a truncated varint and
+   A must close it; (l) a line A - R - B (A and B never meet) carrying
+   (j)'s flood and its acks through R, every inbox row and ack held to
+   what was sent; kernels 1, 2, 4 and 5 must have been launched in the
+   phase;
 4. times: each kernel at its main-path shape (CUDA events over warm
    launches) beside its plain version and its bound; the packed kernel
    on the storm's own targets and on targets that mostly miss, with the
@@ -58,9 +67,10 @@ Phases (any failure exits non-zero):
 
 The receive phases draw their data from a second generator seeded from
 ``--seed``, so phases 1-4 keep their inputs.
-Phase 5 runs before phase 4 and draws from a fourth generator; each
-kernel's entry in the kernels line carries its launches on the send or
-receive path (``launches``) and in the node phase (``node_launches``).
+Phases 5 and 6 run before phase 4 and draw from a fourth and a fifth
+generator; each kernel's entry in the kernels line carries its launches
+on the send or receive path (``launches``), in the node phase
+(``node_launches``) and in the socket phase (``net_launches``).
 The second-to-last line of output is the ``{"kernels": [...]}`` record,
 the last ``{"ok": true, "device": {...}}``.  Exits non-zero without
 printing either when no CUDA device is present.
@@ -101,7 +111,7 @@ REPLACES = {
 #: the keys of an entry of the kernels line
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-               "library_ms", "node_launches")
+               "library_ms", "node_launches", "net_launches")
 MASK64 = (1 << 64) - 1
 ALWAYS_HIT = MASK64
 
@@ -1545,6 +1555,96 @@ def _text(rng, n: int) -> str:
     return rng.integers(32, 127, size=n).astype(np.uint8).tobytes().decode()
 
 
+class _NodeKit:
+    """What the node phases share: ``Node()``s whose every PoW and
+    batch route is recorded, identities at the phase's difficulty, the
+    launch counters, and each node's checks."""
+
+    def __init__(self, device, test_mode: bool):
+        self.device, self.test_mode = device, test_mode
+        self.ntpb = 10 if test_mode else 1000
+        #: (initial_hash, target, nonce) of every PoW
+        self.solves: list = []
+        #: (objects, route, plan mode) -> calls
+        self.routes: dict = {}
+
+    def make(self, **kw):
+        from pybitmessage_tpu_torch.core import Node
+        from pybitmessage_tpu_torch.pow.pipeline import plan_batch
+
+        node = Node(device=self.device, test_mode=self.test_mode, **kw)
+        solve, solve_batch = node.pow_service.solve, node.solver.solve_batch
+        solves, routes = self.solves, self.routes
+
+        async def recorded(ih, target):
+            nonce, trials = await solve(ih, target)
+            solves.append((ih, target, nonce))
+            return nonce, trials
+
+        def routed(items, **kw):
+            items = list(items)
+            out = solve_batch(items, **kw)
+            key = "%d objects: %s, %s" % (
+                len(items), node.solver.last_backend, plan_batch(items).mode)
+            routes[key] = routes.get(key, 0) + 1
+            return out
+        node.pow_service.solve, node.solver.solve_batch = recorded, routed
+        return node
+
+    def identity(self, node, label, **kw):
+        ident = node.create_identity(label, **kw)
+        # the difficulty its pubkey demands of senders: the network's,
+        # or test mode's when rehearsing
+        ident.nonce_trials_per_byte = ident.extra_bytes = self.ntpb
+        return ident
+
+    @staticmethod
+    def launches() -> dict:
+        from pybitmessage_tpu_torch.ops import secp256k1_cuda as scc
+        from pybitmessage_tpu_torch.ops import sha512_cuda as sc
+        return {**sc.LAUNCHES, **scc.LAUNCHES}
+
+    def delta(self, before: dict) -> dict:
+        return {k: v - before[k] for k, v in self.launches().items()}
+
+    def check_objects(self, node) -> int:
+        """hashlib's check of every object in a node's inventory."""
+        from pybitmessage_tpu_torch.models.pow_math import check_pow
+        count = 0
+        for h in node.inventory.hashes():
+            require(check_pow(node.inventory[h].payload, self.ntpb,
+                              self.ntpb, clamp=False),
+                    "an object in the inventory fails hashlib's PoW check")
+            count += 1
+        return count
+
+    @staticmethod
+    def crypto_stats(node) -> dict:
+        engine = node.crypto.batch
+        return {"drains": engine.drains, "drain_pairs": engine.drain_pairs,
+                "engine_items": engine.gpu_items,
+                "failed_drains": engine.failed_drains,
+                "host_verifies": node.crypto.host_verifies,
+                "host_decrypts": node.crypto.host_decrypts,
+                "accepted": node.pool.objects_received,
+                "pow_device_checked": node.pow_verifier.device_checked,
+                "pow_host_checked": node.pow_verifier.host_checked,
+                "pow_device_batches": node.pow_verifier.device_batches}
+
+    def check_nonces(self, rng, what: str) -> int:
+        """Every recorded nonce valid by hashlib; a sample (the first
+        and up to 8 more) proven lowest on the device."""
+        for ih, target, nonce in self.solves:
+            require(trial(nonce, ih) <= target,
+                    "a %s PoW nonce fails hashlib" % what)
+        sample = [0] + sorted(int(i) for i in rng.choice(
+            range(1, len(self.solves)),
+            size=min(8, len(self.solves) - 1), replace=False))
+        for i in sample:
+            _no_lower_nonce(*self.solves[i], device=self.device or "cuda")
+        return len(sample)
+
+
 def phase_node(rng, *, device=None, test_mode: bool = False,
                flood: int = 256, foreign: int = 64, idents: int = 8,
                body_bytes: int = 1024, timeout: float = 600.0) -> dict:
@@ -1561,74 +1661,22 @@ def phase_node(rng, *, device=None, test_mode: bool = False,
     just before (i) and read after (j).  (``device="cpu"``,
     ``test_mode=True`` and small sizes rehearse the phase with the
     plain versions.)"""
-    from pybitmessage_tpu_torch.core import Node
     from pybitmessage_tpu_torch.crypto import batch as engine_mod
-    from pybitmessage_tpu_torch.models.pow_math import check_pow
     from pybitmessage_tpu_torch.ops import secp256k1_cuda as scc
     from pybitmessage_tpu_torch.ops import sha512_cuda as sc
-    from pybitmessage_tpu_torch.pow.pipeline import plan_batch
     from pybitmessage_tpu_torch.storage.messages import ACKRECEIVED, MSGSENT
     from pybitmessage_tpu_torch.workers import sender as sender_mod
 
     day = 86400
-    ntpb = 10 if test_mode else 1000
-    solves: list = []        # (initial_hash, target, nonce) of every PoW
-    routes: dict = {}        # (objects, route, plan mode) -> calls
-    nodes: list = []
+    kit = _NodeKit(device, test_mode)
+    solves, routes = kit.solves, kit.routes
 
     def make():
-        node = Node(device=device, test_mode=test_mode)
-        solve, solve_batch = node.pow_service.solve, node.solver.solve_batch
+        # the bridge joins these nodes: no listening socket
+        return kit.make(listen=False)
 
-        async def recorded(ih, target):
-            nonce, trials = await solve(ih, target)
-            solves.append((ih, target, nonce))
-            return nonce, trials
-
-        def routed(items, **kw):
-            items = list(items)
-            out = solve_batch(items, **kw)
-            key = "%d objects: %s, %s" % (
-                len(items), node.solver.last_backend, plan_batch(items).mode)
-            routes[key] = routes.get(key, 0) + 1
-            return out
-        node.pow_service.solve, node.solver.solve_batch = recorded, routed
-        nodes.append(node)
-        return node
-
-    def identity(node, label, **kw):
-        ident = node.create_identity(label, **kw)
-        # the difficulty its pubkey demands of senders: the network's,
-        # or test mode's when rehearsing
-        ident.nonce_trials_per_byte = ident.extra_bytes = ntpb
-        return ident
-
-    def launches() -> dict:
-        return {**sc.LAUNCHES, **scc.LAUNCHES}
-
-    def delta(before: dict) -> dict:
-        return {k: v - before[k] for k, v in launches().items()}
-
-    def check_objects(node) -> int:
-        """hashlib's check of every object in a node's inventory."""
-        count = 0
-        for h in node.inventory.hashes():
-            require(check_pow(node.inventory[h].payload, ntpb, ntpb,
-                              clamp=False),
-                    "an object in the inventory fails hashlib's PoW check")
-            count += 1
-        return count
-
-    def crypto_stats(node) -> dict:
-        engine = node.crypto.batch
-        return {"drains": engine.drains, "drain_pairs": engine.drain_pairs,
-                "engine_items": engine.gpu_items,
-                "failed_drains": engine.failed_drains,
-                "host_verifies": node.crypto.host_verifies,
-                "host_decrypts": node.crypto.host_decrypts,
-                "accepted": node.pool.objects_received,
-                "pow_device_checked": node.pow_verifier.device_checked,
-                "pow_host_checked": node.pow_verifier.host_checked}
+    identity, launches, delta = kit.identity, kit.launches, kit.delta
+    check_objects, crypto_stats = kit.check_objects, kit.crypto_stats
 
     report: dict = {}
     stats: dict = {}
@@ -1805,16 +1853,11 @@ def phase_node(rng, *, device=None, test_mode: bool = False,
     asyncio.run(ingest_flood())
     node_launches = launches()
 
-    for ih, target, nonce in solves:
-        require(trial(nonce, ih) <= target, "a node PoW nonce fails hashlib")
     t0 = time.perf_counter()
-    sample = [0] + sorted(int(i) for i in rng.choice(
-        range(1, len(solves)), size=min(8, len(solves) - 1), replace=False))
-    for i in sample:
-        _no_lower_nonce(*solves[i], device=device or "cuda")
+    lowest = kit.check_nonces(rng, "node")
     print("node PoW: %d nonces valid by hashlib, %d objects in the "
           "inventories pass hashlib's check, %d have no valid nonce below "
-          "theirs (%.1f s)" % (len(solves), checked[0], len(sample),
+          "theirs (%.1f s)" % (len(solves), checked[0], lowest,
                                time.perf_counter() - t0))
     for name, per_node in stats.items():
         for s in per_node:
@@ -1836,6 +1879,340 @@ def phase_node(rng, *, device=None, test_mode: bool = False,
                 "kernel %s not launched on the node path" % kernel)
     return {"phases": report, "launches": node_launches, "routes": routes,
             "crypto": stats, "solves": len(solves)}
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the node over sockets
+# ---------------------------------------------------------------------------
+
+LOOPBACK = "127.0.0.1"
+
+
+def _closes(node) -> list:
+    """The close reasons of a node's connections, as they close."""
+    reasons = []
+    closed = node.pool.connection_closed
+
+    def record(conn):
+        reasons.append(conn.close_reason)
+        closed(conn)
+    node.pool.connection_closed = record
+    return reasons
+
+
+async def _raw_varint_close(node, timeout: float) -> dict:
+    """Dial a node's listening port by hand, complete the handshake and
+    send one object frame whose 22-byte payload ends in a truncated
+    3-byte varint (``FD 00`` at bytes 20-21): the node must close the
+    connection on it, as the JAX package's does."""
+    import struct
+
+    from pybitmessage_tpu_torch.models.packet import (HEADER_LEN,
+                                                      pack_packet,
+                                                      unpack_header)
+    from pybitmessage_tpu_torch.network.messages import VersionPayload
+
+    reasons = _closes(node)
+    port = node.pool.listen_port
+    reader, writer = await asyncio.open_connection(LOOPBACK, port)
+
+    async def frame():
+        command, length, _ = unpack_header(
+            await reader.readexactly(HEADER_LEN))
+        await reader.readexactly(length)
+        return command
+
+    try:
+        writer.write(pack_packet("version", VersionPayload(
+            remote_host=LOOPBACK, remote_port=port, my_port=1,
+            nonce=b"rawpeer!").encode()))
+        await writer.drain()
+        require(await asyncio.wait_for(frame(), timeout) == "version",
+                "(fault) the node did not answer with its version")
+        writer.write(pack_packet("verack"))
+        await writer.drain()
+        while await asyncio.wait_for(frame(), timeout) != "verack":
+            pass
+        payload = struct.pack(">QQI", 0, int(time.time()) + 600, 2) \
+            + b"\xfd\x00"
+        t0 = time.perf_counter()
+        writer.write(pack_packet("object", payload))
+        await writer.drain()
+        try:
+            while await asyncio.wait_for(reader.read(65536), timeout):
+                pass
+        except ConnectionError:
+            pass
+        except asyncio.TimeoutError:
+            require(False, "(fault) the node kept the connection open "
+                    "after a malformed varint in an object header")
+        closed_s = time.perf_counter() - t0
+    finally:
+        writer.close()
+    await _until(lambda: reasons, "(fault) the node's close", timeout)
+    require("VarintError" in reasons[-1],
+            "(fault) the node closed for another reason: %r" % reasons[-1])
+    return {"payload_bytes": len(payload), "closed_after_s": closed_s,
+            "reason": reasons[-1]}
+
+
+def _wire_stats(node) -> dict:
+    conns = node.pool.connections()
+    return {"connections": len(conns),
+            "frames_rx": sum(c.frames_rx for c in conns),
+            "frames_tx": sum(c.frames_tx for c in conns),
+            "objects_sent": sum(c.objects_sent for c in conns),
+            "verify_window_peak": max(
+                [c.verify_window_peak for c in conns] or [0]),
+            "accepted": node.pool.objects_received,
+            "relayed": node.pool.objects_relayed}
+
+
+def phase_sockets(rng, *, device=None, test_mode: bool = False,
+                  flood: int = 256, foreign: int = 64, idents: int = 8,
+                  body_bytes: int = 1024, timeout: float = 600.0,
+                  bridge: dict | None = None) -> dict:
+    """Phase 6: the node's main path over TCP on loopback, ``Node()``s
+    that meet through their connection pools (inv -> getdata -> object
+    frames, the JAX package's protocol).  (k) B dials A; getpubkey ->
+    pubkey -> msg -> ack and a broadcast to a subscriber, as (i); then a
+    raw socket sends A the object whose header ends in a truncated
+    varint, and A must close it.  (l) a line A - R - B: A and B dial R
+    and never meet; C dials R to publish the pubkey of an identity B
+    does not hold and leaves; A sends (j)'s flood (``flood`` messages
+    of ``body_bytes`` to B's ``idents`` identities plus ``foreign`` to
+    C's) and R relays it to B and B's acks back to A.  R runs without
+    dandelion, so the line's walls are the protocol's and not the stem
+    timers'.  Every inbox row is held to what was sent, every ack to
+    its message, every PoW re-checked with hashlib; the launch counts
+    are zeroed just before (k) and read after (l).  (``device="cpu"``,
+    ``test_mode=True`` and small sizes rehearse it with the plain
+    versions.)"""
+    from pybitmessage_tpu_torch.ops import secp256k1_cuda as scc
+    from pybitmessage_tpu_torch.ops import sha512_cuda as sc
+    from pybitmessage_tpu_torch.storage.knownnodes import Peer
+    from pybitmessage_tpu_torch.storage.messages import ACKRECEIVED, MSGSENT
+
+    day = 86400
+    kit = _NodeKit(device, test_mode)
+    report: dict = {}
+    stats: dict = {}
+    checked = [0]
+
+    async def dial(src, dst) -> float:
+        t0 = time.perf_counter()
+        conn = await src.pool.connect_to(Peer(LOOPBACK,
+                                              dst.pool.listen_port))
+        require(conn is not None, "a node could not dial another")
+        await _until(lambda: conn.fully_established, "a handshake", timeout)
+        return time.perf_counter() - t0
+
+    async def finish(names, *group):
+        for name, node in zip(names, group):
+            checked[0] += kit.check_objects(node)
+            stats.setdefault(name, []).append(
+                {**kit.crypto_stats(node), **_wire_stats(node)})
+        for node in group:
+            await node.stop()
+
+    async def pair():
+        a, b = kit.make(), kit.make()
+        await a.start()
+        await b.start()
+        try:
+            handshake = await dial(b, a)
+            alice = kit.identity(a, "alice")
+            bob = kit.identity(b, "bob",
+                               deterministic=rng.bytes(16).hex().encode())
+            subject, body = _text(rng, 40), _text(rng, body_bytes)
+            before, t0 = kit.launches(), time.perf_counter()
+            ack = await a.send_message(bob.address, alice.address, subject,
+                                       body)
+            await _until(lambda: a.message_status(ack) == ACKRECEIVED,
+                         "(k) the ack", timeout)
+            wall = time.perf_counter() - t0
+            rows = b.store.inbox()
+            require(len(rows) == 1 and (
+                rows[0].subject, rows[0].message, rows[0].fromaddress,
+                rows[0].toaddress, rows[0].encodingtype)
+                == (subject, body, alice.address, bob.address, 2),
+                "(k) B's inbox differs from what A sent")
+            report["k_message"] = {"wall_s": wall,
+                                   "handshake_s": handshake,
+                                   "launches": kit.delta(before)}
+            b.keystore.subscribe(alice.address, "alice")
+            subject2, body2 = _text(rng, 40), _text(rng, body_bytes)
+            before, t0 = kit.launches(), time.perf_counter()
+            await a.send_broadcast(alice.address, subject2, body2)
+            await _until(lambda: len(b.store.inbox()) == 2,
+                         "(k) the broadcast", timeout)
+            wall2 = time.perf_counter() - t0
+            row = [r for r in b.store.inbox() if r.toaddress == "[Broadcast]"]
+            require(len(row) == 1 and (row[0].subject, row[0].message,
+                                       row[0].fromaddress)
+                    == (subject2, body2, alice.address),
+                    "(k) the broadcast row differs from what A sent")
+            report["k_broadcast"] = {"wall_s": wall2,
+                                     "launches": kit.delta(before)}
+            report["k_fault"] = await _raw_varint_close(a, 30.0)
+            i_msg = (bridge or {}).get("i_message", {}).get("wall_s")
+            i_bc = (bridge or {}).get("i_broadcast", {}).get("wall_s")
+            print("sockets (k): handshake %.3f s; getpubkey -> pubkey -> "
+                  "msg -> ack in %.3f s (bridge (i): %s s), launches %s; "
+                  "broadcast in %.3f s (bridge (i): %s s), launches %s; "
+                  "the varint payload closed in %.3f s (%s)"
+                  % (handshake, wall, i_msg, report["k_message"]["launches"],
+                     wall2, i_bc, report["k_broadcast"]["launches"],
+                     report["k_fault"]["closed_after_s"],
+                     report["k_fault"]["reason"]))
+        finally:
+            await finish("ab", a, b)
+
+    async def line():
+        a, b, c = kit.make(), kit.make(), kit.make()
+        r = kit.make(dandelion_enabled=False)
+        for node in (r, a, b, c):
+            await node.start()
+        try:
+            for node in (a, b, c):
+                await dial(node, r)
+            a_at_r = next(iter(r.pool.inbound))     # A dialed R first
+            t0 = time.perf_counter()
+            mine = [kit.identity(b, "b%d" % i) for i in range(idents)]
+            carol = kit.identity(c, "carol")
+            me = kit.identity(a, "sender")
+            await asyncio.gather(*(b.sender.send_my_pubkey(i.address)
+                                   for i in mine),
+                                 c.sender.send_my_pubkey(carol.address))
+            await _until(lambda: a.pool.objects_received >= idents + 1,
+                         "(l) the pubkeys at A", timeout)
+            setup = time.perf_counter() - t0
+            await finish("c", c)          # C leaves before the flood
+            plan = [(mine[k % idents], "flood %d" % k,
+                     _text(rng, body_bytes),
+                     int(rng.integers(3600, 4 * day + 1)))
+                    for k in range(flood)]
+            plan += [(carol, "foreign %d" % k, _text(rng, body_bytes),
+                      int(rng.integers(3600, 4 * day + 1)))
+                     for k in range(foreign)]
+            print("sockets (l) set-up: %d identities on B, 1 on C, %d "
+                  "pubkeys at A through R in %.1f s"
+                  % (idents, idents + 1, setup))
+            arrivals: list = []       # B's new objects
+            relayed: list = []        # R's new objects from A
+
+            def timed(pool, stamps, only=None):
+                received = pool.object_received
+
+                def record(h, header, payload, source=None):
+                    if only is None or source is only:
+                        stamps.append(time.perf_counter())
+                    received(h, header, payload, source=source)
+                pool.object_received = record
+            timed(b.pool, arrivals)
+            timed(r.pool, relayed, only=a_at_r)
+            total = flood + foreign
+            before, t0 = kit.launches(), time.perf_counter()
+            acks = [await a.send_message(to.address, me.address, subj,
+                                         text, ttl=ttl)
+                    for to, subj, text, ttl in plan]
+            await _until(lambda: len(a.store.sent_by_status(MSGSENT))
+                         + len(a.store.sent_by_status(ACKRECEIVED))
+                         == total, "(l) A's sends", timeout)
+            send_wall = time.perf_counter() - t0
+            await _until(lambda: b.processor.messages_processed >= total
+                         and not b.processor.pending()
+                         and len(b.store.inbox()) == flood,
+                         "(l) B's ingest", timeout)
+            ingest_end = time.perf_counter()
+            await _until(lambda: len(a.store.sent_by_status(ACKRECEIVED))
+                         == flood, "(l) the acks", timeout)
+            acks_wall = time.perf_counter() - t0
+            ingest_s = ingest_end - arrivals[0]
+            report["l_line"] = {
+                "objects": total, "send_wall_s": send_wall,
+                "send_objects_per_s": total / send_wall,
+                "b_first_object_s": arrivals[0] - t0,
+                "b_ingest_s": ingest_s,
+                "b_ingest_objects_per_s": total / ingest_s,
+                "b_inbox_wall_s": ingest_end - t0,
+                "acks": flood, "acks_wall_s": acks_wall,
+                "r_first_from_a_s": relayed[0] - t0,
+                "r_from_a_s": relayed[-1] - relayed[0],
+                "r_from_a_objects_per_s":
+                    len(relayed) / (relayed[-1] - relayed[0]),
+                "r_relayed": r.pool.objects_relayed,
+                "r_objects_sent": _wire_stats(r)["objects_sent"],
+                "launches": kit.delta(before)}
+            rows = {(row.toaddress, row.subject): row
+                    for row in b.store.inbox()}
+            require(len(rows) == flood == len(b.store.inbox()),
+                    "(l) B's inbox does not hold each message once")
+            for to, subj, text, _ in plan[:flood]:
+                row = rows.get((to.address, subj))
+                require(row is not None and row.message == text
+                        and row.fromaddress == me.address,
+                        "(l) %s missing or altered in B's inbox" % subj)
+            require([a.message_status(k) for k in acks[:flood]]
+                    == [ACKRECEIVED] * flood, "(l) an ack did not reach A")
+            require([a.message_status(k) for k in acks[flood:]]
+                    == [MSGSENT] * foreign, "(l) a message to C was acked")
+            for node in (a, b):
+                require(not node.pool.inbound and all(
+                    conn.port == r.pool.listen_port
+                    for conn in node.pool.connections()),
+                    "(l) A or B holds a connection to another node than R")
+            line_report = report["l_line"]
+            print("sockets (l): A sent %d in %.3f s (%.1f obj/s); B's "
+                  "first object after %.3f s, B ingested %d (%d delivered) "
+                  "in %.3f s (%.1f obj/s over TCP), inbox complete after "
+                  "%.3f s; %d acks at A through R after %.3f s; R took "
+                  "A's %d objects from %.3f s on, in %.3f s (%.1f obj/s), "
+                  "and relayed %d objects (%d object frames sent); "
+                  "launches %s"
+                  % (total, send_wall, total / send_wall,
+                     line_report["b_first_object_s"], total, flood,
+                     ingest_s, total / ingest_s, line_report["b_inbox_wall_s"],
+                     flood, acks_wall, len(relayed),
+                     line_report["r_first_from_a_s"],
+                     line_report["r_from_a_s"],
+                     line_report["r_from_a_objects_per_s"],
+                     line_report["r_relayed"],
+                     line_report["r_objects_sent"], line_report["launches"]))
+        finally:
+            if not c.shutdown.is_set():
+                await c.stop()
+            await finish("arb", a, r, b)
+
+    sc.reset_launches()
+    scc.reset_launches()
+    asyncio.run(pair())
+    asyncio.run(line())
+    net_launches = kit.launches()
+
+    t0 = time.perf_counter()
+    lowest = kit.check_nonces(rng, "socket phase")
+    print("sockets PoW: %d nonces valid by hashlib, %d objects in the "
+          "inventories pass hashlib's check, %d have no valid nonce below "
+          "theirs (%.1f s)" % (len(kit.solves), checked[0], lowest,
+                               time.perf_counter() - t0))
+    for per_node in stats.values():
+        for st in per_node:
+            require(st["failed_drains"] == 0, "a crypto drain failed")
+            require(st["host_verifies"] == st["host_decrypts"] == 0,
+                    "a node checked crypto on host threads")
+            require(st["pow_device_checked"] + st["pow_host_checked"]
+                    >= st["accepted"], "an object skipped the verifier")
+    print("sockets per node ((k), then (l)): %s"
+          % json.dumps(stats))
+    print("sockets PoW routes: %s" % json.dumps(kit.routes))
+    print("sockets launches: %s" % net_launches)
+    for kernel in ("search", "batch_search", "secp_verify", "secp_ecdh"):
+        require(net_launches[kernel] > 0,
+                "kernel %s not launched on the socket path" % kernel)
+    return {"phases": report, "launches": net_launches,
+            "routes": kit.routes, "nodes": stats,
+            "solves": len(kit.solves)}
 
 
 def phase_times_secp(prng, env: dict, launches: dict, errs: dict) -> list:
@@ -1945,17 +2322,21 @@ def main() -> int:
     receive = phase_receive(rng2, prng)
     # the node's data: a fourth generator
     node = phase_node(np.random.default_rng([args.seed, 4]))
+    # the node over sockets: a fifth generator
+    sockets = phase_sockets(np.random.default_rng([args.seed, 5]),
+                            bridge=node["phases"])
     kernels = phase_times(rng, env, main_path["launches"], errs)
     kernels += phase_times_secp(prng, env, receive["launches"], errs)
     for entry in kernels:
         entry["node_launches"] = node["launches"][entry["name"]]
+        entry["net_launches"] = sockets["launches"][entry["name"]]
     wall = time.perf_counter() - t_start
     print("chip_smoke wall %.1f s" % wall)
     if args.report:
         with open(args.report, "w") as fh:
             json.dump({"env": env, "main_path": main_path,
                        "selftest": selftest, "receive": receive,
-                       "node": node, "kernels": kernels,
+                       "node": node, "sockets": sockets, "kernels": kernels,
                        "wall_s": wall}, fh, indent=1)
     print(json.dumps({"kernels": [
         {k: entry[k] for k in KERNEL_KEYS}

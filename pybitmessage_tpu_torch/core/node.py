@@ -1,10 +1,11 @@
-"""The Node application object: storage + workers + object acceptance,
-wired to the card (copy of ``pybitmessage_tpu.core.node``, the ``all``
-role in one process with an SQLite inventory).
+"""The Node application object: storage + network + workers, wired to
+the card (copy of ``pybitmessage_tpu.core.node``, the ``all`` role in
+one process with an SQLite inventory).
 
 Startup order mirrors the reference (bitmessagemain.py:85-287): storage
-first, key caches, workers; shutdown unwinds in reverse with an
-inventory flush (shutdown.py:19-91).
+first, key caches, workers, then networking; shutdown unwinds in
+reverse with an inventory flush and knownnodes persistence
+(shutdown.py:19-91).
 
 Every device service is built for ``device`` (``None``: the CUDA card,
 raising without one; ``"cpu"``: the kernels' plain torch versions):
@@ -14,10 +15,12 @@ raising without one; ``"cpu"``: the kernels' plain torch versions):
 ingest path; identities are ground through ``priv_to_pub_many``.
 ``crypto_batch=False`` asks for host threads for the secp work instead.
 
-Objects enter through ``network.connection.accept_object(node.ctx,
-node.pool, payload)``; the socket protocol, sync, TLS, UDP discovery,
-the PoW farm, federation, health probes, the PoW journal, the cleaner
-and the roles other than ``all`` are not part of this package yet.
+Objects enter from peers over TCP (``network.pool.ConnectionPool``:
+listen on ``port``, ``pool.connect_to``), or through
+``network.connection.accept_object(node.ctx, node.pool, payload)`` for
+a caller without a socket.  Sync, TLS, SOCKS, UDP discovery, the PoW
+farm, federation, health probes, the PoW journal, the cleaner and the
+roles other than ``all`` are not part of this package yet.
 """
 
 from __future__ import annotations
@@ -30,12 +33,14 @@ from pathlib import Path
 from .. import resolve_device
 from ..crypto.keys import priv_to_pub_many
 from ..models.payloads import gen_ack_payload
+from ..network.dandelion import Dandelion
 from ..network.pool import ConnectionPool, NodeContext
 from ..pow.dispatcher import PowDispatcher
 from ..pow.service import PowService
 from ..pow.verify_service import BatchVerifier
 from ..storage.db import Database
 from ..storage.inventory import Inventory
+from ..storage.knownnodes import KnownNodes
 from ..storage.messages import MessageStore
 from ..utils.addresses import decode_address
 from ..workers.cryptopool import CryptoPool
@@ -50,12 +55,19 @@ class Node:
     """A Bitmessage node on one device.
 
     ``data_dir=None`` keeps everything in memory (tests); a directory
-    holds ``keys.dat`` and ``messages.dat`` in the JAX package's
-    formats.  ``test_mode`` divides the consensus difficulty by 100;
+    holds ``keys.dat``, ``messages.dat`` and ``knownnodes.json`` in the
+    JAX package's formats.  ``port`` is the TCP port it listens on
+    (0: any free one; ``pool.listen_port`` says which) when ``listen``;
+    ``allow_private_peers`` lets addr gossip add loopback and private
+    hosts to the known nodes.  ``test_mode`` divides the consensus
+    difficulty by 100 and shrinks the announce jitter to 2 s;
     ``pow_window`` is the PowService coalescing window.
     """
 
     def __init__(self, data_dir: str | None = None, *,
+                 port: int = 0, listen: bool = True,
+                 dandelion_enabled: bool = True,
+                 allow_private_peers: bool = False,
                  stream: int = 1, test_mode: bool = False,
                  pow_window: float | None = None, device=None,
                  crypto_batch: bool = True):
@@ -66,6 +78,8 @@ class Node:
         db_path = str(self.data_dir / "messages.dat") if self.data_dir \
             else ":memory:"
         keys_path = self.data_dir / "keys.dat" if self.data_dir else None
+        nodes_path = self.data_dir / "knownnodes.json" if self.data_dir \
+            else None
 
         # test mode divides the consensus difficulty by 100
         # (reference bitmessagemain.py:167-172)
@@ -81,13 +95,21 @@ class Node:
             def derive(privkeys, _device=self.device):
                 return priv_to_pub_many(privkeys, _device)
         self.keystore = KeyStore(keys_path, derive=derive)
+        self.knownnodes = KnownNodes(nodes_path)
+        self.dandelion = Dandelion(enabled=dandelion_enabled)
         #: incoming-object PoW checks batched onto the device
         self.pow_verifier = BatchVerifier(
             self.device, ntpb=min_ntpb, extra=min_extra, clamp=False)
-        self.ctx = NodeContext(inventory=self.inventory,
-                               pow_verifier=self.pow_verifier,
-                               streams=(stream,))
+        self.ctx = NodeContext(
+            inventory=self.inventory, pow_verifier=self.pow_verifier,
+            knownnodes=self.knownnodes, dandelion=self.dandelion,
+            streams=(stream,), port=port,
+            allow_private_peers=allow_private_peers,
+            # test mode keeps the announce jitter but shrinks it so
+            # multi-hop flows stay inside test timeouts
+            announce_buckets=2 if test_mode else None)
         self.pool = ConnectionPool(self.ctx)
+        self.listen = listen
         self.solver = PowDispatcher(self.device)
         self.pow_service = PowService(self.solver, shutdown=self.shutdown,
                                       window=pow_window)
@@ -116,8 +138,10 @@ class Node:
         self.pow_verifier.start()
         self.sender.start()
         self.processor.start()
+        await self.pool.start(listen=self.listen)
         self._pump_task = asyncio.create_task(self._pump_objects())
-        logger.info("node started on %s", self.device)
+        logger.info("node started on %s (port %s)", self.device,
+                    self.pool.listen_port if self.listen else "-")
 
     async def _pump_objects(self) -> None:
         """Forward validated objects to the processor."""
@@ -127,9 +151,9 @@ class Node:
 
     async def stop(self) -> None:
         """Orderly shutdown (reference shutdown.py:19-91).  The
-        processor persists what it has not processed, for the next
-        node on this ``data_dir``; objects still between acceptance and
-        the processor go with them."""
+        connections close first; the processor persists what it has
+        not processed, for the next node on this ``data_dir``; objects
+        still between acceptance and the processor go with them."""
         self.shutdown.set()
         if self._pump_task:
             self._pump_task.cancel()
@@ -138,6 +162,7 @@ class Node:
             except asyncio.CancelledError:
                 pass
             self._pump_task = None
+        await self.pool.stop()
         while not self.ctx.object_queue.empty():
             _, _, payload = self.ctx.object_queue.get_nowait()
             self.processor.queue.put_nowait(payload)
@@ -146,6 +171,7 @@ class Node:
         await self.pow_service.stop()
         await self.pow_verifier.stop()
         self.inventory.flush()
+        self.knownnodes.save()
         self.db.close()
         logger.info("node stopped")
 

@@ -1,3 +1,5 @@
-"""Object acceptance of the port: the node context, a connection pool
-cut to the processor hand-off and announcements, and the object checks
-a connection runs on every received object."""
+"""The socket protocol of the port: framed peer connections
+(``connection.BMConnection``), the connection pool with its dial,
+inv, download and maintenance loops (``pool``), the wire codecs
+(``messages``), the download trackers, dandelion routing, rate buckets
+and pooled receive buffers."""

@@ -1,56 +1,446 @@
-"""Shared node state and the connection pool (copy of
-``pybitmessage_tpu.network.pool``, cut to object acceptance).
+"""Shared node state and the connection pool: dialer, listener, gossip
+cadences (copy of ``pybitmessage_tpu.network.pool``, without TLS,
+SOCKS, UDP discovery, the set-reconciliation sync, the roles' hooks,
+metrics and chaos sites).
 
-:class:`NodeContext` carries what the object checks need: the
-inventory, the streams this node accepts, the batch PoW verifier (set
-to the node's network-minimum difficulty), and the watermarked queue
-validated objects leave through.  :class:`ConnectionPool` here holds no
-connections: :meth:`~ConnectionPool.object_received` queues a new
-object for the processor, and :meth:`~ConnectionPool.announce_object`
-has no peer to tell, as in the JAX pool with no connections; both call
-their optional hook.  The socket protocol comes with the network slice
-and calls the same acceptance function, ``connection.accept_object``.
+Reference: src/network/connectionpool.py (dial loop with rating-weighted
+choice + network-group diversity), invthread.py (1 s inv batching with
+dandelion split), downloadthread.py / uploadthread.py cadences,
+knownnodes rating lifecycle on connect/close (tcp.py:284-300).
 """
 
 from __future__ import annotations
 
-from typing import Callable
+import asyncio
+import logging
+import random
+import time
+from collections import deque
+from typing import Callable, Optional
 
+from ..models.constants import NODE_DANDELION, NODE_NETWORK
+from ..resilience import CircuitBreaker
+from ..storage.knownnodes import KnownNodes, Peer
 from ..utils.queues import WatermarkQueue
+from .connection import BMConnection
+from .messages import (AddrEntry, encode_addr, encode_host,
+                       is_private_host, network_group)
+from .ratelimit import TokenBucket
+from .tracker import ANNOUNCE_BUCKETS, GlobalTracker
+
+logger = logging.getLogger("pybitmessage_tpu_torch.network")
+
+DEFAULT_MAX_OUTBOUND = 8
+DEFAULT_MAX_TOTAL = 200
+PING_INTERVAL = 300
+INV_INTERVAL = 1.0
+DOWNLOAD_INTERVAL = 1.0
+#: TCP connect budget for one outbound dial (``connecttimeout``)
+DEFAULT_DIAL_TIMEOUT = 10.0
+#: version/verack must complete within this or the slot is reclaimed
+DEFAULT_HANDSHAKE_TIMEOUT = 30.0
+#: per-peer dial breakers kept at most (oldest dropped beyond this)
+MAX_DIAL_BREAKERS = 512
 
 
 class NodeContext:
-    """Shared state every connection needs."""
+    """Shared state every connection needs: the inventory, the peer
+    table, the dandelion state, this node's version fields, the batch
+    PoW verifier every received object goes through (set to the node's
+    network-minimum difficulty), the rate buckets, the download
+    tracker, and the watermarked queue validated objects leave
+    through."""
 
-    def __init__(self, *, inventory, pow_verifier, streams=(1,)):
+    def __init__(self, *, inventory, pow_verifier, knownnodes=None,
+                 dandelion=None, streams=(1,), port=8444,
+                 allow_private_peers: bool = False,
+                 announce_buckets: int | None = None):
         self.inventory = inventory
-        self.streams = tuple(streams)
-        #: validated objects flow out here: (hash, header, payload).
-        #: Crossing HIGH pauses the readers until the processor drains
-        #: it back under LOW
-        self.object_queue = WatermarkQueue()
         #: the BatchVerifier every incoming object's PoW goes through
         self.pow_verifier = pow_verifier
+        self.knownnodes = knownnodes if knownnodes is not None \
+            else KnownNodes()
+        self.dandelion = dandelion
+        self.streams = tuple(streams)
+        self.port = port
+        self.services = NODE_NETWORK | NODE_DANDELION
+        self.nonce = random.getrandbits(64).to_bytes(8, "big")
+        self.allow_private_peers = allow_private_peers
+        #: inv/addr timing-decorrelation bucket count (MultiQueue role)
+        self.announce_buckets = announce_buckets or ANNOUNCE_BUCKETS
+        #: byte/s global throttles (0 = unlimited), reference
+        #: maxdownloadrate/maxuploadrate semantics
+        self.download_bucket = TokenBucket(0)
+        self.upload_bucket = TokenBucket(0)
+        self.global_tracker = GlobalTracker()
+        #: validated objects flow out here: (hash, header, payload).
+        #: Crossing HIGH pauses every connection's read loop until the
+        #: processor drains it back under LOW
+        self.object_queue = WatermarkQueue()
 
 
 class ConnectionPool:
-    """The pool's object hand-off, with no connections."""
-
-    def __init__(self, ctx: NodeContext):
+    def __init__(self, ctx: NodeContext, *,
+                 max_outbound: int = DEFAULT_MAX_OUTBOUND,
+                 max_total: int = DEFAULT_MAX_TOTAL,
+                 listen_host: str = "127.0.0.1",
+                 trusted_peer: Optional[Peer] = None,
+                 dial_timeout: float = DEFAULT_DIAL_TIMEOUT,
+                 handshake_timeout: float = DEFAULT_HANDSHAKE_TIMEOUT):
         self.ctx = ctx
+        self.max_outbound = max_outbound
+        self.max_total = max_total
+        self.listen_host = listen_host
+        self.trusted_peer = trusted_peer
+        self.dial_timeout = dial_timeout
+        self.handshake_timeout = handshake_timeout
+        self.dial_breaker_threshold = 3
+        self.dial_breaker_cooldown = 120.0
+        #: per-peer dial circuit breakers: a repeatedly unreachable
+        #: peer stops consuming dial-loop ticks until its cooldown
+        self._dial_breakers: dict[str, CircuitBreaker] = {}
+        self.inbound: dict[BMConnection, None] = {}
+        self.outbound: dict[BMConnection, None] = {}
+        self._server: asyncio.AbstractServer | None = None
+        self._tasks: list[asyncio.Task] = []
         #: ``(h, stream, local)`` for every announced object
         self.on_announce: Callable | None = None
-        #: new objects accepted
+        #: (AddrEntry, due_time) queue for ongoing addr relay
+        self._addr_gossip: list = []
+        #: peers that asked us to verify their reachability
+        #: (reference portCheckerQueue) — dialed before rating choice
+        self._portcheck_queue: deque[Peer] = deque()
+        #: new objects accepted, and of those the ones announced on to
+        #: at least one other peer
         self.objects_received = 0
+        self.objects_relayed = 0
 
-    def object_received(self, h: bytes, header, payload: bytes) -> None:
-        """A new valid object arrived: queue it for processing."""
+    # -- queries -------------------------------------------------------------
+
+    def connections(self) -> list[BMConnection]:
+        return list(self.outbound) + list(self.inbound)
+
+    @staticmethod
+    def _subscribes(conn, stream: int) -> bool:
+        """A connection hears stream k when its negotiated streams
+        include k; one that never advertised streams always does."""
+        streams = getattr(conn, "streams", None)
+        return not streams or stream in streams
+
+    def established(self) -> list[BMConnection]:
+        return [c for c in self.connections() if c.fully_established]
+
+    def _used_groups(self) -> set[bytes]:
+        return {network_group(c.host) for c in self.outbound}
+
+    # -- lifecycle -----------------------------------------------------------
+
+    async def start(self, listen: bool = True) -> None:
+        if listen:
+            self._server = await asyncio.start_server(
+                self._accept, self.listen_host, self.ctx.port)
+        self._tasks = [
+            asyncio.create_task(self._dial_loop()),
+            asyncio.create_task(self._inv_loop()),
+            asyncio.create_task(self._download_loop()),
+            asyncio.create_task(self._maintenance_loop()),
+        ]
+
+    async def stop(self) -> None:
+        for t in self._tasks:
+            t.cancel()
+        await asyncio.gather(*self._tasks, return_exceptions=True)
+        self._tasks = []
+        if self._server:
+            self._server.close()
+        # Close connections BEFORE Server.wait_closed(): since Python
+        # 3.12 wait_closed() blocks until every handler transport is
+        # gone, so the other order deadlocks on any live connection.
+        for conn in self.connections():
+            await conn.close()
+        if self._server:
+            await self._server.wait_closed()
+            self._server = None
+
+    @property
+    def listen_port(self) -> int:
+        if self._server and self._server.sockets:
+            return self._server.sockets[0].getsockname()[1]
+        return self.ctx.port
+
+    # -- connection management ----------------------------------------------
+
+    async def _accept(self, reader: asyncio.StreamReader,
+                      writer: asyncio.StreamWriter) -> None:
+        peer = writer.get_extra_info("peername") or ("?", 0)
+        if len(self.connections()) >= self.max_total:
+            writer.close()
+            return
+        conn = BMConnection(self, reader, writer, outbound=False,
+                            host=peer[0], port=peer[1])
+        self.inbound[conn] = None
+        conn.start()
+        # a peer that never completes version/verack must not pin an
+        # inbound slot forever
+        conn.arm_handshake_timeout(self.handshake_timeout)
+
+    def _dial_breaker(self, peer: Peer) -> CircuitBreaker:
+        key = "%s:%d" % (peer.host, peer.port)
+        br = self._dial_breakers.get(key)
+        if br is None:
+            while len(self._dial_breakers) >= MAX_DIAL_BREAKERS:
+                self._dial_breakers.pop(next(iter(self._dial_breakers)))
+            br = self._dial_breakers[key] = CircuitBreaker(
+                "net.dial:%s" % key,
+                threshold=self.dial_breaker_threshold,
+                cooldown=self.dial_breaker_cooldown)
+        return br
+
+    async def connect_to(self, peer: Peer) -> BMConnection | None:
+        breaker = self._dial_breaker(peer)
+        if not breaker.allow():
+            # repeatedly-dead peer: don't pay the connect timeout again
+            # until the breaker's cooldown lets a probe through
+            return None
+        try:
+            reader, writer = await asyncio.wait_for(
+                asyncio.open_connection(peer.host, peer.port),
+                timeout=self.dial_timeout)
+        except (OSError, asyncio.TimeoutError) as exc:
+            logger.debug("dial %s failed: %r", peer, exc)
+            breaker.record_failure()
+            self.ctx.knownnodes.decrease_rating(peer)
+            return None
+        breaker.record_success()
+        conn = BMConnection(self, reader, writer, outbound=True,
+                            host=peer.host, port=peer.port)
+        self.outbound[conn] = None
+        conn.start()
+        conn.arm_handshake_timeout(self.handshake_timeout)
+        return conn
+
+    def connection_established(self, conn: BMConnection) -> None:
+        peer = Peer(conn.host, conn.port)
+        self.ctx.knownnodes.add(peer)
+        self.ctx.knownnodes.increase_rating(peer)
+        if self.ctx.dandelion and conn.services & NODE_DANDELION:
+            self.ctx.dandelion.maybe_add_stem(conn)
+
+    def connection_closed(self, conn: BMConnection) -> None:
+        self.inbound.pop(conn, None)
+        self.outbound.pop(conn, None)
+        if self.ctx.dandelion:
+            self.ctx.dandelion.remove_connection(conn)
+        if conn.outbound and not conn.fully_established:
+            self.ctx.knownnodes.decrease_rating(Peer(conn.host, conn.port))
+
+    def portcheck_requested(self, peer: Peer) -> None:
+        """Queue a reachability-verification dial (cmd_portcheck)."""
+        if peer not in self._portcheck_queue:
+            self._portcheck_queue.append(peer)
+
+    def peer_discovered(self, entry: AddrEntry) -> None:
+        # Reject unroutable addresses from gossip — loopback/private/
+        # reserved hosts would poison the dial loop
+        if is_private_host(entry.host) and not self.ctx.allow_private_peers:
+            return
+        self.ctx.knownnodes.add(
+            Peer(entry.host, entry.port), entry.stream,
+            lastseen=min(int(entry.time), int(time.time())))
+
+    def _route_announcement(self, h: bytes, conns,
+                            stream: int | None = None) -> None:
+        """Fan one announcement out to the trackers of ``conns``.  With
+        a known ``stream`` only peers subscribed to it hear it, and a
+        stream outside ``ctx.streams`` is never announced."""
+        if stream is not None:
+            if stream not in self.ctx.streams:
+                return
+            conns = [c for c in conns if self._subscribes(c, stream)]
+        for conn in conns:
+            conn.tracker.we_should_announce(h)
+
+    def object_received(self, h: bytes, header, payload: bytes,
+                        source=None) -> None:
+        """A new valid object arrived: relay it and queue it for the
+        processor.  The source connection is excluded — an inv must
+        never echo back to the peer that delivered the object."""
         self.objects_received += 1
+        peers = [c for c in self.established() if c is not source]
+        if peers:
+            self.objects_relayed += 1
+        self._route_announcement(h, peers,
+                                 stream=getattr(header, "stream", None))
         self.ctx.object_queue.put_nowait((h, header, payload))
 
     def announce_object(self, h: bytes, stream: int = 1,
                         local: bool = True) -> None:
-        """Advertise a locally generated or relayed object: no peer to
-        tell, so only the hook hears of it."""
+        """Advertise a (locally generated or relayed) object.  Local
+        objects may enter the dandelion stem phase."""
+        dand = self.ctx.dandelion
+        if local and dand and dand.enabled and \
+                random.randrange(100) < dand.stem_probability:
+            dand.add_hash(h, stream, source=None)
+        self._route_announcement(h, self.established(), stream=stream)
         if self.on_announce is not None:
             self.on_announce(h, stream, local)
+
+    # -- periodic tasks ------------------------------------------------------
+
+    async def _dial_loop(self) -> None:
+        while True:
+            try:
+                await self._dial_once()
+            except asyncio.CancelledError:
+                raise
+            except Exception:
+                logger.exception("dial loop error")
+            await asyncio.sleep(2)
+
+    async def _dial_once(self) -> None:
+        if self.trusted_peer is not None:
+            if not self.outbound:
+                await self.connect_to(self.trusted_peer)
+            return
+        if len(self.outbound) >= self.max_outbound:
+            return
+        peer = None
+        # portcheck requests first (connectionchooser.py:37-44)
+        while self._portcheck_queue:
+            candidate = self._portcheck_queue.popleft()
+            if candidate not in [Peer(c.host, c.port)
+                                 for c in self.outbound]:
+                peer = candidate
+                break
+        if peer is None:
+            peer = self.ctx.knownnodes.choose()
+        if peer is None:
+            return
+        if peer in [Peer(c.host, c.port) for c in self.outbound]:
+            return
+        # network-group diversity (anti-Sybil, connectionpool.py:303-317)
+        if network_group(peer.host) in self._used_groups():
+            return
+        await self.connect_to(peer)
+
+    async def _inv_loop(self) -> None:
+        """Per-second inv/dinv announcement batching (invthread.py)."""
+        while True:
+            await asyncio.sleep(INV_INTERVAL)
+            try:
+                await self._inv_once()
+            except asyncio.CancelledError:
+                raise
+            except Exception:
+                logger.exception("inv loop error")
+
+    async def _flush_addr_gossip(self) -> None:
+        """Ongoing addr relay (reference addrthread.py:13-49): peers
+        newly learned since the last tick are re-advertised to every
+        established connection, each entry leaving after a random
+        sub-tick delay (the MultiQueue decorrelation)."""
+        fresh = self.ctx.knownnodes.newly_added
+        if fresh:
+            self.ctx.knownnodes.newly_added = []
+            now = time.time()
+            jitter = self.ctx.announce_buckets
+            for peer, stream in fresh:
+                info = self.ctx.knownnodes.get(peer, stream)
+                if not info or info.get("self"):
+                    continue
+                try:
+                    encode_host(peer.host)
+                except (OSError, ValueError):
+                    continue
+                entry = AddrEntry(info["lastseen"], stream, 1,
+                                  peer.host, peer.port)
+                self._addr_gossip.append(
+                    (entry, now + random.uniform(0, jitter)))
+        if not self._addr_gossip:
+            return
+        now = time.time()
+        due = [e for e, d in self._addr_gossip if d <= now]
+        if not due:
+            return
+        self._addr_gossip = [(e, d) for e, d in self._addr_gossip
+                             if d > now]
+        packet = encode_addr(due)
+        for conn in self.established():
+            try:
+                await conn.send_packet("addr", packet)
+            except (ConnectionError, OSError) as exc:
+                # best-effort: the entries re-advertise through other
+                # peers, but the failed send is logged
+                logger.debug("addr gossip to %s failed: %r",
+                             conn.host, exc)
+
+    async def _inv_once(self) -> None:
+        await self._flush_addr_gossip()
+        dand = self.ctx.dandelion
+        if dand:
+            for h, stream in dand.expire_fluffed():
+                # stem timer expired: the hash is now an ordinary
+                # fluff announcement
+                self._route_announcement(h, self.established(),
+                                         stream=stream)
+        for conn in self.established():
+            chunk = conn.tracker.take_announcements()
+            if not chunk:
+                continue
+            fluffs, stems = [], []
+            for h in chunk:
+                child = dand.child_for(h) if dand else None
+                if child is None:
+                    fluffs.append(h)
+                elif child is conn:
+                    stems.append(h)
+                # else: in stem phase routed to another child — skip
+            random.shuffle(fluffs)
+            sends = [(hs, stem) for hs, stem in
+                     ((fluffs, False), (stems, True)) if hs]
+            for i, (hashes, stem) in enumerate(sends):
+                try:
+                    await conn.announce(hashes, stem=stem)
+                except (ConnectionError, OSError) as exc:
+                    # requeue ONLY the unsent groups so the next tick
+                    # re-delivers them
+                    unsent = [h for hs, _ in sends[i:] for h in hs]
+                    logger.debug("announce to %s failed (%r); requeued "
+                                 "%d hashes", conn.host, exc, len(unsent))
+                    for h in unsent:
+                        conn.tracker.we_should_announce(h)
+                    break
+
+    async def _download_loop(self) -> None:
+        while True:
+            await asyncio.sleep(DOWNLOAD_INTERVAL)
+            try:
+                for conn in self.established():
+                    await conn.request_objects()
+                    # drain queued getdata backlogs (10/round cadence of
+                    # the reference's uploadthread)
+                    await conn.flush_uploads()
+            except asyncio.CancelledError:
+                raise
+            except Exception:
+                logger.exception("download loop error")
+
+    async def _maintenance_loop(self) -> None:
+        while True:
+            await asyncio.sleep(30)
+            try:
+                now = time.time()
+                self.ctx.global_tracker.expire()
+                for conn in self.connections():
+                    conn.tracker.clean()
+                    if conn.fully_established and \
+                            now - conn.last_activity > PING_INTERVAL:
+                        await conn.send_packet("ping")
+                    if now - conn.last_activity > PING_INTERVAL * 2:
+                        await conn.close("inactive")
+                if self.ctx.dandelion:
+                    self.ctx.dandelion.maybe_reassign(self.established())
+            except asyncio.CancelledError:
+                raise
+            except Exception:
+                logger.exception("maintenance loop error")
