@@ -55,6 +55,15 @@ Phases (any failure exits non-zero):
    (j)'s flood and its acks through R, every inbox row and ack held to
    what was sent; kernels 1, 2, 4 and 5 must have been launched in the
    phase;
+7. the daemon (``phase_daemon``), ``python -m pybitmessage_tpu_torch``
+   processes on the card at network difficulty, driven only through
+   their API (JSON-RPC and XML-RPC): the single-instance lock and basic
+   auth, a self-send on daemon A to its inbox, a message from A to
+   daemon B (B dials A) until ``ackreceived``, SIGTERM and a restart of
+   A that keeps its identities and inbox; kernels 1, 4 and 5 must have
+   been launched in the daemons (their ``clientStatus`` launch
+   counters), no crypto check on host threads, and every object of both
+   daemons' inventories passes hashlib's PoW check;
 4. times: each kernel at its main-path shape (CUDA events over warm
    launches) beside its plain version and its bound; the packed kernel
    on the storm's own targets and on targets that mostly miss, with the
@@ -67,10 +76,11 @@ Phases (any failure exits non-zero):
 
 The receive phases draw their data from a second generator seeded from
 ``--seed``, so phases 1-4 keep their inputs.
-Phases 5 and 6 run before phase 4 and draw from a fourth and a fifth
-generator; each kernel's entry in the kernels line carries its launches
-on the send or receive path (``launches``), in the node phase
-(``node_launches``) and in the socket phase (``net_launches``).
+Phases 5, 6 and 7 run before phase 4 and draw from a fourth, a fifth
+and a sixth generator; each kernel's entry in the kernels line carries
+its launches on the send or receive path (``launches``), in the node
+phase (``node_launches``), in the socket phase (``net_launches``) and
+in the daemons (``daemon_launches``).
 The second-to-last line of output is the ``{"kernels": [...]}`` record,
 the last ``{"ok": true, "device": {...}}``.  Exits non-zero without
 printing either when no CUDA device is present.
@@ -80,12 +90,20 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import base64
 import hashlib
+import http.client
 import json
+import os
 import random
+import signal
+import socket
+import sqlite3
 import subprocess
 import sys
+import tempfile
 import time
+import xmlrpc.client
 
 import numpy as np
 
@@ -111,7 +129,8 @@ REPLACES = {
 #: the keys of an entry of the kernels line
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-               "library_ms", "node_launches", "net_launches")
+               "library_ms", "node_launches", "net_launches",
+               "daemon_launches")
 MASK64 = (1 << 64) - 1
 ALWAYS_HIT = MASK64
 
@@ -2215,6 +2234,310 @@ def phase_sockets(rng, *, device=None, test_mode: bool = False,
             "solves": len(kit.solves)}
 
 
+class _Daemon:
+    """One ``python -m pybitmessage_tpu_torch`` process of phase 7, its
+    data directory, its API (JSON-RPC with ``http.client``, XML-RPC
+    with ``xmlrpc.client``) and its apinotify hook's event log."""
+
+    USER, PASSWORD = "smoke", "smoke-pass"
+
+    def __init__(self, root, name: str, flags: list, timeout: float):
+        self.dir = os.path.join(root, name)
+        self.events = os.path.join(root, name + ".events")
+        self.out = os.path.join(root, name + ".out")
+        self.hook = os.path.join(root, name + ".hook")
+        with open(self.hook, "w") as fh:
+            fh.write("#!/bin/sh\necho \"$1\" >> %s\n" % self.events)
+        os.chmod(self.hook, 0o755)
+        self.flags, self.timeout = flags, timeout
+        self.api_port = self.p2p_port = 0
+        self.proc = None
+
+    def argv(self, *extra) -> list:
+        return [sys.executable, "-m", "pybitmessage_tpu_torch", "-d",
+                self.dir, *self.flags, *extra]
+
+    def start(self, *extra) -> float:
+        """Start and wait for the hook's ``apiEnabled``; the seconds."""
+        if os.path.exists(self.events):
+            os.remove(self.events)
+        self.p2p_port, self.api_port = _free_port(), _free_port()
+        t0 = time.perf_counter()
+        with open(self.out, "ab") as out:
+            self.proc = subprocess.Popen(
+                self.argv("-p", str(self.p2p_port),
+                          "--api-port", str(self.api_port),
+                          "--api-user", self.USER,
+                          "--api-password", self.PASSWORD,
+                          "--set", "apinotifypath=" + self.hook, *extra),
+                cwd=_ROOT, stdout=out, stderr=subprocess.STDOUT)
+        while "apiEnabled" not in self.hook_events():
+            require(self.proc.poll() is None,
+                    "daemon %s exited at start (rc %s)"
+                    % (self.dir, self.proc.returncode))
+            require(time.perf_counter() - t0 < self.timeout,
+                    "daemon %s never signalled apiEnabled" % self.dir)
+            time.sleep(0.05)
+        return time.perf_counter() - t0
+
+    def hook_events(self) -> list:
+        try:
+            with open(self.events) as fh:
+                return fh.read().split()
+        except OSError:
+            return []
+
+    def http(self, body: bytes, auth: bool = True) -> tuple:
+        conn = http.client.HTTPConnection("127.0.0.1", self.api_port,
+                                          timeout=self.timeout)
+        headers = {"Content-Type": "application/json"}
+        if auth:
+            headers["Authorization"] = "Basic " + base64.b64encode(
+                ("%s:%s" % (self.USER, self.PASSWORD)).encode()).decode()
+        try:
+            conn.request("POST", "/", body, headers)
+            resp = conn.getresponse()
+            return resp.status, resp.read()
+        finally:
+            conn.close()
+
+    def rpc(self, method: str, *params):
+        status, body = self.http(json.dumps(
+            {"method": method, "params": list(params), "id": 1}).encode())
+        require(status == 200, "%s answered HTTP %d" % (method, status))
+        resp = json.loads(body)
+        require(not resp.get("error"), "%s failed: %s"
+                % (method, resp.get("error")))
+        return resp["result"]
+
+    def xml(self):
+        timeout = self.timeout
+
+        class Transport(xmlrpc.client.Transport):
+            def make_connection(self, host):
+                conn = super().make_connection(host)
+                conn.timeout = timeout
+                return conn
+        return xmlrpc.client.ServerProxy(
+            "http://%s:%s@127.0.0.1:%d/" % (self.USER, self.PASSWORD,
+                                            self.api_port),
+            transport=Transport())
+
+    def stop(self) -> int:
+        """SIGTERM; the exit code."""
+        self.proc.send_signal(signal.SIGTERM)
+        return self.proc.wait(timeout=self.timeout)
+
+    def kill(self) -> None:
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=self.timeout)
+
+    def log(self) -> str:
+        path = os.path.join(self.dir, "debug.log")
+        if not os.path.exists(path):
+            return ""
+        with open(path) as fh:
+            return fh.read()
+
+    def tail(self, lines: int = 30) -> str:
+        try:
+            with open(self.out, errors="replace") as fh:
+                return "".join(fh.readlines()[-lines:])
+        except OSError:
+            return ""
+
+
+#: the checkout the daemons of phase 7 run from
+_ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind((LOOPBACK, 0))
+        return sock.getsockname()[1]
+
+
+def _inventory_pow_checks(db_path: str, ntpb: int) -> int:
+    """hashlib's check of every object in a daemon's ``messages.dat``
+    inventory, at the network minimum (test mode's when rehearsing)."""
+
+    from pybitmessage_tpu_torch.models.pow_math import pow_target
+    conn = sqlite3.connect(db_path)
+    try:
+        rows = conn.execute("SELECT payload FROM inventory").fetchall()
+    finally:
+        conn.close()
+    for (payload,) in rows:
+        payload = bytes(payload)
+        ttl = max(int.from_bytes(payload[8:16], "big") - int(time.time()),
+                  300)
+        target = pow_target(len(payload), ttl, ntpb, ntpb, clamp=False)
+        nonce = int.from_bytes(payload[:8], "big")
+        require(trial(nonce, hashlib.sha512(payload[8:]).digest())
+                <= target, "an object in %s fails hashlib's PoW check"
+                % db_path)
+    return len(rows)
+
+
+def phase_daemon(rng, *, device=None, test_mode: bool = False,
+                 crypto_batch: bool = True, timeout: float = 120.0) -> dict:
+    """Phase 7: the daemon, ``python -m pybitmessage_tpu_torch``, driven
+    only through its API.  Daemon A starts at network difficulty with an
+    apinotify hook (readiness is its ``apiEnabled``); a second daemon on
+    A's directory must exit 1 ("already holds") and a call without
+    credentials gets 401.  On A: two ``createRandomAddress`` X and Y and
+    ``sendMessage`` X -> Y, polled until Y's inbox row holds what was
+    sent and ``getStatus`` reads ``ackreceived``; the hook logged
+    ``newMessage``.  Daemon B dials A (``--trusted-peer``) and creates Z;
+    A sends X -> Z, polled until ``ackreceived``, and B's inbox row must
+    equal what was sent.  Each daemon's ``clientStatus`` ``device``
+    block (its kernels' launch counters, from 0 at its start) is read
+    before it stops: kernels 1, 4 and 5 must have launched in the
+    daemons, and no crypto check may have run on host threads.  SIGTERM
+    stops both with rc 0 and "node stopped" in each ``debug.log``; A
+    restarts on its directory and still holds X, Y and the inbox row.
+    Every object of both ``messages.dat`` inventories is re-checked with
+    hashlib.  (``device="cpu"``, ``test_mode=True`` and
+    ``crypto_batch=False``, host threads for the secp work, rehearse it
+    without the launch and host-check checks.)"""
+
+    flags = ["--device", device] if device else []
+    if test_mode:
+        flags.append("-t")
+    if not crypto_batch:
+        flags += ["--set", "cryptobatch=false"]
+    ntpb = 10 if test_mode else 1000
+    report: dict = {}
+    daemons: list = []
+
+    def b64(text: str) -> str:
+        return base64.b64encode(text.encode()).decode()
+
+    def until(pred, what: str) -> float:
+        t0 = time.perf_counter()
+        while not pred():
+            require(time.perf_counter() - t0 < timeout,
+                    "timed out after %.0f s waiting for %s" % (timeout, what))
+            time.sleep(0.1)
+        return time.perf_counter() - t0
+
+    def inbox(d, to: str) -> list:
+        return [m for m in json.loads(d.rpc("getAllInboxMessages"))[
+            "inboxMessages"] if m["toAddress"] == to]
+
+    def held(d, to: str, frm: str, subject: str, body: str) -> None:
+        [m] = inbox(d, to)
+        require(m["fromAddress"] == frm
+                and base64.b64decode(m["subject"]).decode() == subject
+                and base64.b64decode(m["message"]).decode() == body,
+                "an inbox row differs from what was sent")
+
+    def status(d) -> dict:
+        st = json.loads(d.rpc("clientStatus"))
+        launches = {name: row["launches"]
+                    for name, row in st["device"]["programs"].items()}
+        return {"launches": launches, "crypto": st["crypto"],
+                "powVerify": st["powVerify"], "powBackend": st["powBackend"],
+                "connections": st["networkConnections"]}
+
+    with tempfile.TemporaryDirectory(prefix="bm-daemon-") as root:
+        a = _Daemon(root, "A", flags, timeout)
+        b = _Daemon(root, "B", flags, timeout)
+        daemons += [a, b]
+        try:
+            report["a_start_s"] = a.start()
+            # the lock and the auth
+            second = subprocess.run(
+                a.argv("--no-api", "-p", "0"), cwd=_ROOT,
+                capture_output=True, timeout=timeout)
+            require(second.returncode == 1
+                    and b"already holds" in second.stdout + second.stderr,
+                    "a second daemon on A's directory did not refuse")
+            code, _ = a.http(b"{}", auth=False)
+            require(code == 401, "a call without credentials got %d" % code)
+
+            # the self-send, JSON-RPC and XML-RPC on one port
+            t0 = time.perf_counter()
+            x = a.rpc("createRandomAddress", b64("X"))
+            y = a.xml().createRandomAddress(b64("Y"))
+            subject, body = _text(rng, 40), _text(rng, 600)
+            ack = a.rpc("sendMessage", y, x, b64(subject), b64(body))
+            until(lambda: inbox(a, y), "the self-sent message")
+            held(a, y, x, subject, body)
+            require(a.xml().getStatus(ack) == "ackreceived",
+                    "the self-send's status is not ackreceived")
+            report["self_send_s"] = time.perf_counter() - t0
+            until(lambda: "newMessage" in a.hook_events(),
+                  "the newMessage hook")
+
+            # a message between two daemons
+            report["b_start_s"] = b.start(
+                "--trusted-peer", "%s:%d" % (LOOPBACK, a.p2p_port))
+            t0 = time.perf_counter()
+            z = b.rpc("createRandomAddress", b64("Z"))
+            subject2, body2 = _text(rng, 40), _text(rng, 1000)
+            ack2 = a.rpc("sendMessage", z, x, b64(subject2), b64(body2))
+            until(lambda: a.rpc("getStatus", ack2) == "ackreceived",
+                  "the ack of the message to B")
+            report["two_daemon_s"] = time.perf_counter() - t0
+            held(b, z, x, subject2, body2)
+
+            report["a"], report["b"] = status(a), status(b)
+            for name, code in (("A", a.stop()), ("B", b.stop())):
+                require(code == 0, "daemon %s exited %d on SIGTERM"
+                        % (name, code))
+            for d in (a, b):
+                require("node stopped" in d.log(),
+                        "no 'node stopped' in %s/debug.log" % d.dir)
+
+            # stop and restart
+            report["restart_s"] = a.start()
+            addresses = {r["address"] for r in json.loads(
+                a.rpc("listAddresses"))["addresses"]}
+            require({x, y} <= addresses, "the restart lost X or Y")
+            held(a, y, x, subject, body)
+            require(a.stop() == 0, "the restarted daemon exited non-zero")
+        except BaseException:
+            for d in daemons:
+                print("--- daemon %s output (last lines):\n%s"
+                      % (d.dir, d.tail()), file=sys.stderr)
+            raise
+        finally:
+            for d in daemons:
+                d.kill()
+        report["objects_checked"] = sum(
+            _inventory_pow_checks(os.path.join(d.dir, "messages.dat"), ntpb)
+            for d in (a, b))
+
+    launches = {}
+    for side in (report["a"], report["b"]):
+        for name, n in side["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    from pybitmessage_tpu_torch.ops import secp256k1_cuda as scc
+    from pybitmessage_tpu_torch.ops import sha512_cuda as sc
+    launches = {name: launches.get(name, 0)
+                for name in (*sc.LAUNCHES, *scc.LAUNCHES)}
+    for side in ("a", "b") if crypto_batch else ():
+        host = report[side]["crypto"]["hostChecks"]
+        require(host["verifies"] == host["decrypts"] == 0,
+                "daemon %s checked crypto on host threads" % side.upper())
+    print("daemon: A start to apiEnabled %.2f s, self-send %.3f s, B start "
+          "%.2f s, A -> B until ackreceived %.3f s, restart %.2f s; %d "
+          "objects in the two inventories pass hashlib's check"
+          % (report["a_start_s"], report["self_send_s"],
+             report["b_start_s"], report["two_daemon_s"],
+             report["restart_s"], report["objects_checked"]))
+    print("daemon A: %s" % json.dumps(report["a"]))
+    print("daemon B: %s" % json.dumps(report["b"]))
+    print("daemon launches: %s" % launches)
+    if device != "cpu":
+        for kernel in ("search", "secp_verify", "secp_ecdh"):
+            require(launches[kernel] > 0,
+                    "kernel %s not launched in the daemons" % kernel)
+    return {"phases": report, "launches": launches}
+
+
 def phase_times_secp(prng, env: dict, launches: dict, errs: dict) -> list:
     """Each secp kernel at the main path's drain (4,096 lanes) and on a
     full card (65,536 lanes): CUDA-event times over warm launches, the
@@ -2325,18 +2648,22 @@ def main() -> int:
     # the node over sockets: a fifth generator
     sockets = phase_sockets(np.random.default_rng([args.seed, 5]),
                             bridge=node["phases"])
+    # the daemon through its API: a sixth generator
+    daemon = phase_daemon(np.random.default_rng([args.seed, 6]))
     kernels = phase_times(rng, env, main_path["launches"], errs)
     kernels += phase_times_secp(prng, env, receive["launches"], errs)
     for entry in kernels:
         entry["node_launches"] = node["launches"][entry["name"]]
         entry["net_launches"] = sockets["launches"][entry["name"]]
+        entry["daemon_launches"] = daemon["launches"][entry["name"]]
     wall = time.perf_counter() - t_start
     print("chip_smoke wall %.1f s" % wall)
     if args.report:
         with open(args.report, "w") as fh:
             json.dump({"env": env, "main_path": main_path,
                        "selftest": selftest, "receive": receive,
-                       "node": node, "sockets": sockets, "kernels": kernels,
+                       "node": node, "sockets": sockets, "daemon": daemon,
+                       "kernels": kernels,
                        "wall_s": wall}, fh, indent=1)
     print(json.dumps({"kernels": [
         {k: entry[k] for k in KERNEL_KEYS}

@@ -1,0 +1,312 @@
+"""Daemon entry point: ``python -m pybitmessage_tpu_torch`` (copy of
+``pybitmessage_tpu.__main__``, the fused ``all``-role node).
+
+Reference: src/bitmessagemain.py Main.start() — single process, clean
+shutdown on SIGINT/SIGTERM, optional test mode (-t) and trusted peer;
+configuration layered as defaults <- settings.dat <- CLI flags
+(reference bmconfigparser + helper_startup.loadConfig).
+
+The node runs on the CUDA device unless ``--device cpu`` asks for the
+kernels' plain torch versions; without a card and without that flag the
+daemon exits 1.  A setting that turns on a subsystem this package does
+not have (``REFUSED``) stops the start with exit 1; the subsystems the
+JAX package runs by default and this one does not yet (``NOT_RUN``) are
+named in one warning line at startup.
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import logging
+import signal
+import sys
+from pathlib import Path
+
+
+def _on(value: str) -> bool:
+    return value.lower() in ("true", "1", "yes")
+
+
+#: option -> (the JAX package's default, "turns on a subsystem the port
+#: lacks"): any of these set so refuses the start, since running
+#: without the subsystem would not be what the setting asked for
+#: (proxied traffic must never go out unproxied)
+REFUSED = {
+    "role": ("all", lambda v: v != "all"),
+    "sockstype": ("none", lambda v: v != "none"),
+    "smtpdenabled": ("false", _on),
+    "smtpdeliver": ("", bool),
+    "upnp": ("false", _on),
+    "powfarmlisten": ("", bool),
+    "powfarmconnect": ("", bool),
+    "clientplanelisten": ("", bool),
+    "clientconnect": ("", bool),
+    "federationpush": ("", bool),
+    "chaos": ("", bool),
+    "inventorystorage": ("sqlite", lambda v: v != "sqlite"),
+}
+
+#: option -> (the JAX package's default, "on"): subsystems the JAX
+#: package runs by default and this package does not run yet
+NOT_RUN = {
+    "tls": ("true", _on),
+    "udp": ("true", _on),
+    "syncenabled": ("true", _on),
+    "wiretrace": ("true", _on),
+    "profiling": ("true", _on),
+    "federation": ("aggregator", lambda v: v != "off"),
+    "cryptonative": ("true", _on),
+    "cryptotpu": ("auto", lambda v: v.lower() not in ("off", "false",
+                                                      "0", "no")),
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="pybitmessage_tpu_torch",
+        description="Bitmessage node on an NVIDIA GPU (PyTorch + CUDA)")
+    p.add_argument("-d", "--data-dir", default=None,
+                   help="data directory (default: in-memory; "
+                        "--appdata uses ~/.config/pybitmessage-tpu "
+                        "or $BITMESSAGE_HOME)")
+    p.add_argument("--appdata", action="store_true",
+                   help="persist to the standard appdata directory")
+    p.add_argument("--daemon", action="store_true",
+                   help="detach from the terminal (double fork)")
+    p.add_argument("--device", default=None,
+                   help="torch device of the node (default: the CUDA "
+                        "device; 'cpu' runs the kernels' plain torch "
+                        "versions)")
+    p.add_argument("-p", "--port", type=int, default=None,
+                   help="P2P listen port (default from settings: 8444)")
+    p.add_argument("--no-listen", action="store_true",
+                   help="outbound connections only")
+    p.add_argument("--api-port", type=int, default=None)
+    p.add_argument("--no-api", action="store_true")
+    p.add_argument("--api-user", default="")
+    p.add_argument("--api-password", default="")
+    p.add_argument("-t", "--test-mode", action="store_true",
+                   help="divide PoW difficulty by 100 (reference -t)")
+    p.add_argument("--trusted-peer", default=None, metavar="HOST:PORT",
+                   help="connect only to this peer")
+    p.add_argument("--no-dandelion", action="store_true")
+    p.add_argument("--no-udp", action="store_true",
+                   help="disable UDP LAN discovery (not run by this "
+                        "package yet)")
+    p.add_argument("--seed-defaults", action="store_true",
+                   help="seed the bootstrap nodes into knownnodes")
+    p.add_argument("--set", action="append", default=[],
+                   metavar="KEY=VALUE", dest="set_options",
+                   help="persist a settings option and continue")
+    p.add_argument("-v", "--verbose", action="store_true")
+    return p
+
+
+def load_settings(args):
+    """defaults <- settings.dat <- --set <- per-flag CLI overrides."""
+    from .core.config import Settings
+
+    path = Path(args.data_dir) / "settings.dat" if args.data_dir else None
+    settings = Settings(path)
+    for kv in args.set_options:
+        key, _, value = kv.partition("=")
+        settings.set(key.strip(), value.strip())
+    if args.set_options:
+        settings.save()
+    if args.port is not None:
+        settings.set_temp("port", args.port)
+    if args.api_port is not None:
+        settings.set_temp("apiport", args.api_port)
+    if args.api_user:
+        settings.set_temp("apiusername", args.api_user)
+    if args.api_password:
+        settings.set_temp("apipassword", args.api_password)
+    if args.api_user and args.api_password and not args.no_api:
+        settings.set_temp("apienabled", True)
+    if args.no_dandelion:
+        settings.set_temp("dandelion", 0)
+    if args.no_udp or args.no_listen:
+        settings.set_temp("udp", False)
+    return settings
+
+
+def refused_options(settings) -> list[str]:
+    """``key=value`` of every set option in :data:`REFUSED`."""
+    out = []
+    for key, (default, turns_on) in REFUSED.items():
+        value = settings.get(key, default)
+        if turns_on(value):
+            out.append("%s=%s" % (key, value))
+    return out
+
+
+def not_run_options(settings) -> list[str]:
+    """The options of :data:`NOT_RUN` that are on."""
+    return [key for key, (default, on) in NOT_RUN.items()
+            if on(settings.get(key, default))]
+
+
+async def run(args) -> int:
+    from . import resolve_device
+    from .api import APIServer
+    from .core import Node
+    from .storage.knownnodes import Peer
+
+    settings = load_settings(args)
+    refused = refused_options(settings)
+    if refused:
+        logging.error("refusing to start: %s turns on a subsystem this "
+                      "package does not have", ", ".join(refused))
+        return 1
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as exc:
+        logging.error("%s (--device cpu)", exc)
+        return 1
+    not_run = not_run_options(settings)
+    if not_run:
+        logging.warning("not run by this package yet, on in the JAX "
+                        "package's defaults: %s", ", ".join(not_run))
+    node = Node(args.data_dir,
+                port=settings.getint("port"),
+                listen=not args.no_listen,
+                test_mode=args.test_mode,
+                dandelion_enabled=settings.getint("dandelion") > 0,
+                pow_window=settings.getfloat("powbatchwindow"),
+                device=device,
+                crypto_batch=settings.getbool("cryptobatch"))
+    node.settings = settings
+    node.dandelion.stem_probability = settings.getint("dandelion")
+    node.processor.list_mode = settings.get("blackwhitelist")
+    # applied before start() spawns the processor's workers
+    node.processor.concurrency = settings.getint("ingestworkers")
+    if not settings.getbool("cryptoscreen"):
+        node.crypto.screen = None
+        if node.crypto.batch is not None:
+            node.crypto.batch.screen = None
+    # kB/s global throttles (reference maxdownloadrate/maxuploadrate)
+    node.ctx.download_bucket.rate = settings.getint("maxdownloadrate") * 1024
+    node.ctx.upload_bucket.rate = settings.getint("maxuploadrate") * 1024
+    node.pool.max_outbound = settings.getint("maxoutboundconnections")
+    node.pool.max_total = settings.getint("maxtotalconnections")
+    node.pool.dial_timeout = settings.getfloat("connecttimeout")
+    node.pool.handshake_timeout = settings.getfloat("handshaketimeout")
+    node.pool.dial_breaker_threshold = settings.getint("breakerfailures")
+    node.pool.dial_breaker_cooldown = settings.getfloat("breakercooldown")
+    node.sender.max_acceptable_ntpb = settings.getint(
+        "maxacceptablenoncetrialsperbyte")
+    node.sender.max_acceptable_extra = settings.getint(
+        "maxacceptablepayloadlengthextrabytes")
+    if args.trusted_peer:
+        host, _, port = args.trusted_peer.rpartition(":")
+        node.pool.trusted_peer = Peer(host, int(port))
+    if args.seed_defaults:
+        node.knownnodes.seed_defaults()
+
+    await node.start()
+
+    notifier = None
+    if settings.get("apinotifypath"):
+        from .core.notify import ApiNotifier
+        notifier = ApiNotifier(node, settings.get("apinotifypath"))
+        notifier.start()
+
+    api = None
+    # The API is powerful (reads inboxes, sends messages); match the
+    # reference's default-off-with-mandatory-auth posture: refuse to
+    # serve without credentials except in explicit test mode
+    # (reference bmconfigparser 'apienabled' + apiusername/apipassword).
+    want_api = not args.no_api and (settings.getbool("apienabled")
+                                    or args.test_mode)
+    has_creds = settings.get("apiusername") and settings.get("apipassword")
+    if want_api and not has_creds and not args.test_mode:
+        logging.warning(
+            "API disabled: set apiusername/apipassword (or --api-user/"
+            "--api-password, or run with -t for test mode)")
+        want_api = False
+    if want_api:
+        api = APIServer(node, port=settings.getint("apiport"),
+                        username=settings.get("apiusername"),
+                        password=settings.get("apipassword"))
+        await api.start()
+        logging.info("API listening on 127.0.0.1:%d", api.listen_port)
+        if notifier is not None:
+            notifier.notify("apiEnabled")
+
+    stop = asyncio.Event()
+    loop = asyncio.get_running_loop()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        try:
+            loop.add_signal_handler(sig, stop.set)
+        except NotImplementedError:  # pragma: no cover (non-unix)
+            pass
+    await stop.wait()
+    logging.info("shutting down...")
+    if notifier is not None:
+        notifier.stop()
+    if api is not None:
+        await api.stop()
+    await node.stop()
+    settings.save()
+    return 0
+
+
+def _setup_logging(args) -> None:
+    """Reference debug.py: a logging.dat fileConfig override wins;
+    otherwise console + rotating debug.log (2 MiB x 1) in the data
+    directory."""
+    level = logging.DEBUG if args.verbose else logging.INFO
+    if args.data_dir:
+        logging_dat = Path(args.data_dir) / "logging.dat"
+        if logging_dat.exists():
+            # aliased import: a bare `import logging.config` would bind
+            # the name `logging` function-locally and shadow the module
+            import logging.config as logging_config
+            try:
+                logging_config.fileConfig(
+                    logging_dat, disable_existing_loggers=False)
+                return
+            except Exception as exc:
+                # fall through to the default config, but say so
+                print("logging.dat ignored: %r" % exc, file=sys.stderr)
+    handlers: list = [logging.StreamHandler()]
+    if args.data_dir:
+        from logging.handlers import RotatingFileHandler
+        Path(args.data_dir).mkdir(parents=True, exist_ok=True)
+        handlers.append(RotatingFileHandler(
+            Path(args.data_dir) / "debug.log",
+            maxBytes=2 * 1024 * 1024, backupCount=1))
+    logging.basicConfig(
+        level=level, handlers=handlers,
+        format="%(asctime)s %(name)s %(levelname)s %(message)s")
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    _setup_logging(args)
+    from .core.appenv import (SingleInstance, SingleInstanceError,
+                              appdata_dir, daemonize)
+    if args.appdata and not args.data_dir:
+        args.data_dir = str(appdata_dir())
+    if args.daemon:  # pragma: no cover - forks away from test runners
+        daemonize()
+    lock = None
+    if args.data_dir:
+        lock = SingleInstance(args.data_dir)
+        try:
+            lock.acquire()
+        except SingleInstanceError as exc:
+            logging.error("%s", exc)
+            return 1
+    try:
+        return asyncio.run(run(args))
+    except KeyboardInterrupt:  # pragma: no cover
+        return 0
+    finally:
+        if lock is not None:
+            lock.release()
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,203 @@
+"""Minimal asyncio HTTP RPC server with basic auth: JSON-RPC + XML-RPC
+(copy of ``pybitmessage_tpu.api.server``, without ``GET /metrics``, the
+debug and federation endpoints, its metrics and the fault-injection
+site).
+
+Reference: src/api.py singleAPI — XML/JSON-RPC on 127.0.0.1:8442 with
+HTTP basic auth (api.py:437-457).  Both of the reference's apivariants
+are served on the same port, auto-detected per request: a JSON body is
+JSON-RPC 2.0 (``{"method", "params", "id"}``), an XML body is XML-RPC —
+the protocol the reference's own ``bitmessagecli.py`` (xmlrpclib)
+speaks.  API errors surface as numbered ``APIError NN: message``
+strings (JSON error object / XML-RPC Fault), matching the reference's
+error vocabulary (api.py:111-153).  Every GET answers 404.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import base64
+import hmac
+import json
+import logging
+import xmlrpc.client
+
+from ..resilience import Deadline
+from .commands import APIError, CommandHandler
+
+logger = logging.getLogger("pybitmessage_tpu_torch.api")
+
+MAX_REQUEST = 32 * 1024 * 1024
+#: per-request wall budget; propagated as a resilience Deadline so
+#: nested retries stop scheduling attempts that cannot finish in time
+DEFAULT_REQUEST_TIMEOUT = 120.0
+
+
+class APIServer:
+    def __init__(self, node, *, host: str = "127.0.0.1", port: int = 8442,
+                 username: str = "", password: str = ""):
+        self.node = node
+        self.host = host
+        self.port = port
+        self.username = username
+        self.password = password
+        self.handler = CommandHandler(node)
+        self._server: asyncio.AbstractServer | None = None
+
+    async def _call(self, method: str, params: list):
+        """One command dispatch under the request deadline."""
+        try:
+            with Deadline(DEFAULT_REQUEST_TIMEOUT):
+                return await asyncio.wait_for(
+                    self.handler.dispatch(method, params),
+                    timeout=DEFAULT_REQUEST_TIMEOUT)
+        except asyncio.TimeoutError:
+            raise APIError(
+                1, "request exceeded the %.0fs server deadline"
+                % DEFAULT_REQUEST_TIMEOUT)
+
+    async def start(self) -> None:
+        self._server = await asyncio.start_server(
+            self._handle, self.host, self.port)
+
+    @property
+    def listen_port(self) -> int:
+        if self._server and self._server.sockets:
+            return self._server.sockets[0].getsockname()[1]
+        return self.port
+
+    async def stop(self) -> None:
+        if self._server:
+            self._server.close()
+            await self._server.wait_closed()
+
+    # -- request handling ----------------------------------------------------
+
+    def _authorized(self, headers: dict[str, str]) -> bool:
+        if not self.username and not self.password:
+            return True
+        auth = headers.get("authorization", "")
+        if not auth.lower().startswith("basic "):
+            return False
+        try:
+            user, _, pwd = base64.b64decode(
+                auth.split(None, 1)[1]).decode("utf-8").partition(":")
+        except Exception:
+            return False
+        # constant-time comparison — don't leak credential prefixes to
+        # local timing observers
+        user_ok = hmac.compare_digest(user.encode(), self.username.encode())
+        pwd_ok = hmac.compare_digest(pwd.encode(), self.password.encode())
+        return user_ok and pwd_ok
+
+    async def _handle(self, reader: asyncio.StreamReader,
+                      writer: asyncio.StreamWriter) -> None:
+        try:
+            request_line = await reader.readline()
+            headers: dict[str, str] = {}
+            while True:
+                line = await reader.readline()
+                if line in (b"\r\n", b"\n", b""):
+                    break
+                k, _, v = line.decode("latin-1").partition(":")
+                headers[k.strip().lower()] = v.strip()
+            length = int(headers.get("content-length", 0))
+            if length > MAX_REQUEST:
+                await self._respond(writer, 413, {"error": "too large"})
+                return
+            body = await reader.readexactly(length) if length else b""
+
+            if request_line.startswith(b"GET"):
+                await self._respond(writer, 404, {"error": "not found"})
+                return
+            if not request_line.startswith(b"POST"):
+                await self._respond(writer, 405,
+                                    {"error": "POST JSON-RPC only"})
+                return
+            if not self._authorized(headers):
+                await self._respond(writer, 401, {"error": "unauthorized"},
+                                    extra="WWW-Authenticate: Basic\r\n")
+                return
+            is_xml = body.lstrip().startswith(b"<") or \
+                "xml" in headers.get("content-type", "")
+            if is_xml:
+                xml_body = await self._dispatch_xml(body)
+                await self._respond_raw(writer, 200, xml_body, "text/xml")
+                return
+            try:
+                req = json.loads(body)
+            except Exception:
+                await self._respond(writer, 400, {"error": "bad json"})
+                return
+            response = await self._dispatch(req)
+            await self._respond(writer, 200, response)
+        except (asyncio.IncompleteReadError, ConnectionError, OSError):
+            pass
+        except Exception:
+            logger.exception("API request failed")
+        finally:
+            try:
+                writer.close()
+                await writer.wait_closed()
+            except Exception as exc:
+                # routine for an already-dead client, but never silent
+                logger.debug("API connection close failed: %r", exc)
+
+    async def _dispatch(self, req: dict) -> dict:
+        method = req.get("method", "")
+        params = req.get("params", [])
+        rid = req.get("id")
+        try:
+            result = await self._call(method, list(params))
+            return {"jsonrpc": "2.0", "result": result, "id": rid}
+        except APIError as exc:
+            return {"jsonrpc": "2.0", "id": rid,
+                    "error": {"code": exc.code, "message": str(exc)}}
+
+    async def _dispatch_xml(self, body: bytes) -> bytes:
+        """XML-RPC request -> methodResponse / Fault bytes.
+
+        Faults use the reference convention: numbered APIError text in
+        faultString (xmlrpclib clients see the same strings the
+        reference's SimpleXMLRPCServer returned)."""
+        try:
+            params, method = xmlrpc.client.loads(body)
+        except Exception:
+            return xmlrpc.client.dumps(
+                xmlrpc.client.Fault(1, "malformed XML-RPC request"),
+                allow_none=True).encode()
+        try:
+            result = await self._call(method, list(params))
+            return xmlrpc.client.dumps((result,), methodresponse=True,
+                                       allow_none=True).encode()
+        except APIError as exc:
+            return xmlrpc.client.dumps(
+                xmlrpc.client.Fault(exc.code, str(exc)),
+                allow_none=True).encode()
+        except xmlrpc.client.Fault as exc:
+            return xmlrpc.client.dumps(exc, allow_none=True).encode()
+        except Exception as exc:
+            logger.exception("XML-RPC dispatch failed")
+            return xmlrpc.client.dumps(
+                xmlrpc.client.Fault(1, repr(exc)),
+                allow_none=True).encode()
+
+    @staticmethod
+    async def _respond_raw(writer, status: int, body: bytes,
+                           content_type: str, extra: str = "") -> None:
+        reason = {200: "OK", 400: "Bad Request", 401: "Unauthorized",
+                  404: "Not Found", 405: "Method Not Allowed",
+                  413: "Payload Too Large"}
+        head = (f"HTTP/1.1 {status} {reason.get(status, '')}\r\n"
+                f"Content-Type: {content_type}\r\n"
+                f"Content-Length: {len(body)}\r\n"
+                f"{extra}Connection: close\r\n\r\n")
+        writer.write(head.encode("latin-1") + body)
+        await writer.drain()
+
+    @classmethod
+    async def _respond(cls, writer, status: int, payload: dict,
+                       extra: str = "") -> None:
+        await cls._respond_raw(writer, status,
+                               json.dumps(payload).encode("utf-8"),
+                               "application/json", extra)

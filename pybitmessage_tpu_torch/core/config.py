@@ -1,0 +1,243 @@
+"""Layered persisted settings with defaults, validators and migrations
+(copy of ``pybitmessage_tpu.core.config``: ``Settings``, ``SECTION``,
+``SETTINGS_VERSION`` and the migration chain, with ``DEFAULTS`` and
+``VALIDATORS`` trimmed to the options the port applies).
+
+Role model: the reference's ``BMConfigParser`` layered over
+``default.ini`` with per-option validators, a non-persisted ``setTemp``
+overlay, timestamped ``.bak`` on save, and a versioned upgrade chain
+(src/bmconfigparser.py:106-158, src/default.ini,
+src/helper_startup.py:39-260).  The file is the JAX package's
+``settings.dat``: an option the port does not know is kept as it was
+read and written back on save, so one file serves both packages.
+"""
+
+from __future__ import annotations
+
+import configparser
+import logging
+import os
+import time
+from pathlib import Path
+from typing import Callable
+
+logger = logging.getLogger("pybitmessage_tpu_torch.config")
+
+SECTION = "bitmessagesettings"
+
+#: current settings schema version — bump with each migration
+SETTINGS_VERSION = 2
+
+#: defaults of the options the port applies, with the JAX package's
+#: values (reference default.ini + helper_startup first-run defaults)
+DEFAULTS: dict[str, str] = {
+    "settingsversion": str(SETTINGS_VERSION),
+    "port": "8444",
+    "maxoutboundconnections": "8",
+    "maxtotalconnections": "200",
+    "maxdownloadrate": "0",          # kB/s, 0 = unlimited
+    "maxuploadrate": "0",
+    "dandelion": "90",               # stem probability %
+    "apienabled": "false",
+    "apiport": "8442",
+    "apiusername": "",
+    "apipassword": "",
+    "apinotifypath": "",
+    "powbatchwindow": "0.05",        # PoW coalescing window, seconds
+                                     # (0 = launch immediately)
+    "ingestworkers": "8",            # concurrent objects in the
+                                     # processor pipeline
+    "cryptobatch": "true",           # decrypts and signature checks
+                                     # through the batch engine on the
+                                     # device (off = host threads)
+    "cryptoscreen": "true",          # object-keyed negative cache in
+                                     # front of the trial-decrypt sweep
+    "breakerfailures": "3",          # consecutive failures opening the
+                                     # dial breakers
+    "breakercooldown": "60",         # seconds before a half-open probe
+    "connecttimeout": "10",          # outbound dial budget, seconds
+    "handshaketimeout": "30",        # version/verack must finish in this
+    "blackwhitelist": "black",       # inbound sender policy
+    # ceilings on recipient-demanded PoW; 0 = unlimited (reference
+    # helper_startup sanity cap: ridiculousDifficulty x network default)
+    "maxacceptablenoncetrialsperbyte": "20000000000",
+    "maxacceptablepayloadlengthextrabytes": "20000000000",
+}
+
+
+def _validate_int_range(lo: int, hi: int) -> Callable[[str], bool]:
+    def check(value: str) -> bool:
+        try:
+            return lo <= int(value) <= hi
+        except ValueError:
+            return False
+    return check
+
+
+def _validate_bool(value: str) -> bool:
+    return value.lower() in ("true", "false", "0", "1", "yes", "no")
+
+
+def _validate_float_range(lo: float, hi: float) -> Callable[[str], bool]:
+    def check(value: str) -> bool:
+        try:
+            return lo <= float(value) <= hi
+        except ValueError:
+            return False
+    return check
+
+
+#: per-option validators (reference validate_<section>_<option>,
+#: bmconfigparser.py:142-158 — notably maxoutbound <= 8)
+VALIDATORS: dict[str, Callable[[str], bool]] = {
+    "maxoutboundconnections": _validate_int_range(0, 8),
+    "maxtotalconnections": _validate_int_range(0, 10000),
+    "maxdownloadrate": _validate_int_range(0, 2**31),
+    "maxuploadrate": _validate_int_range(0, 2**31),
+    "dandelion": _validate_int_range(0, 100),
+    "port": _validate_int_range(0, 65535),
+    "apiport": _validate_int_range(1, 65535),
+    "powbatchwindow": _validate_float_range(0.0, 10.0),
+    "ingestworkers": _validate_int_range(1, 256),
+    "cryptobatch": _validate_bool,
+    "cryptoscreen": _validate_bool,
+    "breakerfailures": _validate_int_range(1, 1000),
+    "breakercooldown": _validate_float_range(0.0, 86400.0),
+    "connecttimeout": _validate_float_range(1.0, 300.0),
+    "handshaketimeout": _validate_float_range(1.0, 3600.0),
+    "apienabled": _validate_bool,
+    "blackwhitelist": lambda v: v in ("black", "white"),
+}
+
+
+class SettingsError(ValueError):
+    """Rejected by a validator."""
+
+
+class Settings:
+    """Persisted node settings: defaults <- file <- temp overlay."""
+
+    def __init__(self, path: str | os.PathLike | None = None):
+        self._path = Path(path) if path else None
+        self._file: dict[str, str] = {}
+        self._temp: dict[str, str] = {}
+        if self._path is not None and self._path.exists():
+            self.load()
+        self._migrate()
+
+    # -- accessors -----------------------------------------------------------
+
+    def get(self, option: str, default: str | None = None) -> str:
+        if option in self._temp:
+            return self._temp[option]
+        if option in self._file:
+            return self._file[option]
+        if option in DEFAULTS:
+            return DEFAULTS[option]
+        if default is not None:
+            return default
+        raise KeyError(option)
+
+    def getint(self, option: str) -> int:
+        return int(self.get(option))
+
+    def getfloat(self, option: str) -> float:
+        return float(self.get(option))
+
+    def getbool(self, option: str) -> bool:
+        return self.get(option).lower() in ("true", "1", "yes")
+
+    def set(self, option: str, value) -> None:
+        """Set a persisted option (validated); call :meth:`save` to write."""
+        value = self._check(option, value)
+        self._file[option] = value
+        self._temp.pop(option, None)
+
+    def set_temp(self, option: str, value) -> None:
+        """Non-persisted overlay (reference setTemp) — CLI flags land here."""
+        self._temp[option] = self._check(option, value)
+
+    def _check(self, option: str, value) -> str:
+        if isinstance(value, bool):
+            value = "true" if value else "false"
+        value = str(value)
+        validator = VALIDATORS.get(option)
+        if validator is not None and not validator(value):
+            raise SettingsError("invalid value %r for option %r"
+                                % (value, option))
+        return value
+
+    def is_set(self, option: str) -> bool:
+        """True when the option was explicitly configured (file or
+        temp), as opposed to falling through to the default."""
+        return option in self._temp or option in self._file
+
+    def options(self) -> dict[str, str]:
+        """Effective settings (defaults overlaid by file and temp)."""
+        out = dict(DEFAULTS)
+        out.update(self._file)
+        out.update(self._temp)
+        return out
+
+    # -- persistence ---------------------------------------------------------
+
+    def load(self) -> None:
+        cfg = configparser.ConfigParser()
+        cfg.read(self._path)
+        if cfg.has_section(SECTION):
+            self._file = dict(cfg[SECTION])
+
+    def save(self) -> None:
+        """Atomic write with a timestamped .bak of the previous file
+        (reference bmconfigparser.py:120-140)."""
+        if self._path is None:
+            return
+        self._path.parent.mkdir(parents=True, exist_ok=True)
+        cfg = configparser.ConfigParser()
+        # Always persist settingsversion (reference always stamps it) so
+        # a fresh install's file re-enters the migration chain correctly.
+        cfg[SECTION] = {"settingsversion": str(SETTINGS_VERSION),
+                        **self._file}
+        if self._path.exists():
+            bak = self._path.with_name(
+                self._path.name + "." + time.strftime("%Y%m%d-%H%M%S")
+                + ".bak")
+            try:
+                bak.write_bytes(self._path.read_bytes())
+            except OSError:
+                logger.warning("could not write settings backup %s", bak)
+        tmp = self._path.with_suffix(".tmp")
+        with open(tmp, "w") as f:
+            cfg.write(f)
+        tmp.replace(self._path)
+
+    # -- migrations ----------------------------------------------------------
+
+    def _migrate(self) -> None:
+        """Versioned upgrade chain (reference helper_startup.updateConfig)."""
+        stamped = "settingsversion" in self._file
+        if self._file and not stamped:
+            # A non-empty file lacking the key predates version stamping:
+            # enter the chain at 1 so no migration is silently skipped.
+            version = 1
+        else:
+            try:
+                version = int(self._file.get("settingsversion",
+                                             str(SETTINGS_VERSION)))
+            except ValueError:
+                version = 1
+        dirty = False
+        if version < 2:
+            # v1 -> v2: dandelion option introduced; explicitly-stamped
+            # v1 installs ran with stem routing off, so preserve that.
+            # Unstamped files may simply predate stamping (older save()
+            # never wrote the key) and always had the default (90) in
+            # effect — forcing 0 on them would regress behavior.
+            if stamped:
+                self._file.setdefault("dandelion", "0")
+            version = 2
+            dirty = True
+        if dirty:
+            self._file["settingsversion"] = str(version)
+            if self._path is not None:
+                self.save()

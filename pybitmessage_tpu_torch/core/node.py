@@ -18,9 +18,12 @@ ingest path; identities are ground through ``priv_to_pub_many``.
 Objects enter from peers over TCP (``network.pool.ConnectionPool``:
 listen on ``port``, ``pool.connect_to``), or through
 ``network.connection.accept_object(node.ctx, node.pool, payload)`` for
-a caller without a socket.  Sync, TLS, SOCKS, UDP discovery, the PoW
-farm, federation, health probes, the PoW journal, the cleaner and the
-roles other than ``all`` are not part of this package yet.
+a caller without a socket.  UI events go out on ``node.ui`` (a
+``UISignaler``); the ``Cleaner`` runs with the node.  The daemon
+(``python -m pybitmessage_tpu_torch``) sets ``node.settings`` and serves
+the API over it.  Sync, TLS, SOCKS, UDP discovery, UPnP, the PoW farm,
+federation, health probes, telemetry, the PoW journal, the email gateway
+and the roles other than ``all`` are not part of this package yet.
 """
 
 from __future__ import annotations
@@ -43,10 +46,12 @@ from ..storage.inventory import Inventory
 from ..storage.knownnodes import KnownNodes
 from ..storage.messages import MessageStore
 from ..utils.addresses import decode_address
+from ..workers.cleaner import Cleaner
 from ..workers.cryptopool import CryptoPool
 from ..workers.keystore import KeyStore
 from ..workers.processor import ObjectProcessor
 from ..workers.sender import SendWorker
+from .uisignal import UISignaler
 
 logger = logging.getLogger("pybitmessage_tpu_torch.node")
 
@@ -119,16 +124,24 @@ class Node:
         if crypto_batch:
             from ..crypto.batch import BatchCryptoEngine
             self.crypto.batch = BatchCryptoEngine(self.device)
+        self.ui = UISignaler()
         self.sender = SendWorker(
             keystore=self.keystore, store=self.store,
             inventory=self.inventory, pool=self.pool,
             pow_service=self.pow_service, crypto=self.crypto,
-            shutdown=self.shutdown, min_ntpb=min_ntpb, min_extra=min_extra)
+            shutdown=self.shutdown, min_ntpb=min_ntpb, min_extra=min_extra,
+            ui_signal=self.ui.emit)
         self.processor = ObjectProcessor(
             keystore=self.keystore, store=self.store,
             inventory=self.inventory, sender=self.sender, pool=self.pool,
             shutdown=self.shutdown, min_ntpb=min_ntpb, min_extra=min_extra,
-            crypto=self.crypto)
+            crypto=self.crypto, ui_signal=self.ui.emit)
+        self.cleaner = Cleaner(
+            inventory=self.inventory, store=self.store,
+            knownnodes=self.knownnodes, sender=self.sender, pool=self.pool,
+            shutdown=self.shutdown)
+        #: the daemon's ``core.config.Settings`` (None outside it)
+        self.settings = None
         self._pump_task: asyncio.Task | None = None
 
     # -- lifecycle -----------------------------------------------------------
@@ -138,6 +151,7 @@ class Node:
         self.pow_verifier.start()
         self.sender.start()
         self.processor.start()
+        self.cleaner.start()
         await self.pool.start(listen=self.listen)
         self._pump_task = asyncio.create_task(self._pump_objects())
         logger.info("node started on %s (port %s)", self.device,
@@ -168,6 +182,7 @@ class Node:
             self.processor.queue.put_nowait(payload)
         await self.sender.stop()
         await self.processor.stop()
+        await self.cleaner.stop()
         await self.pow_service.stop()
         await self.pow_verifier.stop()
         self.inventory.flush()

@@ -32,6 +32,7 @@ MAX_TIME_OFFSET = 3600           # max peer clock skew
 # object TTL bounds (src/network/bmobject.py:46-49)
 MAX_TTL = 28 * 24 * 60 * 60      # 28 days
 MIN_TTL_SLACK = 3600             # objects may be expired up to 1h
+EXPIRES_GRACE = 3 * 3600         # keep up to 3h past expiry in inventory
 
 # PoW consensus parameters (src/defaults.py:20-24)
 DEFAULT_NONCE_TRIALS_PER_BYTE = 1000

@@ -17,6 +17,8 @@ class TokenBucket:
         self.rate = rate_bytes_per_sec
         self._tokens = float(rate_bytes_per_sec)
         self._last = time.monotonic()
+        #: bytes accounted so far (clientStatus bytesReceived/bytesSent)
+        self.total_bytes = 0
 
     def _refill(self) -> None:
         now = time.monotonic()
@@ -32,6 +34,7 @@ class TokenBucket:
         negative and the caller sleeps off the debt, rather than
         spinning forever waiting for capacity that can never accrue.
         """
+        self.total_bytes += n
         if self.rate <= 0:
             return
         self._refill()

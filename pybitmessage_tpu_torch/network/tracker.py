@@ -52,6 +52,10 @@ class GlobalTracker:
         with self._lock:
             self.missing.pop(hash_, None)
 
+    def pending_count(self) -> int:
+        with self._lock:
+            return len(self.missing)
+
     def expire(self) -> int:
         cutoff = time.time() - REQUEST_TIMEOUT
         with self._lock:

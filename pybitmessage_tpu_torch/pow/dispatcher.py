@@ -83,6 +83,10 @@ class PowDispatcher:
     def _backend(self) -> str:
         return "cuda" if self.device.type == "cuda" else "torch"
 
+    def backends(self) -> list[str]:
+        """The tiers this solver runs (clientStatus powBackends)."""
+        return [self._backend]
+
     def __call__(self, initial_hash: bytes, target: int, *,
                  start_nonce: int = 0,
                  should_stop: Callable[[], bool] | None = None):

@@ -1,17 +1,129 @@
-"""The circuit breaker (copy of ``pybitmessage_tpu.resilience.policy``
-``CircuitBreaker``, without its registry, metrics and flight-recorder
-trail).
+"""Resilience primitives (copy of ``pybitmessage_tpu.resilience.policy``:
+``Deadline``, ``RetryPolicy`` and ``CircuitBreaker``, without their
+registry, metrics and flight-recorder trail, and without
+``Deadline.check`` / ``DeadlineExceeded``, which nothing raises).
 
-``threshold`` consecutive failures open it, a ``cooldown`` later
-exactly ONE probe is let through (half-open); the probe's outcome
-closes or re-opens it.  Thread-safe.
+- :class:`RetryPolicy` — exponential backoff with bounded jitter;
+  deterministic when constructed with a seeded ``random.Random``;
+- :class:`Deadline` — a monotonic-clock budget that propagates through
+  ``contextvars`` (API request handling sets one; nested retries stop
+  scheduling attempts that could not finish in time);
+- :class:`CircuitBreaker` — ``threshold`` consecutive failures open
+  it, a ``cooldown`` later exactly ONE probe is let through
+  (half-open); the probe's outcome closes or re-opens it.  Thread-safe.
 """
 
 from __future__ import annotations
 
+import contextvars
+import logging
+import random
 import threading
 import time
 from typing import Callable
+
+logger = logging.getLogger("pybitmessage_tpu_torch.resilience")
+
+
+_DEADLINE: contextvars.ContextVar["Deadline | None"] = \
+    contextvars.ContextVar("bmtpu_torch_deadline", default=None)
+
+
+def current_deadline() -> "Deadline | None":
+    """The innermost :class:`Deadline` active in this context."""
+    return _DEADLINE.get()
+
+
+class Deadline:
+    """A propagating time budget on the monotonic clock.
+
+    ``with Deadline(5.0): ...`` publishes itself through a contextvar;
+    nested code calls :func:`current_deadline` and refuses to start
+    work that cannot finish.  Nesting keeps the TIGHTER deadline.
+    """
+
+    __slots__ = ("expires_at", "_token")
+
+    def __init__(self, seconds: float, *,
+                 clock: Callable[[], float] = time.monotonic):
+        self.expires_at = clock() + seconds
+        self._token = None
+
+    def remaining(self, *, clock: Callable[[], float] = time.monotonic
+                  ) -> float:
+        return self.expires_at - clock()
+
+    def __enter__(self) -> "Deadline":
+        outer = _DEADLINE.get()
+        if outer is not None and outer.expires_at < self.expires_at:
+            self.expires_at = outer.expires_at
+        self._token = _DEADLINE.set(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self._token is not None:
+            _DEADLINE.reset(self._token)
+            self._token = None
+
+
+class RetryPolicy:
+    """Exponential backoff with bounded jitter.
+
+    ``delay(attempt)`` for attempt 0, 1, 2… is
+    ``base * multiplier**attempt`` clamped to ``max_delay``, scaled by
+    a jitter factor uniform in ``[1-jitter, 1+jitter]``.
+
+    :meth:`call` runs a function under the policy: up to ``attempts``
+    tries, sleeping between failures, honoring an explicit or
+    context-propagated :class:`Deadline`.
+    """
+
+    def __init__(self, *, attempts: int = 3, base_delay: float = 0.1,
+                 max_delay: float = 30.0, multiplier: float = 2.0,
+                 jitter: float = 0.5,
+                 rng: random.Random | None = None):
+        if attempts < 1:
+            raise ValueError("attempts must be >= 1")
+        self.attempts = attempts
+        self.base_delay = base_delay
+        self.max_delay = max_delay
+        self.multiplier = multiplier
+        self.jitter = min(max(jitter, 0.0), 1.0)
+        self._rng = rng or random.Random()
+
+    def delay(self, attempt: int) -> float:
+        raw = min(self.base_delay * self.multiplier ** attempt,
+                  self.max_delay)
+        if self.jitter:
+            raw *= 1.0 + self.jitter * (2.0 * self._rng.random() - 1.0)
+        return max(raw, 0.0)
+
+    def _pre_sleep(self, site: str, attempt: int,
+                   deadline: Deadline | None, exc: BaseException) -> float:
+        """The sleep before the next attempt; raises the original error
+        when the policy (or the deadline) is out of budget."""
+        if attempt + 1 >= self.attempts:
+            raise exc
+        pause = self.delay(attempt)
+        if deadline is not None and deadline.remaining() < pause:
+            raise exc
+        logger.debug("%s failed (attempt %d/%d), retrying in %.2fs: %r",
+                     site, attempt + 1, self.attempts, pause, exc)
+        return pause
+
+    def call(self, fn: Callable, *, site: str,
+             retry_on: tuple = (Exception,),
+             deadline: Deadline | None = None,
+             sleep: Callable[[float], None] = time.sleep):
+        """Run ``fn()`` with retries; returns its value or raises the
+        last error once attempts (or the deadline) are exhausted."""
+        deadline = deadline or current_deadline()
+        for attempt in range(self.attempts):
+            try:
+                return fn()
+            except retry_on as exc:
+                sleep(self._pre_sleep(site, attempt, deadline, exc))
+
 
 CLOSED, HALF_OPEN, OPEN = "closed", "half-open", "open"
 

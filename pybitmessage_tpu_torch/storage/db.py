@@ -1,5 +1,5 @@
 """SQLite message store (copy of ``pybitmessage_tpu.storage.db``, without
-the write retry and its fault-injection site).
+the write retry's fault-injection site and error counter).
 
 Schema matches the reference's v11 (src/class_sqlThread.py:49-84) so the
 data model carries over one-to-one: inbox, sent, subscriptions,
@@ -13,10 +13,15 @@ thread + submit/return queues (src/helper_sql.py:24-35).
 
 from __future__ import annotations
 
+import logging
 import sqlite3
 import threading
 import time
 from typing import Any, Iterable, Sequence
+
+from ..resilience.policy import RetryPolicy
+
+logger = logging.getLogger("pybitmessage_tpu_torch.db")
 
 SCHEMA_VERSION = 12
 
@@ -133,16 +138,40 @@ class Database:
 
     # -- generic access ------------------------------------------------------
 
+    #: transient SQLite write failures retried with backoff before the
+    #: error surfaces (reference helper_sql retries "database is
+    #: locked" the same way); class-level so tests can tighten it
+    WRITE_ATTEMPTS = 3
+
+    def _write_retry(self, fn):
+        """Run one write with bounded backoff on transient failures."""
+        try:
+            return RetryPolicy(attempts=self.WRITE_ATTEMPTS,
+                               base_delay=0.02, max_delay=0.5).call(
+                fn, site="db.write", retry_on=(sqlite3.OperationalError,))
+        except sqlite3.OperationalError:
+            logger.exception("SQLite write failed after %d attempts",
+                             self.WRITE_ATTEMPTS)
+            raise
+
     def execute(self, sql: str, params: Sequence[Any] = ()) -> int:
         """Run one statement; returns rowcount."""
-        with self._lock:
-            cur = self._conn.cursor()
-            cur.execute(sql, params)
-            return cur.rowcount
+        def run():
+            with self._lock:
+                cur = self._conn.cursor()
+                cur.execute(sql, params)
+                return cur.rowcount
+        if not sql.lstrip()[:6].upper().startswith("SELECT"):
+            return self._write_retry(run)
+        return run()
 
     def executemany(self, sql: str, rows: Iterable[Sequence[Any]]) -> None:
-        with self._lock:
-            self._conn.cursor().executemany(sql, list(rows))
+        rows = list(rows)
+
+        def run():
+            with self._lock:
+                self._conn.cursor().executemany(sql, rows)
+        self._write_retry(run)
 
     def execute_batch(
             self, ops: Sequence[tuple[str, Sequence[Sequence[Any]]]]
@@ -152,24 +181,27 @@ class Database:
 
         The write-behind drain path: a whole coalescing window's worth
         of inbox/pubkey/sent-status rows lands in a single fsync
-        instead of one autocommit transaction per row.  On failure the
-        transaction rolls back atomically — callers keep their rows
-        buffered and retry the next drain.
+        instead of one autocommit transaction per row.  Goes through
+        :meth:`_write_retry`; on failure the transaction rolls back
+        atomically — callers keep their rows buffered and retry the
+        next drain.
         """
         ops = [(sql, list(rows)) for sql, rows in ops if rows]
         if not ops:
             return
 
-        with self._lock:
-            cur = self._conn.cursor()
-            cur.execute("BEGIN")
-            try:
-                for sql, rows in ops:
-                    cur.executemany(sql, rows)
-            except BaseException:
-                cur.execute("ROLLBACK")
-                raise
-            cur.execute("COMMIT")
+        def run():
+            with self._lock:
+                cur = self._conn.cursor()
+                cur.execute("BEGIN")
+                try:
+                    for sql, rows in ops:
+                        cur.executemany(sql, rows)
+                except BaseException:
+                    cur.execute("ROLLBACK")
+                    raise
+                cur.execute("COMMIT")
+        self._write_retry(run)
 
     def query(self, sql: str, params: Sequence[Any] = ()) -> list[tuple]:
         with self._lock:

@@ -1,11 +1,12 @@
 """Object inventory: RAM cache of new objects over the SQL table (copy of
-``pybitmessage_tpu.storage.inventory``, without its metrics, the sync
-digest and the expiry purge of the cleaner).
+``pybitmessage_tpu.storage.inventory``, without its metrics and the
+sync digest).
 
 Same two-tier semantics as the reference (src/storage/sqlite.py:12-124):
 ``_pending`` holds objects received since the last flush; ``_known``
 caches hash->stream existence so inv floods don't hit SQL per lookup.
-``flush()`` bulk-inserts.
+``flush()`` bulk-inserts, ``clean()`` drops objects expired more than
+3 hours ago.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import time
 from dataclasses import dataclass
 from typing import Iterable
 
+from ..models.constants import EXPIRES_GRACE
 from .db import Database
 
 
@@ -64,6 +66,20 @@ class Inventory:
             self._pending[hash_] = item
             self._known[hash_] = item.stream
 
+    def __len__(self) -> int:
+        """SQL rows plus the pending objects no row holds yet, counted
+        when asked (no count is kept up on the insert path)."""
+        with self._lock:
+            pending = list(self._pending)
+            n = self._db.query("SELECT count(*) FROM inventory")[0][0]
+            n += len(pending)
+            for i in range(0, len(pending), 500):
+                chunk = pending[i:i + 500]
+                n -= self._db.query(
+                    "SELECT count(*) FROM inventory WHERE hash IN (%s)"
+                    % ",".join("?" * len(chunk)), chunk)[0][0]
+            return n
+
     def add(self, hash_: bytes, type_: int, stream: int, payload: bytes,
             expires: int, tag: bytes = b"") -> None:
         self[hash_] = InventoryItem(type_, stream, payload, expires, tag)
@@ -103,6 +119,16 @@ class Inventory:
                 [(h, v.type, v.stream, v.payload, v.expires, v.tag)
                  for h, v in self._pending.items()])
             self._pending.clear()
+
+    def clean(self) -> None:
+        """Purge objects >3h expired; rebuild the existence cache."""
+        with self._lock:
+            self._db.execute(
+                "DELETE FROM inventory WHERE expirestime<?",
+                (int(time.time()) - EXPIRES_GRACE,))
+            self._known.clear()
+            for h, v in self._pending.items():
+                self._known[h] = v.stream
 
     def hashes(self) -> Iterable[bytes]:
         with self._lock:

@@ -1,7 +1,6 @@
 """Known-nodes peer database with ratings and JSON persistence (copy of
-``pybitmessage_tpu.storage.knownnodes``, without the cleaner's forget
-policy: the same ``knownnodes.json``, so a ``data_dir`` opens in either
-package).
+``pybitmessage_tpu.storage.knownnodes``: the same ``knownnodes.json``,
+so a ``data_dir`` opens in either package).
 
 Reference: src/knownnodes.py — per-stream ``{Peer: {lastseen, rating,
 self}}`` with ±0.1 rating steps clamped to [-1, 1], JSON file
@@ -18,6 +17,11 @@ from dataclasses import dataclass
 from pathlib import Path
 
 DEFAULT_MAX_NODES = 20000
+#: forget a node if not seen for 28 days (knownnodes.py:208-267)
+STALE_SECONDS = 28 * 24 * 3600
+#: or if older than 3 hours with a hopeless rating
+PROBATION_SECONDS = 3 * 3600
+FORGET_RATING = -0.5
 
 #: bootstrap servers (reference: knownnodes.py:39-49)
 DEFAULT_NODES = [
@@ -155,3 +159,22 @@ class KnownNodes:
                 except ZeroDivisionError:
                     return peer
             return peer
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def cleanup(self, now: float | None = None) -> int:
+        """Apply the forget policy; returns number of dropped peers."""
+        now = now or time.time()
+        dropped = 0
+        with self._lock:
+            for stream, peers in self._streams.items():
+                doomed = [
+                    p for p, info in peers.items()
+                    if (now - info["lastseen"] > STALE_SECONDS)
+                    or (now - info["lastseen"] > PROBATION_SECONDS
+                        and info["rating"] <= FORGET_RATING)
+                ]
+                for p in doomed:
+                    del peers[p]
+                dropped += len(doomed)
+        return dropped

@@ -103,6 +103,24 @@ class MessageStore:
             " WHERE ackdata=?",
             (status, int(time.time()), sleeptill, ackdata))
 
+    def bump_retry(self, ackdata: bytes, new_ttl: int, sleeptill: int) -> None:
+        self._db.execute(
+            "UPDATE sent SET retrynumber=retrynumber+1, ttl=?, sleeptill=?,"
+            " lastactiontime=? WHERE ackdata=?",
+            (new_ttl, sleeptill, int(time.time()), ackdata))
+
+    def due_for_resend(self, now: int | None = None) -> list[SentMessage]:
+        """msgsent/awaitingpubkey messages whose sleeptill has passed
+        (reference: class_singleCleaner.py:92-106)."""
+        now = now or int(time.time())
+        rows = self._db.query(
+            "SELECT msgid, toaddress, toripe, fromaddress, subject, message,"
+            " ackdata, senttime, lastactiontime, sleeptill, status,"
+            " retrynumber, folder, encodingtype, ttl FROM sent"
+            " WHERE status IN ('msgsent','awaitingpubkey') AND sleeptill<?"
+            " AND folder='sent'", (now,))
+        return [self._sent_row(r) for r in rows]
+
     @staticmethod
     def _sent_row(r) -> SentMessage:
         return SentMessage(
@@ -151,6 +169,71 @@ class MessageStore:
                              bytes(r[9]) if r[9] is not None else b"")
                 for r in rows]
 
+    def trash_inbox(self, msgid: bytes) -> None:
+        self._db.execute(
+            "UPDATE inbox SET folder='trash' WHERE msgid=?", (msgid,))
+
+    def undelete_inbox(self, msgid: bytes) -> None:
+        """Move a trashed message back (reference HandleUndeleteMessage)."""
+        self._db.execute(
+            "UPDATE inbox SET folder='inbox' WHERE msgid=?", (msgid,))
+
+    def inbox_by_id(self, msgid: bytes) -> InboxMessage | None:
+        rows = self._db.query(
+            "SELECT msgid, toaddress, fromaddress, subject, received,"
+            " message, folder, encodingtype, read, sighash FROM inbox"
+            " WHERE msgid=?", (msgid,))
+        if not rows:
+            return None
+        r = rows[0]
+        return InboxMessage(bytes(r[0]), r[1], r[2], r[3], r[4], r[5],
+                            r[6], r[7], bool(r[8]),
+                            bytes(r[9]) if r[9] is not None else b"")
+
+    def mark_read(self, msgid: bytes, read: bool = True) -> None:
+        self._db.execute("UPDATE inbox SET read=? WHERE msgid=?",
+                         (read, msgid))
+
+    #: fields a search may be restricted to (reference
+    #: helper_search.py:34-43); anything else searches all four
+    SEARCH_FIELDS = ("toaddress", "fromaddress", "subject", "message")
+
+    def search(self, folder: str, what: str, where: str | None = None,
+               unread_only: bool = False):
+        """LIKE-search messages (reference helper_search.search_sql).
+
+        ``folder``: 'inbox', 'trash', 'sent', or 'new' (= unread
+        inbox).  ``where`` restricts to one field from
+        :data:`SEARCH_FIELDS`; any other value (or None) matches the
+        concatenation of all four.  SQLite LIKE is case-insensitive
+        for ASCII, matching the reference's behavior.
+        """
+        field = where if where in self.SEARCH_FIELDS else \
+            "toaddress || fromaddress || subject || message"
+        pat = "%" + what + "%" if what else "%"
+        if folder == "sent":
+            rows = self._db.query(
+                "SELECT msgid, toaddress, toripe, fromaddress, subject,"
+                " message, ackdata, senttime, lastactiontime, sleeptill,"
+                " status, retrynumber, folder, encodingtype, ttl FROM sent"
+                " WHERE folder='sent' AND " + field + " LIKE ?"
+                " ORDER BY lastactiontime", (pat,))
+            return [self._sent_row(r) for r in rows]
+        if folder == "new":
+            folder, unread_only = "inbox", True
+        clauses = ["folder=?", field + " LIKE ?"]
+        args: list = [folder, pat]
+        if unread_only:
+            clauses.append("read=0")
+        rows = self._db.query(
+            "SELECT msgid, toaddress, fromaddress, subject, received,"
+            " message, folder, encodingtype, read, sighash FROM inbox"
+            " WHERE " + " AND ".join(clauses), tuple(args))
+        return [InboxMessage(bytes(r[0]), r[1], r[2], r[3], r[4], r[5],
+                             r[6], r[7], bool(r[8]),
+                             bytes(r[9]) if r[9] is not None else b"")
+                for r in rows]
+
     def all_sent(self) -> list[SentMessage]:
         rows = self._db.query(
             "SELECT msgid, toaddress, toripe, fromaddress, subject, message,"
@@ -158,6 +241,41 @@ class MessageStore:
             " retrynumber, folder, encodingtype, ttl FROM sent"
             " WHERE folder='sent'")
         return [self._sent_row(r) for r in rows]
+
+    def sent_by_id(self, msgid: bytes) -> SentMessage | None:
+        rows = self._db.query(
+            "SELECT msgid, toaddress, toripe, fromaddress, subject, message,"
+            " ackdata, senttime, lastactiontime, sleeptill, status,"
+            " retrynumber, folder, encodingtype, ttl FROM sent"
+            " WHERE msgid=?", (msgid,))
+        return self._sent_row(rows[0]) if rows else None
+
+    def trash_sent(self, msgid: bytes) -> None:
+        self._db.execute(
+            "UPDATE sent SET folder='trash' WHERE msgid=?", (msgid,))
+
+    def trash_sent_by_ackdata(self, ackdata: bytes) -> None:
+        self._db.execute(
+            "UPDATE sent SET folder='trash' WHERE ackdata=?", (ackdata,))
+
+    # -- addressbook ---------------------------------------------------------
+
+    def addressbook(self) -> list[tuple[str, str]]:
+        return [(r[0], r[1]) for r in self._db.query(
+            "SELECT label, address FROM addressbook")]
+
+    def addressbook_add(self, address: str, label: str) -> bool:
+        exists = self._db.query(
+            "SELECT COUNT(*) FROM addressbook WHERE address=?", (address,))
+        if exists[0][0]:
+            return False
+        self._db.execute("INSERT INTO addressbook VALUES (?,?)",
+                         (label, address))
+        return True
+
+    def addressbook_delete(self, address: str) -> None:
+        self._db.execute("DELETE FROM addressbook WHERE address=?",
+                         (address,))
 
     # -- black/whitelist -----------------------------------------------------
     # Reference: the Qt frontend maintains ``blacklist``/``whitelist``
@@ -174,6 +292,12 @@ class MessageStore:
             raise ValueError(f"not a black/whitelist table: {which!r}")
         return which
 
+    def listing(self, which: str) -> list[tuple[str, str, bool]]:
+        """(label, address, enabled) rows of 'blacklist' or 'whitelist'."""
+        table = self._bw_table(which)
+        return [(r[0], r[1], bool(r[2])) for r in self._db.query(
+            "SELECT label, address, enabled FROM %s" % table)]
+
     def listing_add(self, which: str, address: str, label: str,
                     enabled: bool = True) -> bool:
         table = self._bw_table(which)
@@ -183,6 +307,17 @@ class MessageStore:
         self._db.execute("INSERT INTO %s VALUES (?,?,?)" % table,
                          (label, address, bool(enabled)))
         return True
+
+    def listing_delete(self, which: str, address: str) -> None:
+        self._db.execute(
+            "DELETE FROM %s WHERE address=?" % self._bw_table(which),
+            (address,))
+
+    def listing_set_enabled(self, which: str, address: str,
+                            enabled: bool) -> None:
+        self._db.execute(
+            "UPDATE %s SET enabled=? WHERE address=?" % self._bw_table(which),
+            (int(enabled), address))
 
     def sender_allowed(self, from_address: str, mode: str) -> bool:
         """Apply the black/whitelist policy to an inbound sender.
@@ -211,6 +346,11 @@ class MessageStore:
         rows = self._db.query(
             "SELECT transmitdata FROM pubkeys WHERE address=?", (address,))
         return bytes(rows[0][0]) if rows else None
+
+    def purge_stale_pubkeys(self, max_age: int = 28 * 24 * 3600) -> int:
+        return self._db.execute(
+            "DELETE FROM pubkeys WHERE time<? AND usedpersonally='no'",
+            (int(time.time()) - max_age,))
 
     # -- objectprocessorqueue persistence ------------------------------------
     # Unprocessed network objects survive a restart (reference

@@ -166,6 +166,18 @@ class KeyStore:
     def owns(self, address: str) -> bool:
         return address in self.identities
 
+    def remove(self, address: str) -> OwnIdentity | None:
+        """Drop an identity and its derived-key indexes (the
+        deleteAddress/leaveChan path); bumps the keyring epoch."""
+        ident = self.identities.pop(address, None)
+        if ident is None:
+            return None
+        self.by_ripe.pop(ident.ripe, None)
+        self.by_tag.pop(ident.tag, None)
+        self._bump_epoch()
+        self.save()
+        return ident
+
     # -- subscriptions -------------------------------------------------------
 
     def subscribe(self, address: str, label: str = "") -> Subscription:
@@ -175,6 +187,11 @@ class KeyStore:
         self._bump_epoch()
         self.save()
         return sub
+
+    def unsubscribe(self, address: str) -> None:
+        if self.subscriptions.pop(address, None) is not None:
+            self._bump_epoch()
+        self.save()
 
     def active_subscriptions(self) -> list[Subscription]:
         return [s for s in self.subscriptions.values() if s.enabled]

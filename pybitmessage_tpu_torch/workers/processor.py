@@ -1,14 +1,13 @@
 """Incoming-object processor: ack matching, pubkey/msg/broadcast pipelines
 (copy of ``pybitmessage_tpu.workers.processor``, without the onion-peer,
-email-gateway and mailing-list branches, metrics, lifecycle records and
-UI signals).
+email-gateway and mailing-list branches, metrics and lifecycle records).
 
 Reference: class_objectProcessor.py — checkackdata (129-154),
 processgetpubkey (176-268), processpubkey (270-433), processmsg
 (435-747) with randomized key order and anti-surreptitious-forwarding,
 processbroadcast (749-973).
 
-``CONCURRENCY`` worker tasks pull from the queue in parallel; every
+``concurrency`` worker tasks pull from the queue in parallel; every
 trial decrypt and signature check goes through the
 :class:`~.cryptopool.CryptoPool`, whose batch engine coalesces them
 into drains, one kernel launch each on the card (a pool without an
@@ -52,8 +51,9 @@ logger = logging.getLogger("pybitmessage_tpu_torch.processor")
 #: don't resend our pubkey more often than this (objectProcessor.py:176-268)
 PUBKEY_RESEND_INTERVAL = 28 * 24 * 3600
 
-#: concurrent objects in flight through the processor
-CONCURRENCY = 8
+#: concurrent objects in flight through the processor (the
+#: ``ingestworkers`` setting)
+DEFAULT_CONCURRENCY = 8
 #: write-behind drain cadence, seconds
 FLUSH_INTERVAL = 0.05
 
@@ -71,8 +71,14 @@ class ObjectProcessor:
                  inventory, sender: SendWorker, crypto: CryptoPool,
                  pool=None, shutdown: asyncio.Event | None = None,
                  min_ntpb: int = DEFAULT_NONCE_TRIALS_PER_BYTE,
-                 min_extra: int = DEFAULT_EXTRA_BYTES):
+                 min_extra: int = DEFAULT_EXTRA_BYTES,
+                 ui_signal=None):
         self.keystore = keystore
+        #: ``ui_signal(command, data)``: the node's UI event bus
+        self.ui_signal = ui_signal or (lambda cmd, data=(): None)
+        #: worker tasks start() spawns; the daemon sets it from
+        #: ``ingestworkers`` before the node starts
+        self.concurrency = DEFAULT_CONCURRENCY
         self.crypto = crypto
         # the screen's proofs are void once the keyring changes
         crypto.screen = NegativeScreen()
@@ -119,7 +125,7 @@ class ObjectProcessor:
         if self.crypto.batch is not None and not self.crypto.batch.running:
             self.crypto.batch.start()
         self._tasks = [asyncio.create_task(self._run())
-                       for _ in range(CONCURRENCY)]
+                       for _ in range(self.concurrency)]
         self._tasks.append(asyncio.create_task(self._flush_loop()))
 
     async def stop(self) -> None:
@@ -212,6 +218,8 @@ class ObjectProcessor:
         if ack in self.sender.watched_acks:
             self.sender.watched_acks.discard(ack)
             self.store.update_sent_status(ack, ACKRECEIVED)
+            self.ui_signal("updateSentItemStatusByAckdata",
+                           (ack, ACKRECEIVED))
             logger.debug("ack received for one of our messages")
             return True
         return False
@@ -362,6 +370,9 @@ class ObjectProcessor:
             return
         logger.debug("message delivered: %s -> %s", from_address,
                      match.address)
+        self.ui_signal("displayNewInboxMessage",
+                       (h, match.address, from_address, body.subject,
+                        body.body))
         # flood the sender's pre-made ack (objectProcessor.py:723-731);
         # never for chans
         if not match.chan and plain.ack_data \
@@ -432,6 +443,9 @@ class ObjectProcessor:
                     message=body.body, encoding=plain.encoding,
                     sighash=sha512(plain.signature)))
             logger.debug("broadcast delivered from %s", sub.address)
+            self.ui_signal("displayNewInboxMessage",
+                           (h, "[Broadcast]", sub.address, body.subject,
+                            body.body))
             return
 
 

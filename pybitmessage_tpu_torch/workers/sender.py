@@ -1,6 +1,6 @@
 """Send pipeline: the sent-message state machine + PoW dispatch (copy of
 ``pybitmessage_tpu.workers.sender``, without the onion-peer
-announcement, the resend sweep of the cleaner, metrics and UI signals).
+announcement and metrics).
 
 Reference: class_singleWorker.py — sendMsg (717-1373), sendBroadcast
 (532-715), sendOutOrStoreMyV4Pubkey (417-530), requestPubKey
@@ -67,7 +67,10 @@ class SendWorker:
                  inventory, pool, pow_service, crypto: CryptoPool,
                  shutdown: asyncio.Event | None = None,
                  min_ntpb: int = DEFAULT_NONCE_TRIALS_PER_BYTE,
-                 min_extra: int = DEFAULT_EXTRA_BYTES):
+                 min_extra: int = DEFAULT_EXTRA_BYTES,
+                 ui_signal=None):
+        #: ``ui_signal(command, data)``: the node's UI event bus
+        self.ui_signal = ui_signal or (lambda cmd, data=(): None)
         #: ``(h, type, stream, expires, tag, payload)`` hook for every
         #: locally published object
         self.on_publish = None
@@ -231,6 +234,8 @@ class SendWorker:
                     or (self.max_acceptable_extra
                         and their_extra > self.max_acceptable_extra)):
                 self.store.update_sent_status(m.ackdata, "toodifficult")
+                self.ui_signal("updateSentItemStatusByAckdata",
+                               (m.ackdata, "toodifficult"))
                 return
             pub_enc = pubkey.pub_encryption_key
             their_bitfield_acks = bitfield_does_ack(pubkey.bitfield)
@@ -279,6 +284,9 @@ class SendWorker:
                 encoding=m.encodingtype or 2,
                 sighash=sha512(plain.signature))
             self.store.update_sent_status(m.ackdata, ACKRECEIVED)
+            self.ui_signal("displayNewInboxMessage",
+                           (h, m.toaddress, m.fromaddress, m.subject,
+                            m.message))
         elif ack_packet:
             self.watched_acks.add(m.ackdata)
             self.store.update_sent_status(
@@ -470,6 +478,29 @@ class SendWorker:
         h = self._publish(payload, OBJECT_BROADCAST, sender.stream, tag)
         self.store.update_sent_status(m.ackdata, BROADCASTSENT)
         logger.debug("broadcast sent, hash %s", h.hex())
+
+    # -- resend (cleaner hook) ----------------------------------------------
+
+    async def resend_stale(self) -> None:
+        """Re-queue messages whose sleeptill passed, doubling TTL
+        (class_singleCleaner.py:92-106, singleWorker.py:900-904)."""
+        for m in self.store.due_for_resend():
+            new_ttl = min(m.ttl * 2, 28 * 24 * 3600)
+            self.store.bump_retry(m.ackdata, new_ttl, 0)
+            if m.status == AWAITINGPUBKEY:
+                try:
+                    to = decode_address(m.toaddress)
+                except ValueError:
+                    logger.warning("resend row has undecodable "
+                                   "address %r", m.toaddress)
+                    continue
+                tag = double_hash_of_address_data(
+                    to.version, to.stream, to.ripe)[32:]
+                self.needed_pubkeys.pop(tag, None)
+            else:
+                self.watched_acks.discard(m.ackdata)
+            self.store.update_sent_status(m.ackdata, MSGQUEUED)
+            await self.queue.put(("sendmessage",))
 
 
 def pubkey_inner_bytes(data: PubkeyData) -> bytes:

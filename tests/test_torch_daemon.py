@@ -1,0 +1,281 @@
+"""The port's daemon, ``python -m pybitmessage_tpu_torch``, on the CPU.
+
+The lifecycle of the JAX package's ``tests/test_daemon_process.py`` run
+against the port's entry point (apinotify readiness, the single-instance
+lock, a self-send through the API to the inbox and the ``newMessage``
+hook, the files it keeps, SIGTERM with rc 0, the lock released), driven
+by the JAX package's own ``cli.RPCClient``; the lock shared with the JAX
+daemon both ways; ``settings.dat`` written by either package read by
+the other, unknown options kept, the v1 -> v2 migration equal; a setting
+that turns on a subsystem the port lacks, and a start with no card and
+no ``--device``, both exit 1.
+
+Every daemon is spawned with ``--device cpu`` (but the one that must
+find no card) and ``cryptobatch=false`` (host crypto: the plain torch
+ECDH ladder takes seconds a call on the CPU), and every subprocess, poll
+and RPC runs under its own timeout.
+"""
+
+import base64
+import json
+import os
+import signal
+import socket
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import pytest
+
+from pybitmessage_tpu_torch import __main__ as daemon
+from pybitmessage_tpu_torch.core import config as port_config
+from pybitmessage_tpu_torch.core.appenv import (SingleInstance,
+                                                SingleInstanceError)
+
+ROOT = Path(__file__).resolve().parent.parent
+USER, PASS = "daemonuser", "daemonpass"
+#: seconds: daemon start-up, one RPC, one delivery, a clean stop
+START_TIMEOUT = 60.0
+DELIVERY_TIMEOUT = 60.0
+STOP_TIMEOUT = 30.0
+
+
+def _jax():
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    from pybitmessage_tpu import cli
+    from pybitmessage_tpu.core import appenv, config
+    return cli, appenv, config
+
+
+def _env(**extra):
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    env.update(extra)
+    return env
+
+
+def _port_daemon(home, *extra):
+    return [sys.executable, "-m", "pybitmessage_tpu_torch", "-d",
+            str(home), *extra]
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _wait_for(predicate, timeout, what, proc=None):
+    deadline = time.monotonic() + timeout
+    while not predicate():
+        if proc is not None:
+            assert proc.poll() is None, "daemon died: %s" % what
+        assert time.monotonic() < deadline, "timed out: %s" % what
+        time.sleep(0.2)
+
+
+def test_port_daemon_lifecycle_driven_by_the_jax_cli(tmp_path):
+    cli, appenv, _ = _jax()
+    home = tmp_path / "home"
+    marker = tmp_path / "events.log"
+    hook = tmp_path / "hook.sh"
+    hook.write_text("#!/bin/sh\necho \"$1\" >> %s\n" % marker)
+    hook.chmod(0o755)
+    api_port = _free_port()
+    proc = subprocess.Popen(
+        _port_daemon(home, "--device", "cpu", "-t", "-p", "0",
+                     "--api-port", str(api_port), "--api-user", USER,
+                     "--api-password", PASS,
+                     "--set", "apinotifypath=%s" % hook,
+                     "--set", "cryptobatch=false"),
+        env=_env(), cwd=ROOT, stdout=subprocess.DEVNULL,
+        stderr=subprocess.DEVNULL)
+    try:
+        _wait_for(lambda: marker.exists()
+                  and "apiEnabled" in marker.read_text(),
+                  START_TIMEOUT, "apiEnabled", proc)
+        # the lock: a second port daemon and a JAX SingleInstance refuse
+        second = subprocess.run(
+            _port_daemon(home, "--device", "cpu", "-t", "--no-api",
+                         "-p", "0"),
+            env=_env(), cwd=ROOT, capture_output=True,
+            timeout=START_TIMEOUT)
+        assert second.returncode == 1
+        assert b"already holds" in second.stderr + second.stdout
+        with pytest.raises(appenv.SingleInstanceError):
+            appenv.SingleInstance(home).acquire()
+
+        rpc = cli.RPCClient("127.0.0.1", api_port, USER, PASS)
+        assert rpc.call("helloWorld", "x", "y") == "x-y"
+        addr = rpc.call("createRandomAddress",
+                        base64.b64encode(b"proc id").decode())
+        assert addr.startswith("BM-")
+        ack = rpc.call("sendMessage", addr, addr,
+                       base64.b64encode(b"proc subj").decode(),
+                       base64.b64encode(b"proc body").decode())
+        _wait_for(lambda: json.loads(rpc.call(
+            "getAllInboxMessages"))["inboxMessages"],
+            DELIVERY_TIMEOUT, "self-send delivered", proc)
+        [row] = json.loads(rpc.call("getAllInboxMessages"))[
+            "inboxMessages"]
+        assert base64.b64decode(row["subject"]) == b"proc subj"
+        assert base64.b64decode(row["message"]) == b"proc body"
+        assert rpc.call("getStatus", ack) == "ackreceived"
+        # the hook runs as an async subprocess: the inbox can show the
+        # message a beat before the hook's marker write lands
+        _wait_for(lambda: "newMessage" in marker.read_text(), 15,
+                  "newMessage hook")
+        with pytest.raises(cli.CommandError, match="API Error 0020"):
+            rpc.call("roleStatus")
+
+        assert (home / "settings.dat").exists()
+        assert (home / "keys.dat").exists()
+        assert (home / "messages.dat").exists()
+        warning = [line for line in (home / "debug.log").read_text()
+                   .splitlines() if "not run by this package yet" in line]
+        assert len(warning) == 1 and "tls, udp, syncenabled" in warning[0]
+
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=STOP_TIMEOUT) == 0
+        assert "node stopped" in (home / "debug.log").read_text()
+        # lock released: the JAX package's lock can take the directory
+        assert not (home / "singleton.lock").exists()
+        lock = appenv.SingleInstance(home)
+        lock.acquire()
+        lock.release()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=STOP_TIMEOUT)
+
+
+def test_a_jax_lock_refuses_the_port_daemon(tmp_path):
+    _, appenv, _ = _jax()
+    home = tmp_path / "home"
+    with appenv.SingleInstance(home):
+        run = subprocess.run(
+            _port_daemon(home, "--device", "cpu", "-t", "--no-api",
+                         "-p", "0"),
+            env=_env(), cwd=ROOT, capture_output=True,
+            timeout=START_TIMEOUT)
+    assert run.returncode == 1
+    assert b"already holds" in run.stderr
+
+
+def test_the_port_lock_refuses_a_jax_instance(tmp_path):
+    _, appenv, _ = _jax()
+    with SingleInstance(tmp_path):
+        with pytest.raises(appenv.SingleInstanceError):
+            appenv.SingleInstance(tmp_path).acquire()
+    with appenv.SingleInstance(tmp_path):
+        with pytest.raises(SingleInstanceError):
+            SingleInstance(tmp_path).acquire()
+
+
+def test_a_refused_setting_exits_1_naming_it(tmp_path):
+    run = subprocess.run(
+        _port_daemon(tmp_path / "home", "--device", "cpu", "-t",
+                     "--no-api", "-p", "0", "--set", "role=edge"),
+        env=_env(), cwd=ROOT, capture_output=True, timeout=START_TIMEOUT)
+    assert run.returncode == 1
+    assert b"refusing to start: role=edge" in run.stderr
+
+
+def test_no_card_and_no_device_exits_1(tmp_path):
+    run = subprocess.run(
+        _port_daemon(tmp_path / "home", "-t", "--no-api", "-p", "0"),
+        env=_env(CUDA_VISIBLE_DEVICES=""), cwd=ROOT, capture_output=True,
+        timeout=START_TIMEOUT)
+    assert run.returncode == 1
+    assert b"no CUDA device" in run.stderr
+    assert b"node started" not in run.stderr
+
+
+# ---------------------------------------------------------------------------
+# the settings, in process
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("key", sorted(daemon.REFUSED))
+def test_each_refused_setting_is_off_by_the_jax_default(key):
+    _, _, config = _jax()
+    default, turns_on = daemon.REFUSED[key]
+    assert config.DEFAULTS[key] == default
+    assert not turns_on(default)
+    settings = port_config.Settings()
+    assert daemon.refused_options(settings) == []
+    on = {"role": "edge", "sockstype": "SOCKS5", "inventorystorage": "slab",
+          "smtpdenabled": "true", "upnp": "true"}.get(key, "127.0.0.1:9")
+    settings.set(key, on)
+    assert daemon.refused_options(settings) == ["%s=%s" % (key, on)]
+
+
+def test_not_run_settings_are_on_by_the_jax_defaults():
+    _, _, config = _jax()
+    for key, (default, on) in daemon.NOT_RUN.items():
+        assert config.DEFAULTS[key] == default and on(default), key
+    settings = port_config.Settings()
+    assert daemon.not_run_options(settings) == sorted(
+        daemon.NOT_RUN, key=list(daemon.NOT_RUN).index)
+    settings.set("tls", "false")
+    settings.set_temp("udp", False)
+    assert "tls" not in daemon.not_run_options(settings)
+    assert "udp" not in daemon.not_run_options(settings)
+
+
+def test_port_defaults_and_validators_are_the_jax_ones():
+    _, _, config = _jax()
+    for key, value in port_config.DEFAULTS.items():
+        assert config.DEFAULTS[key] == value, key
+    samples = ["", "0", "1", "8", "9", "-1", "0.5", "11", "65536",
+               "true", "no", "maybe", "black", "white", "grey"]
+    for key, check in port_config.VALIDATORS.items():
+        for v in samples:
+            assert check(v) == config.VALIDATORS[key](v), (key, v)
+    assert port_config.SECTION == config.SECTION
+    assert port_config.SETTINGS_VERSION == config.SETTINGS_VERSION
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_settings_dat_round_trip_keeps_the_other_packages_options(
+        tmp_path, writer):
+    _, _, config = _jax()
+    path = tmp_path / "settings.dat"
+    first, second = (config.Settings, port_config.Settings) \
+        if writer == "jax" else (port_config.Settings, config.Settings)
+    s = first(path)
+    s.set("port", "8555")
+    s.set("maxuploadrate", "9")
+    s.set("syncinterval", "20")       # an option only the JAX package knows
+    s.set("tls", "false")
+    s.save()
+    t = second(path)
+    assert t.get("port") == "8555" and t.get("maxuploadrate") == "9"
+    assert t.get("syncinterval") == "20" and t.get("tls") == "false"
+    t.set("dandelion", "40")
+    t.save()
+    u = first(path)
+    assert u.get("syncinterval") == "20" and u.get("tls") == "false"
+    assert u.get("dandelion") == "40" and u.get("port") == "8555"
+    shared = set(port_config.DEFAULTS)
+    assert {k: u.get(k) for k in shared} == \
+        {k: second(path).get(k) for k in shared}
+
+
+@pytest.mark.parametrize("stamped", [True, False])
+def test_settings_migration_v1_to_v2_is_the_jax_one(tmp_path, stamped):
+    _, _, config = _jax()
+    text = "[bitmessagesettings]\nport = 8444\n"
+    if stamped:
+        text += "settingsversion = 1\n"
+    results = []
+    for settings_cls, name in ((config.Settings, "jax.dat"),
+                               (port_config.Settings, "port.dat")):
+        path = tmp_path / name
+        path.write_text(text)
+        s = settings_cls(path)
+        results.append((s.get("dandelion"), s.get("settingsversion"),
+                        settings_cls(path).get("dandelion")))
+    assert results[0] == results[1]
+    assert results[1][0] == ("0" if stamped else "90")
