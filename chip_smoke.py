@@ -45,7 +45,12 @@ Phases (any failure exits non-zero):
    what was sent and each ack to its message; every nonce re-checked
    with hashlib (a sample also proven lowest), every crypto check on
    the batch engine, no drain failed; kernels 1, 2, 4 and 5 must have
-   been launched in the phase (kernel 3 when the planner packs);
+   been launched in the phase (kernel 3 when the planner packs).  A
+   ``torch.profiler`` trace (``DeviceTrace``, spans mirrored into it)
+   wraps (j)'s ingest: each kernel of the window is found in it by name
+   as often as the registry and the wrappers counted it, and the card's
+   idle share over the window and its five longest gaps, with the host
+   spans open across each, are printed;
 6. the node over sockets (``phase_sockets``), ``Node()``s on the card
    meeting over TCP on loopback through their connection pools (inv ->
    getdata -> object, the JAX package's protocol), network difficulty:
@@ -63,7 +68,13 @@ Phases (any failure exits non-zero):
    A that keeps its identities and inbox; kernels 1, 4 and 5 must have
    been launched in the daemons (their ``clientStatus`` launch
    counters), no crypto check on host threads, and every object of both
-   daemons' inventories passes hashlib's PoW check;
+   daemons' inventories passes hashlib's PoW check.  While A sends to B,
+   ``profileDevice 3`` on A returns a trace naming ``bm_search_kernel``;
+   B's ``objectTimeline`` of the msg runs from ``received`` to
+   ``delivered``; A's ``GET /metrics`` needs auth, parses as Prometheus
+   text and its ``device_launches_total`` equals ``clientStatus``;
+   ``deviceStatus`` names the H100 and ``dumpFlightRecorder`` holds
+   events;
 4. times: each kernel at its main-path shape (CUDA events over warm
    launches) beside its plain version and its bound; the packed kernel
    on the storm's own targets and on targets that mostly miss, with the
@@ -73,6 +84,14 @@ Phases (any failure exits non-zero):
    whose halves share their doublings), with the count of the kernels'
    own two-thread design and of the first port's double-and-add ladder
    (``ladder_field_ops``) printed beside it.
+
+Over phases 3, 3b, 5 and 6, the ones that go through the host drivers,
+each kernel's ``device_launches_total`` delta in the registry must equal
+its wrapper's ``LAUNCHES`` delta, and ``pow_verify`` (plain torch ops)
+the verifier's device batches (``check_attribution``); after them every
+program that launched has ``device_mfu_ratio`` in (0, 1.05]
+(``check_utilization``).  Phase 4 times the wrappers directly, with no
+host driver, and is not attributed.
 
 The receive phases draw their data from a second generator seeded from
 ``--seed``, so phases 1-4 keep their inputs.
@@ -107,15 +126,12 @@ import xmlrpc.client
 
 import numpy as np
 
-#: Hopper SM issue rates, 32-bit lanes per clock (NVIDIA H100 white
-#: paper; CUDA C programming guide throughput table, compute capability
-#: 9.0): 64 integer lanes (shifts, logic, adds) and 64 integer
-#: multiply-add lanes (IMAD, which also adds), four schedulers issuing
-#: one 32-lane warp instruction each per clock
-INT_ALU_LANES_PER_SM = 64
-ISSUE_LANES_PER_SM = 128
-#: HBM rate of an H100 SXM (NVIDIA data sheet), bytes/s
-MEMORY_BYTES_PER_S = 3.35e12
+# the least work of the kernels' data, one count for the bound column
+# here and for the device-telemetry utilization gauge of the package
+from pybitmessage_tpu_torch.ops.bounds import (  # noqa: F401
+    IMAD_PER_FIELD_MUL, IMAD_PER_FIELD_SQR, INT_ALU_LANES_PER_SM,
+    MEMORY_BYTES_PER_S, SECP_LANE_BYTES, GLV_LAMBDA, glv_split,
+    ladder_field_ops, ops_per_trial, secp_field_ops, trial_seconds_bound)
 
 SOURCE = "pybitmessage_tpu_torch/csrc/pow_kernels.cu"
 SECP_SOURCE = "pybitmessage_tpu_torch/csrc/secp256k1_kernels.cu"
@@ -140,6 +156,77 @@ def require(cond: bool, what: str) -> None:
         raise RuntimeError("chip_smoke check failed: " + what)
 
 
+#: the device-telemetry program of each kernel wrapper's launch counter
+#: (``LAUNCHES`` key -> ``device_launches_total{program}``)
+PROGRAM_OF = {"search": "pallas_slab", "batch_search": "batch_search",
+              "packed_search": "packed_search", "secp_verify": "secp_verify",
+              "secp_ecdh": "secp_ecdh"}
+#: the CUDA kernel each program launches, as named in a trace
+KERNEL_OF = {"pallas_slab": "bm_search_kernel",
+             "batch_search": "bm_batch_search_kernel",
+             "packed_search": "bm_packed_search_kernel",
+             "secp_verify": "bm_secp_verify_kernel",
+             "secp_ecdh": "bm_secp_ecdh_kernel"}
+
+
+def registry_counts() -> dict:
+    """``device_launches_total`` of every program, the PoW verifier's
+    ``pow_verify_batches_total`` and the wrappers' ``LAUNCHES``, from
+    this process."""
+    from pybitmessage_tpu_torch.observability import REGISTRY
+    from pybitmessage_tpu_torch.ops import secp256k1_cuda as scc
+    from pybitmessage_tpu_torch.ops import sha512_cuda as sc
+    out = {p: REGISTRY.sample("device_launches_total", {"program": p})
+           for p in (*KERNEL_OF, "pow_verify")}
+    out["verify_batches"] = REGISTRY.sample("pow_verify_batches_total")
+    out["wrappers"] = {**sc.LAUNCHES, **scc.LAUNCHES}
+    return out
+
+
+def check_attribution(phase: str, before: dict, launches: dict) -> dict:
+    """The registry's launch delta since ``before`` against the wrappers'
+    launches of a phase that went through the host drivers: equal for
+    every kernel, and ``pow_verify`` equal to the verifier's device
+    batches.  ``launches`` holds the counts of the kernels whose
+    counters the phase reset at its start; the others are deltas of the
+    counters since ``before``.  Returns the registry delta."""
+    now = registry_counts()
+    delta = {k: int(now[k] - before[k]) for k in now if k != "wrappers"}
+    for kernel, program in PROGRAM_OF.items():
+        wrapper = launches.get(kernel, now["wrappers"][kernel]
+                               - before["wrappers"][kernel])
+        require(delta[program] == wrapper,
+                "%s: the registry counts %d %s launches, the wrappers %d"
+                % (phase, delta[program], program, wrapper))
+    require(delta["pow_verify"] == delta["verify_batches"],
+            "%s: %d pow_verify launches for %d verifier device batches"
+            % (phase, delta["pow_verify"], delta["verify_batches"]))
+    print("attribution %s: registry launches %s equal the wrappers' "
+          "counts" % (phase, delta))
+    return delta
+
+
+def check_utilization() -> dict:
+    """Every program that launched in this process has a share of the
+    card's bound (``device_mfu_ratio``) in (0, 1.05]; the per-program
+    rows of ``device_status``, unrounded ratio beside them."""
+    from pybitmessage_tpu_torch.observability import REGISTRY, device_status
+    rows = {}
+    for program, row in device_status()["programs"].items():
+        if not row["launches"]:
+            continue
+        ratio = REGISTRY.sample("device_mfu_ratio", {"program": program})
+        require(0 < ratio <= 1.05,
+                "%s: device_mfu_ratio %r outside (0, 1.05]"
+                % (program, ratio))
+        rows[program] = dict(row, mfu=ratio)
+        print("telemetry %s: %d launches, busy %.4f s, %d work items, "
+              "%.4g items/s, share of the bound %.6f"
+              % (program, row["launches"], row["busySeconds"],
+                 row["workItems"], row["hashrateHps"], ratio))
+    return rows
+
+
 def nvidia_smi(query: str) -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=" + query, "--format=csv,noheader"],
@@ -151,87 +238,6 @@ def trial(nonce: int, ih: bytes) -> int:
     d = hashlib.sha512(hashlib.sha512(
         nonce.to_bytes(8, "big") + ih).digest()).digest()
     return int.from_bytes(d[:8], "big")
-
-
-def ops_per_trial() -> tuple[int, int]:
-    """32-bit integer instructions one double-SHA512 trial needs on
-    Hopper, for the kernels' bound, as (shifts and logic, adds).
-
-    A u64 word is two 32-bit halves.  A word is one of three kinds:
-    ``var`` changes with the nonce (the nonce and all it feeds); ``obj``
-    is fixed for an object (its initial-hash words, and what only they
-    and constants feed: sigma0 of w1..w8, the schedule words w17, w19
-    and w21), so it is computed once per object, not per trial; a
-    constant is known when the kernel is compiled (padding, lengths, K,
-    H0).  Only operations on ``var`` words are counted, and the ``obj``
-    and constant terms of a sum fold into one term:
-
-    * a rotate is 2 funnel shifts; Sigma0/Sigma1 are 3 rotates plus a
-      3-input xor (1 LOP3 per half): 8; sigma0/sigma1 are 2 rotates, a
-      shift (2) and a LOP3 per half: 8;
-    * ch and maj are 1 LOP3 per half: 2;
-    * a sum of t terms is 2*ceil((t-1)/2): IADD3 adds three terms per
-      half and carries two bits into the high half's IADD3.X.
-
-    Shifts and logic run on the integer ALU only; an add can also issue
-    as an IMAD.  Only the first output word of the second compression is
-    needed.
-    """
-    shift_logic = adds = 0
-    var = ("var", False)
-    obj = ("obj", False)
-
-    def const(zero: bool = False):
-        return ("const", zero)
-
-    def add(*terms):
-        nonlocal adds
-        n_var = sum(1 for t in terms if t[0] == "var")
-        folded = any(t[0] == "obj" or (t[0] == "const" and not t[1])
-                     for t in terms)
-        if n_var == 0:
-            if any(t[0] == "obj" for t in terms):
-                return obj
-            return const(all(t[1] for t in terms))
-        t = n_var + folded
-        adds += 2 * (t // 2) if t >= 2 else 0
-        return var
-
-    def mix(*words, cost: int):
-        nonlocal shift_logic
-        if any(w[0] == "var" for w in words):
-            shift_logic += cost
-            return var
-        return obj if any(w[0] == "obj" for w in words) else const()
-
-    def compress(w, outputs):
-        w = list(w)
-        a = b = c = d = e = f = g = h = const()
-        for t in range(80):
-            if t >= 16:
-                w[t % 16] = add(mix(w[(t - 2) % 16], cost=8),
-                                w[(t - 7) % 16],
-                                mix(w[(t - 15) % 16], cost=8), w[t % 16])
-            t1 = add(h, mix(e, cost=8), mix(e, f, g, cost=2), const(),
-                     w[t % 16])
-            new_a = add(t1, mix(a, cost=8), mix(a, b, c, cost=2))
-            h, g, f, e, d, c, b, a = g, f, e, add(d, t1), c, b, a, new_a
-        return [add(const(), s) for s in (a, b, c, d, e, f, g, h)[:outputs]]
-
-    block1 = [var] + [obj] * 8 + [const()] + [const(True)] * 5 + [const()]
-    block2 = compress(block1, 8) + [const()] + [const(True)] * 6 + [const()]
-    compress(block2, 1)
-    return shift_logic, adds
-
-
-def trial_seconds_bound(env: dict) -> float:
-    """Least card time per trial: shifts and logic need the integer ALU
-    (64 lanes a clock per SM); adds can share it with the IMAD lanes,
-    and all of it passes the schedulers' 128 lanes a clock."""
-    shift_logic, adds = env["ops_per_trial"]
-    lanes_per_s = env["sms"] * env["clock_mhz"] * 1e6
-    return max(shift_logic / (INT_ALU_LANES_PER_SM * lanes_per_s),
-               (shift_logic + adds) / (ISSUE_LANES_PER_SM * lanes_per_s))
 
 
 # ---------------------------------------------------------------------------
@@ -801,188 +807,6 @@ def phase_times(rng, env: dict, launches: dict, errs: dict) -> list:
 # ---------------------------------------------------------------------------
 # receive path: secp256k1 kernels and the services that feed them
 # ---------------------------------------------------------------------------
-
-#: 32-bit IMAD issue slots per 256-bit modular multiplication and
-#: squaring: the 64 (a squaring: 36 distinct) 32x32->64 partial products
-#: and the 8 of the fold of the high half by 977 (the 2^32 part of
-#: 2^256 mod p is adds), each a low and a high half
-IMAD_PER_FIELD_MUL = 2 * (64 + 8)
-IMAD_PER_FIELD_SQR = 2 * (36 + 8)
-#: (multiplications, squarings) of each step of the kernels' algorithm
-#: (csrc/secp256k1.cuh): a doubling for a = 0 (dbl-2009-l); a mixed
-#: addition of an affine addend (comb entries, window tables); the
-#: complete addition that joins a lane's two halves; a conversion to
-#: affine (the Fermat chain: 255 squarings and 15 multiplications, and
-#: 3 M + 1 S more); the curve check; the GLV split (six 256 x 256-bit
-#: products, counted as multiplications); a window table of 1..15 * P
-#: with one Z (a doubling, 13 mixed additions, then 3 M + 1 S to bring
-#: each of 14 points to the last Z and 13 M for the running product),
-#: and the multiplication of the walk's Z by it; the projective r check
-#: (Z^2 and r * Z^2)
-FE_DOUBLE, FE_MIXED_ADD, FE_JAC_ADD = (2, 5), (8, 3), (12, 4)
-FE_TO_AFFINE, FE_ON_CURVE, FE_GLV_SPLIT = (18, 256), (1, 2), (6, 0)
-FE_WINDOW_TABLE = (2 + 13 * 8 + 14 * 3 + 13 + 1, 5 + 13 * 3 + 14)
-FE_R_CHECK = (1, 1)
-#: the double-and-add ladder of the first port of these kernels (a
-#: doubling of 3 M + 4 S and a mixed addition per set bit, G + Q from two
-#: affine points), kept beside the count above so the fall in work and
-#: the rise in speed read apart
-FE_LADDER_DOUBLE, FE_AFFINE_ADD = (3, 4), (4, 2)
-#: bytes one lane reads and writes: five 32-byte inputs and ok (verify);
-#: three inputs, x, y and ok (ECDH)
-SECP_LANE_BYTES = {"secp_verify": 5 * 32 + 1, "secp_ecdh": 5 * 32 + 1}
-GLV_LAMBDA = 0x5363AD4CC05C30E0A5261C028812645A122E22EA20816678DF02967C1B23BD72
-GLV_A1 = 0x3086D221A7D46BCDE86C90E49284EB15
-GLV_B1 = -0xE4437ED6010E88286F547FA90ABFE4C3
-GLV_A2 = 0x114CA50F7A8E2F3F657C1108D9D44CFD8
-
-
-def _fe_plus(total, step, times: int = 1):
-    return (total[0] + step[0] * times, total[1] + step[1] * times)
-
-
-def glv_split(k: int) -> tuple:
-    """The kernels' GLV split on Python integers: (k1, k2), signed, with
-    k1 + k2 * lambda == k (mod n) and |k1|, |k2| < 2^128."""
-    from pybitmessage_tpu_torch.crypto import fallback
-
-    n = fallback.N
-    k %= n
-    g1 = ((GLV_A1 << 384) + n // 2) // n
-    g2 = ((-GLV_B1 << 384) + n // 2) // n
-    c1 = (k * g1 + (1 << 383)) >> 384
-    c2 = (k * g2 + (1 << 383)) >> 384
-    return k - c1 * GLV_A1 - c2 * GLV_A2, -c1 * GLV_B1 - c2 * GLV_A1
-
-
-def _nibbles(k: int, count: int) -> list:
-    """k's low ``count`` nibbles, most significant first."""
-    return [(k >> (4 * i)) & 15 for i in reversed(range(count))]
-
-
-def _ladder_ops(windows, step=FE_DOUBLE, bits: int = 4,
-                finite: bool = False) -> tuple:
-    """(multiplications, squarings) of a walk over ``windows``, one tuple
-    of digits per window (most significant first), from infinity unless
-    ``finite``: ``bits`` doublings a window once the sum is finite and a
-    mixed addition per nonzero digit (one landing on infinity is a
-    select).  ``bits=0`` is the comb: additions only."""
-    ops = (0, 0)
-    for digits in windows:
-        if finite:
-            ops = _fe_plus(ops, step, bits)
-        for d in digits:
-            if d:
-                if finite:
-                    ops = _fe_plus(ops, FE_MIXED_ADD)
-                finite = True
-    return ops, finite
-
-
-def _mul_walks(k: int, point, joined: bool) -> tuple:
-    """k * P as a walk: the comb over k's 64 nibbles for P = G, else the
-    GLV split, one window table of P, its copy as phi(P) (15 M), the
-    walk of |k1| and |k2| and the scaling of the sum's Z by the table's
-    (1 M).  ``joined``: one Strauss walk whose halves share each
-    window's doublings (the least work).  Otherwise the kernels' two
-    threads: each half walks alone, the comb's 32 nibbles or |k1| or
-    |k2|.  Returns (ops, [finite after each walk])."""
-    from pybitmessage_tpu_torch.crypto import fallback
-
-    if point == (fallback.GX, fallback.GY):
-        halves = [_nibbles(k, 64)] if joined else \
-            [_nibbles(k >> (128 * h), 32) for h in (0, 1)]
-        walks = [_ladder_ops([(d,) for d in h], bits=0) for h in halves]
-        extra = []
-    else:
-        k1, k2 = (_nibbles(abs(kh), 32) for kh in glv_split(k))
-        walks = [_ladder_ops(list(zip(k1, k2)))] if joined else \
-            [_ladder_ops([(d,) for d in h]) for h in (k1, k2)]
-        extra = [FE_GLV_SPLIT, FE_WINDOW_TABLE, (16, 0)]
-    total = (0, 0)
-    for ops in [w[0] for w in walks] + extra:
-        total = _fe_plus(total, ops)
-    return total, [w[1] for w in walks]
-
-
-def secp_field_ops(kind: str, lanes, design: bool = False) -> tuple:
-    """(multiplications, squarings) that these lanes' data needs: verify
-    lanes are (u1, u2, (qx, qy), r), ECDH lanes (k, (px, py)).  The
-    least work, the bound's: k * P as one walk (u2 * Q for verify, which
-    then adds u1 * G's 64 comb nibbles onto it), then for ECDH a
-    conversion to affine, for verify the projective r check.
-    ``design``: the kernels' own count instead, two threads a lane, each
-    walking its half alone (verify's adding 32 of the comb's nibbles),
-    joined by a complete addition."""
-    from pybitmessage_tpu_torch.crypto import fallback
-
-    P = fallback.P
-    total = (0, 0)
-    for lane in lanes:
-        if kind == "secp_verify":
-            u1, k, (x, y), _ = lane
-        else:
-            k, (x, y) = lane
-        point = (x % P, y % P)
-        total = _fe_plus(total, FE_ON_CURVE)
-        if not fallback.on_curve(*point):
-            continue
-        ops, finite = _mul_walks(k, point, joined=not design)
-        total = _fe_plus(total, ops)
-        if kind == "secp_verify":
-            combs = [_nibbles(u1, 64)] if not design else \
-                [_nibbles(u1 >> (128 * h), 32) for h in (0, 1)]
-            for h, nibbles in enumerate(combs):
-                ops, finite[h] = _ladder_ops([(d,) for d in nibbles],
-                                             bits=0, finite=finite[h])
-                total = _fe_plus(total, ops)
-        if design and all(finite):
-            total = _fe_plus(total, FE_JAC_ADD)
-        if any(finite) or design:
-            total = _fe_plus(total, FE_R_CHECK if kind == "secp_verify"
-                             else FE_TO_AFFINE)
-    return total
-
-
-def ladder_field_ops(kind: str, lanes) -> tuple:
-    """(multiplications, squarings) of the double-and-add ladders the
-    first port of these kernels ran (Strauss-Shamir over {G, Q, G + Q}
-    for verify, a bit at a time), for the same lanes."""
-    from pybitmessage_tpu_torch.crypto import fallback
-
-    P = fallback.P
-    total = (0, 0)
-    for lane in lanes:
-        if kind == "secp_verify":
-            u1, u2, (qx, qy), _ = lane
-            q = (qx % P, qy % P)
-            total = _fe_plus(total, FE_ON_CURVE)
-            if not fallback.on_curve(*q):
-                continue
-            gq_inf = (q[0], q[1]) == (fallback.GX, P - fallback.GY)
-            total = _fe_plus(total, FE_AFFINE_ADD)
-            if not gq_inf:
-                total = _fe_plus(total, FE_TO_AFFINE)
-            bits = [((u1 >> (255 - i)) & 1, (u2 >> (255 - i)) & 1)
-                    for i in range(256)]
-            # G + Q at infinity adds nothing when both bits are set
-            bits = [(1,) if b1 or b2 else (0,) for b1, b2 in bits] \
-                if not gq_inf else \
-                [(1,) if b1 != b2 else (0,) for b1, b2 in bits]
-            ops, finite = _ladder_ops(bits, step=FE_LADDER_DOUBLE, bits=1)
-        else:
-            k, (px, py) = lane
-            total = _fe_plus(total, FE_ON_CURVE)
-            if not fallback.on_curve(px % P, py % P):
-                continue
-            ops, finite = _ladder_ops(
-                [((k >> (255 - i)) & 1,) for i in range(256)],
-                step=FE_LADDER_DOUBLE, bits=1)
-        total = _fe_plus(total, ops)
-        if finite:
-            total = _fe_plus(total, FE_TO_AFFINE)
-    return total
-
 
 def _be(vals) -> bytes:
     return b"".join(v.to_bytes(32, "big") for v in vals)
@@ -1664,6 +1488,86 @@ class _NodeKit:
         return len(sample)
 
 
+def _synchronize(device) -> None:
+    """Wait for the card (nothing on the CPU): a trace window opens and
+    closes on an idle stream, so no kernel straddles its edges."""
+    import torch
+    if device != "cpu":
+        torch.cuda.synchronize()
+
+
+def _union(intervals) -> list:
+    """Sorted, merged (start, end) intervals."""
+    out: list = []
+    for s, e in sorted(intervals):
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return out
+
+
+def trace_window(cap, reg0: dict, launches: dict, *, on_card: bool) -> dict:
+    """Read a ``DeviceTrace``'s Chrome trace: each kernel of the catalog
+    found by name, as many times as the registry's launch delta since
+    ``reg0`` and the wrappers' ``launches`` of the window say; the
+    card's idle share over the window (one minus the union of all
+    kernel intervals over the span of the trace's events) and its five
+    longest idle gaps, each with the host spans open across it."""
+    import re
+    from collections import Counter
+
+    with open(cap.path) as fh:
+        events = [e for e in json.load(fh)["traceEvents"]
+                  if e.get("ph") == "X" and "ts" in e]
+    now = registry_counts()
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    found = {}
+    for program, name in KERNEL_OF.items():
+        pattern = re.compile(r"(?<![A-Za-z0-9_])%s\b" % name)
+        found[program] = sum(1 for e in kernels if pattern.search(e["name"]))
+        registry = int(now[program] - reg0[program])
+        wrapper = launches.get(
+            next(k for k, p in PROGRAM_OF.items() if p == program), 0)
+        if on_card:
+            require(found[program] == registry == wrapper,
+                    "trace window: %d %s in the trace, registry %d, "
+                    "wrappers %d" % (found[program], name, registry,
+                                     wrapper))
+    window = (min(e["ts"] for e in events),
+              max(e["ts"] + e.get("dur", 0) for e in events))
+    busy = _union((e["ts"], e["ts"] + e.get("dur", 0)) for e in kernels)
+    busy_us = sum(e - s for s, e in busy)
+    span_us = max(window[1] - window[0], 1e-9)
+    gaps, edge = [], window[0]
+    for s, e in busy + [[window[1], window[1]]]:
+        if s > edge:
+            gaps.append((edge, s))
+        edge = max(edge, e)
+    spans = [e for e in events if e.get("cat") == "user_annotation"]
+    top = []
+    for g0, g1 in sorted(gaps, key=lambda g: g[0] - g[1])[:5]:
+        open_across = Counter(e["name"] for e in spans
+                              if e["ts"] <= g0 and e["ts"] + e["dur"] >= g1)
+        top.append({"start_ms": (g0 - window[0]) / 1e3,
+                    "ms": (g1 - g0) / 1e3,
+                    "spans": dict(open_across.most_common(4))})
+    out = {"window_ms": span_us / 1e3, "kernel_events": len(kernels),
+           "kernel_busy_ms": busy_us / 1e3,
+           "idle_share": 1 - busy_us / span_us,
+           "kernels_in_trace": found, "gaps": top,
+           "activities": cap.activities, "trace_bytes": os.path.getsize(
+               cap.path)}
+    print("trace (j) ingest window: %.1f ms, %d kernels busy %.3f ms, idle "
+          "share %.4f, catalog kernels %s, activities %s"
+          % (out["window_ms"], len(kernels), out["kernel_busy_ms"],
+             out["idle_share"], found, cap.activities))
+    for gap in top:
+        print("  idle gap %.3f ms at %.1f ms, spans open across it: %s"
+              % (gap["ms"], gap["start_ms"], gap["spans"]))
+    return out
+
+
 def phase_node(rng, *, device=None, test_mode: bool = False,
                flood: int = 256, foreign: int = 64, idents: int = 8,
                body_bytes: int = 1024, timeout: float = 600.0) -> dict:
@@ -1681,6 +1585,8 @@ def phase_node(rng, *, device=None, test_mode: bool = False,
     ``test_mode=True`` and small sizes rehearse the phase with the
     plain versions.)"""
     from pybitmessage_tpu_torch.crypto import batch as engine_mod
+    from pybitmessage_tpu_torch.observability import (
+        DeviceTrace, enable_profiler_annotations)
     from pybitmessage_tpu_torch.ops import secp256k1_cuda as scc
     from pybitmessage_tpu_torch.ops import sha512_cuda as sc
     from pybitmessage_tpu_torch.storage.messages import ACKRECEIVED, MSGSENT
@@ -1815,21 +1721,33 @@ def phase_node(rng, *, device=None, test_mode: bool = False,
                             "host_s": clock.lap()}
 
         # B's acks are held too, so B's ingest and A's ack ingest are
-        # timed apart and each verifier gets the flood at once
+        # timed apart and each verifier gets the flood at once.  A
+        # torch.profiler trace, the spans mirrored into it, wraps B's
+        # ingest: the card's kernels and idle gaps over the window
         bridge.hold(b)
-        before, t0 = launches(), time.perf_counter()
-        require(bridge.release(a) == total,
-                "(j) A announced another count of objects than it sent")
-        await _until(lambda: b.processor.messages_processed >= total
-                     and not b.processor.pending()
-                     and len(b.store.inbox()) == flood
-                     and bridge.held(b) == flood,
-                     "(j) B's ingest", timeout)
-        ingest_wall = time.perf_counter() - t0
+        _synchronize(device)
+        reg0 = registry_counts()
+        enable_profiler_annotations(True)
+        with DeviceTrace() as cap:
+            before, t0 = launches(), time.perf_counter()
+            require(bridge.release(a) == total,
+                    "(j) A announced another count of objects than it sent")
+            await _until(lambda: b.processor.messages_processed >= total
+                         and not b.processor.pending()
+                         and len(b.store.inbox()) == flood
+                         and bridge.held(b) == flood,
+                         "(j) B's ingest", timeout)
+            ingest_wall = time.perf_counter() - t0
+            window_launches = delta(before)
+            _synchronize(device)
+        enable_profiler_annotations(False)
         report["j_ingest"] = {"objects": total, "wall_s": ingest_wall,
                               "objects_per_s": total / ingest_wall,
-                              "delivered": flood, "launches": delta(before),
+                              "delivered": flood,
+                              "launches": window_launches,
                               "host_s": clock.lap()}
+        report["j_trace"] = trace_window(
+            cap, reg0, window_launches, on_card=device != "cpu")
         before, t0 = launches(), time.perf_counter()
         require(bridge.release(b) == flood, "(j) B flooded another count "
                 "of acks than it delivered")
@@ -2348,6 +2266,129 @@ class _Daemon:
             return ""
 
 
+def profile_while_busy(d, device) -> dict:
+    """``profileDevice 3`` on daemon ``d`` while it works: the capture
+    runs in a thread, and every 1.5 s until it returns a
+    ``createRandomAddress`` grinds a key (kernel 5) and queues a pubkey
+    PoW (kernel 1); the profiler's start-up on the card (~10 s, CUPTI)
+    comes before the 3 s window.  The answer must be ``ok``; on the card
+    its trace must name ``bm_search_kernel``."""
+    import threading
+
+    box: dict = {}
+
+    def capture():
+        box["doc"] = json.loads(d.rpc("profileDevice", 3))
+    thread = threading.Thread(target=capture)
+    thread.start()
+    made = 0
+    while thread.is_alive():
+        d.rpc("createRandomAddress",
+              base64.b64encode(b"trace %d" % made).decode())
+        made += 1
+        thread.join(1.5)
+    doc = box.get("doc") or {}
+    require(doc.get("ok") is True, "profileDevice failed: %r" % (doc,))
+    path = os.path.join(doc["traceDir"], "trace.json")
+    with open(path) as fh:
+        text = fh.read()
+    named = {k: text.count(k) for k in ("bm_search_kernel",
+                                        "bm_secp_ecdh_kernel")}
+    if device != "cpu":
+        require(named["bm_search_kernel"] > 0,
+                "profileDevice's trace does not name bm_search_kernel")
+    print("daemon profileDevice 3: %s s, activities %s, %d bytes, %d "
+          "addresses made in the window, kernels named %s"
+          % (doc["seconds"], doc.get("activities"), len(text), made, named))
+    return {"seconds": doc["seconds"], "activities": doc.get("activities"),
+            "bytes": len(text), "addresses": made, "named": named}
+
+
+def object_timeline(d, msgid: str) -> list:
+    """``objectTimeline`` of a received msg on daemon ``d``: its stages
+    run from ``received`` to ``delivered``."""
+    timeline = json.loads(d.rpc("objectTimeline", msgid))["timeline"]
+    stages = [e["stage"] for e in timeline]
+    for stage in ("received", "parsed", "decrypted", "verified",
+                  "stored", "delivered"):
+        require(stage in stages, "objectTimeline lacks %r: %s"
+                % (stage, stages))
+    require(stages[0] == "received" and stages.index("delivered")
+            > stages.index("parsed"), "objectTimeline out of order: %s"
+            % stages)
+    print("daemon B objectTimeline of the msg: %s" % stages)
+    return stages
+
+
+def _prometheus(text: str) -> dict:
+    """Prometheus text exposition -> {(name, labels): value}; raises on
+    a line that is not a comment or a sample."""
+    import re
+    sample = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{(.*)\})? '
+                        r'(-?[0-9.e+-]+|[+-]Inf|NaN)$')
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = sample.match(line)
+        require(m is not None, "GET /metrics line is not Prometheus "
+                "text: %r" % line)
+        labels = tuple(sorted(re.findall(r'(\w+)="([^"]*)"',
+                                         m.group(3) or "")))
+        out[(m.group(1), labels)] = float(m.group(4))
+    return out
+
+
+def daemon_telemetry(d, device) -> dict:
+    """Daemon ``d``'s telemetry endpoints: ``GET /metrics`` needs auth,
+    parses as Prometheus text and its ``device_launches_total`` equals
+    ``clientStatus``'s ``device`` block; ``deviceStatus`` names the card
+    (on the card); ``dumpFlightRecorder`` returns events."""
+    def get(path, auth=True):
+        conn = http.client.HTTPConnection("127.0.0.1", d.api_port,
+                                          timeout=d.timeout)
+        headers = {}
+        if auth:
+            headers["Authorization"] = "Basic " + base64.b64encode(
+                ("%s:%s" % (d.USER, d.PASSWORD)).encode()).decode()
+        try:
+            conn.request("GET", path, headers=headers)
+            resp = conn.getresponse()
+            return resp.status, resp.read()
+        finally:
+            conn.close()
+
+    code, _ = get("/metrics", auth=False)
+    require(code == 401, "GET /metrics without credentials got %d" % code)
+    for _ in range(5):
+        programs = json.loads(d.rpc("clientStatus"))["device"]["programs"]
+        code, body = get("/metrics")
+        require(code == 200, "GET /metrics answered %d" % code)
+        samples = _prometheus(body.decode())
+        scraped = {labels[0][1]: int(v) for (name, labels), v
+                   in samples.items() if name == "device_launches_total"}
+        status = {p: row["launches"] for p, row in programs.items()}
+        if scraped == status:
+            break
+        time.sleep(0.5)
+    require(scraped == status, "GET /metrics launches %s, clientStatus %s"
+            % (scraped, status))
+    env = json.loads(d.rpc("deviceStatus"))["env"]
+    if device != "cpu":
+        require("H100" in str(env.get("device_kind")),
+                "deviceStatus does not name the H100: %r" % (env,))
+    events = json.loads(d.rpc("dumpFlightRecorder"))["events"]
+    require(events, "dumpFlightRecorder returned no events")
+    kinds = sorted({e["kind"] for e in events})
+    print("daemon A telemetry: GET /metrics %d samples, launches %s equal "
+          "clientStatus; deviceStatus env %s; flight recorder %d events "
+          "(%s)" % (len(samples), scraped, env.get("device_kind"),
+                    len(events), ", ".join(kinds)))
+    return {"samples": len(samples), "launches": scraped,
+            "device_kind": env.get("device_kind"),
+            "flightrec_events": len(events), "flightrec_kinds": kinds}
+
+
 #: the checkout the daemons of phase 7 run from
 _ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -2435,9 +2476,11 @@ def phase_daemon(rng, *, device=None, test_mode: bool = False,
 
     def status(d) -> dict:
         st = json.loads(d.rpc("clientStatus"))
-        launches = {name: row["launches"]
-                    for name, row in st["device"]["programs"].items()}
+        programs = st["device"]["programs"]
+        launches = {kernel: programs.get(program, {}).get("launches", 0)
+                    for kernel, program in PROGRAM_OF.items()}
         return {"launches": launches, "crypto": st["crypto"],
+                "programs": programs, "health": st["health"],
                 "powVerify": st["powVerify"], "powBackend": st["powBackend"],
                 "connections": st["networkConnections"]}
 
@@ -2478,12 +2521,18 @@ def phase_daemon(rng, *, device=None, test_mode: bool = False,
             z = b.rpc("createRandomAddress", b64("Z"))
             subject2, body2 = _text(rng, 40), _text(rng, 1000)
             ack2 = a.rpc("sendMessage", z, x, b64(subject2), b64(body2))
+            # a device trace on A while it sends to B, with pubkey PoWs
+            # (createRandomAddress) launched inside the window
+            report["profile"] = profile_while_busy(a, device)
             until(lambda: a.rpc("getStatus", ack2) == "ackreceived",
                   "the ack of the message to B")
             report["two_daemon_s"] = time.perf_counter() - t0
             held(b, z, x, subject2, body2)
+            [row] = inbox(b, z)
+            report["timeline"] = object_timeline(b, row["msgid"])
 
             report["a"], report["b"] = status(a), status(b)
+            report["telemetry"] = daemon_telemetry(a, device)
             for name, code in (("A", a.stop()), ("B", b.stop())):
                 require(code == 0, "daemon %s exited %d on SIGTERM"
                         % (name, code))
@@ -2641,13 +2690,29 @@ def main() -> int:
     errs = phase_compare(rng, np.random.default_rng([args.seed, 3]))
     selftest = phase_selftest_secp(prng)
     errs.update(phase_compare_secp(prng))
+    # the phases through the host drivers: each kernel's registry
+    # launches (device telemetry) must equal its wrapper's count
+    attribution = {}
+    before = registry_counts()
     main_path = phase_main_path(rng)
+    attribution["main_path"] = check_attribution(
+        "send path", before, main_path["launches"])
+    before = registry_counts()
     receive = phase_receive(rng2, prng)
+    attribution["receive"] = check_attribution(
+        "receive path", before, receive["launches"])
     # the node's data: a fourth generator
+    before = registry_counts()
     node = phase_node(np.random.default_rng([args.seed, 4]))
+    attribution["node"] = check_attribution("node", before,
+                                            node["launches"])
     # the node over sockets: a fifth generator
+    before = registry_counts()
     sockets = phase_sockets(np.random.default_rng([args.seed, 5]),
                             bridge=node["phases"])
+    attribution["sockets"] = check_attribution("sockets", before,
+                                               sockets["launches"])
+    utilization = check_utilization()
     # the daemon through its API: a sixth generator
     daemon = phase_daemon(np.random.default_rng([args.seed, 6]))
     kernels = phase_times(rng, env, main_path["launches"], errs)
@@ -2663,7 +2728,8 @@ def main() -> int:
             json.dump({"env": env, "main_path": main_path,
                        "selftest": selftest, "receive": receive,
                        "node": node, "sockets": sockets, "daemon": daemon,
-                       "kernels": kernels,
+                       "attribution": attribution,
+                       "utilization": utilization, "kernels": kernels,
                        "wall_s": wall}, fh, indent=1)
     print(json.dumps({"kernels": [
         {k: entry[k] for k in KERNEL_KEYS}

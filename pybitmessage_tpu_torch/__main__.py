@@ -151,6 +151,7 @@ async def run(args) -> int:
     from . import resolve_device
     from .api import APIServer
     from .core import Node
+    from .observability import FLIGHT_RECORDER, set_peer_buckets
     from .storage.knownnodes import Peer
 
     settings = load_settings(args)
@@ -178,6 +179,11 @@ async def run(args) -> int:
                 crypto_batch=settings.getbool("cryptobatch"))
     node.settings = settings
     node.dandelion.stem_probability = settings.getint("dandelion")
+    # observability knobs
+    FLIGHT_RECORDER.resize(settings.getint("flightrecsize"))
+    node.health.sample_interval = settings.getfloat("healthinterval")
+    node.health.probe.interval = settings.getfloat("looplaginterval")
+    set_peer_buckets(settings.getint("peerlabelbuckets"))
     node.processor.list_mode = settings.get("blackwhitelist")
     # applied before start() spawns the processor's workers
     node.processor.concurrency = settings.getint("ingestworkers")

@@ -13,9 +13,14 @@ handler lacks: the email gateway and mailing lists
 ``emailGatewayUnregister``, ``emailGatewayStatus``,
 ``emailGatewaySettings``, ``sendEmail``, ``setMailingList``), roles
 (``roleStatus``, ``shardStatus``, ``shardShed``), the PoW farm
-(``farmStatus``) and telemetry (``metrics``, ``federatedStatus``,
-``dumpFlightRecorder``, ``costStatus``, ``profileDump``,
-``deviceStatus``, ``profileDevice``, ``objectTimeline``).
+(``farmStatus``), federation (``federatedStatus``) and the sampling
+profiler (``costStatus``, ``profileDump``).
+
+The telemetry commands (``metrics``, ``dumpFlightRecorder``,
+``deviceStatus``, ``profileDevice``, ``objectTimeline``) answer as the
+JAX ones do, over the port's ``observability`` package; ``clientStatus``
+carries the JAX ``device`` (per-program launches from the registry) and
+``health`` blocks.
 """
 
 from __future__ import annotations
@@ -30,7 +35,9 @@ from ..models.constants import OBJECT_MSG, OBJECT_PUBKEY
 from ..models.objects import ObjectHeader
 from ..core.config import DEFAULTS, Settings, SettingsError
 from ..crypto.keys import grind_deterministic_keys
-from ..ops import secp256k1_cuda, sha512_cuda
+from ..observability import (FLIGHT_RECORDER, LIFECYCLE, HealthMonitor,
+                             capture_device_trace, device_status,
+                             render_prometheus)
 from ..utils.addresses import AddressError, decode_address, encode_address
 from ..utils.hashes import inventory_hash
 
@@ -674,6 +681,59 @@ class CommandHandler:
 
     # -- status / admin ------------------------------------------------------
 
+    def cmd_metrics(self):
+        """Prometheus text exposition of the process-wide registry: the
+        same bytes ``GET /metrics`` serves."""
+        return render_prometheus()
+
+    def cmd_dumpFlightRecorder(self, kind=""):
+        """Dump the flight-recorder ring: the last structured events
+        (breaker flips, requeues, slab traffic, watermark pauses),
+        newest last; also logged as one line (trigger=api).  ``kind``
+        filters by event kind."""
+        events = FLIGHT_RECORDER.dump("api")
+        if kind:
+            events = [e for e in events if e.get("kind") == kind]
+        return json.dumps({"node": FLIGHT_RECORDER.node_id,
+                           "skew": round(FLIGHT_RECORDER.skew(), 6),
+                           "events": events}, default=repr)
+
+    def cmd_deviceStatus(self):
+        """The device telemetry plane: per-program launches, first
+        launches and repeats, dispatch and wait seconds, busy seconds,
+        bytes, hashrate and share of the card's bound, the card's
+        identity and memory, and the environment.  Also served as
+        ``GET /debug/device``."""
+        return json.dumps(device_status(), indent=4)
+
+    async def cmd_profileDevice(self, seconds=1):
+        """Capture a ``torch.profiler`` trace (CPU, plus CUDA when a
+        context exists) for ``seconds`` (default 1, max 60) and return
+        its directory and files (Chrome trace JSON).  The capture runs
+        off the event loop.  Also ``GET /debug/device?seconds=N``."""
+        try:
+            seconds = float(seconds)
+        except (TypeError, ValueError):
+            raise APIError(0, "seconds must be numeric")
+        return await asyncio.get_running_loop().run_in_executor(
+            None, lambda: json.dumps(
+                capture_device_trace(seconds), default=repr))
+
+    def cmd_objectTimeline(self, hash_hex):
+        """Lifecycle timeline of one inventory hash: the recorded stage
+        events, oldest first (no wire-trace metadata until the wire
+        trace is ported)."""
+        if len(hash_hex) != 64:
+            raise APIError(19)
+        h = unhexlify(hash_hex)
+        out = {"timeline": LIFECYCLE.timeline(h)}
+        meta = LIFECYCLE.trace_meta(h)
+        if meta is not None:
+            out["trace"] = {"traceId": meta["trace_id"].hex(),
+                            "span": meta["span"],
+                            "parentSpan": meta["parent_span"]}
+        return json.dumps(out)
+
     def _pow_stats(self) -> dict:
         """The PowService's batch counters (the JAX block's ``batch``
         part; the port keeps no per-tier registry histograms)."""
@@ -704,12 +764,28 @@ class CommandHandler:
 
     @staticmethod
     def _device_stats() -> dict:
-        """Launches per kernel since the process started, counted by
-        each kernel's wrapper; kernels that never launched are elided
-        (the JAX block's per-program launch attribution)."""
-        launches = {**sha512_cuda.LAUNCHES, **secp256k1_cuda.LAUNCHES}
-        return {"programs": {name: {"launches": n}
-                             for name, n in launches.items() if n}}
+        """Compact device-telemetry block: per-program launch counts and
+        rates from the registry (programs that never launched are
+        elided; the full table is ``deviceStatus``)."""
+        st = device_status()
+        progs = {name: {"launches": row["launches"],
+                        "compiles": row["compiles"],
+                        "cacheHits": row["cacheHits"],
+                        "hashrateHps": row["hashrateHps"],
+                        "mfu": row["mfu"]}
+                 for name, row in st["programs"].items()
+                 if row["launches"]}
+        return {"programs": progs, "env": st["env"],
+                "dropped": st["dropped"]}
+
+    def _health_stats(self) -> dict:
+        """Per-subsystem health verdicts (loop lag, PoW queue and
+        breakers, ingest watermark and saturation, write-behind
+        backlog)."""
+        health = getattr(self.node, "health", None)
+        if health is None:
+            health = HealthMonitor(self.node)
+        return health.health_block()
 
     def cmd_clientStatus(self):
         pool = self.node.pool
@@ -758,6 +834,7 @@ class CommandHandler:
             "powStats": self._pow_stats(),
             "crypto": self._crypto_stats(),
             "device": self._device_stats(),
+            "health": self._health_stats(),
             "powVerify": {
                 "host": self.node.pow_verifier.host_checked,
                 "device": self.node.pow_verifier.device_checked,

@@ -1,7 +1,6 @@
 """Minimal asyncio HTTP RPC server with basic auth: JSON-RPC + XML-RPC
-(copy of ``pybitmessage_tpu.api.server``, without ``GET /metrics``, the
-debug and federation endpoints, its metrics and the fault-injection
-site).
+(copy of ``pybitmessage_tpu.api.server``, without ``GET /debug/profile``,
+the federation push and the fault-injection site).
 
 Reference: src/api.py singleAPI — XML/JSON-RPC on 127.0.0.1:8442 with
 HTTP basic auth (api.py:437-457).  Both of the reference's apivariants
@@ -10,7 +9,14 @@ JSON-RPC 2.0 (``{"method", "params", "id"}``), an XML body is XML-RPC —
 the protocol the reference's own ``bitmessagecli.py`` (xmlrpclib)
 speaks.  API errors surface as numbered ``APIError NN: message``
 strings (JSON error object / XML-RPC Fault), matching the reference's
-error vocabulary (api.py:111-153).  Every GET answers 404.
+error vocabulary (api.py:111-153).
+
+GETs, under the same basic auth: ``/metrics`` serves the Prometheus
+text exposition of the process-wide registry; ``/debug/device`` the
+device-telemetry table, or with ``?seconds=N`` a ``torch.profiler``
+trace captured for N seconds; ``/metrics/federated`` answers 404
+"federation disabled", as the JAX daemon does with federation off.
+Blocking work runs in the executor.  Every other GET answers 404.
 """
 
 from __future__ import annotations
@@ -20,8 +26,11 @@ import base64
 import hmac
 import json
 import logging
+import time
 import xmlrpc.client
 
+from ..observability import (REGISTRY, capture_device_trace, device_status,
+                             render_prometheus)
 from ..resilience import Deadline
 from .commands import APIError, CommandHandler
 
@@ -31,6 +40,11 @@ MAX_REQUEST = 32 * 1024 * 1024
 #: per-request wall budget; propagated as a resilience Deadline so
 #: nested retries stop scheduling attempts that cannot finish in time
 DEFAULT_REQUEST_TIMEOUT = 120.0
+
+API_REQUESTS = REGISTRY.counter(
+    "api_requests_total", "RPC dispatches by outcome", ("outcome",))
+API_REQUEST_SECONDS = REGISTRY.histogram(
+    "api_request_seconds", "RPC dispatch wall time")
 
 
 class APIServer:
@@ -46,15 +60,27 @@ class APIServer:
 
     async def _call(self, method: str, params: list):
         """One command dispatch under the request deadline."""
+        t0 = time.monotonic()
         try:
             with Deadline(DEFAULT_REQUEST_TIMEOUT):
-                return await asyncio.wait_for(
+                result = await asyncio.wait_for(
                     self.handler.dispatch(method, params),
                     timeout=DEFAULT_REQUEST_TIMEOUT)
+            API_REQUESTS.labels(outcome="ok").inc()
+            return result
+        except APIError:
+            API_REQUESTS.labels(outcome="api_error").inc()
+            raise
         except asyncio.TimeoutError:
+            API_REQUESTS.labels(outcome="timeout").inc()
             raise APIError(
                 1, "request exceeded the %.0fs server deadline"
                 % DEFAULT_REQUEST_TIMEOUT)
+        except Exception:
+            API_REQUESTS.labels(outcome="error").inc()
+            raise
+        finally:
+            API_REQUEST_SECONDS.observe(time.monotonic() - t0)
 
     async def start(self) -> None:
         self._server = await asyncio.start_server(
@@ -108,7 +134,7 @@ class APIServer:
             body = await reader.readexactly(length) if length else b""
 
             if request_line.startswith(b"GET"):
-                await self._respond(writer, 404, {"error": "not found"})
+                await self._get(writer, request_line, headers)
                 return
             if not request_line.startswith(b"POST"):
                 await self._respond(writer, 405,
@@ -142,6 +168,57 @@ class APIServer:
             except Exception as exc:
                 # routine for an already-dead client, but never silent
                 logger.debug("API connection close failed: %r", exc)
+
+    async def _get(self, writer, request_line: bytes,
+                   headers: dict[str, str]) -> None:
+        """The GET endpoints: ``/metrics``, ``/metrics/federated`` and
+        ``/debug/device[?seconds=N]``; anything else is 404."""
+        parts = request_line.split()
+        raw_path = parts[1].decode("latin-1", "replace") \
+            if len(parts) > 1 else ""
+        path, _, query = raw_path.partition("?")
+        if path not in ("/metrics", "/metrics/federated", "/debug/device"):
+            await self._respond(writer, 404, {"error": "not found"})
+            return
+        if not self._authorized(headers):
+            await self._respond(writer, 401, {"error": "unauthorized"},
+                                extra="WWW-Authenticate: Basic\r\n")
+            return
+        if path == "/metrics/federated":
+            await self._respond(writer, 404,
+                                {"error": "federation disabled"})
+            return
+        if path == "/metrics":
+            await self._respond_raw(
+                writer, 200, render_prometheus().encode("utf-8"),
+                "text/plain; version=0.0.4; charset=utf-8")
+            return
+        seconds = None
+        for part in query.split("&"):
+            k, _, v = part.partition("=")
+            if k == "seconds":
+                try:
+                    seconds = float(v)
+                except ValueError:
+                    await self._respond(writer, 400,
+                                        {"error": "bad seconds"})
+                    return
+        # the device table and a trace capture both block: executor,
+        # not the event loop
+        if seconds and seconds > 0:
+            def work():
+                return capture_device_trace(seconds)
+        else:
+            work = device_status
+        try:
+            doc = await asyncio.get_running_loop().run_in_executor(
+                None, work)
+        except ValueError as exc:
+            await self._respond(writer, 400, {"error": str(exc)})
+            return
+        await self._respond_raw(
+            writer, 200, json.dumps(doc, default=repr).encode("utf-8"),
+            "application/json")
 
     async def _dispatch(self, req: dict) -> dict:
         method = req.get("method", "")

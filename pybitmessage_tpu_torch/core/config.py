@@ -58,6 +58,14 @@ DEFAULTS: dict[str, str] = {
     "connecttimeout": "10",          # outbound dial budget, seconds
     "handshaketimeout": "30",        # version/verack must finish in this
     "blackwhitelist": "black",       # inbound sender policy
+    "flightrecsize": "512",          # flight-recorder ring capacity
+                                     # (events)
+    "healthinterval": "5",           # health-gauge sampling cadence,
+                                     # seconds
+    "looplaginterval": "0.25",       # event-loop lag probe cadence,
+                                     # seconds
+    "peerlabelbuckets": "16",        # hashed peer-bucket count for
+                                     # per-peer metric labels
     # ceilings on recipient-demanded PoW; 0 = unlimited (reference
     # helper_startup sanity cap: ridiculousDifficulty x network default)
     "maxacceptablenoncetrialsperbyte": "20000000000",
@@ -107,6 +115,10 @@ VALIDATORS: dict[str, Callable[[str], bool]] = {
     "handshaketimeout": _validate_float_range(1.0, 3600.0),
     "apienabled": _validate_bool,
     "blackwhitelist": lambda v: v in ("black", "white"),
+    "flightrecsize": _validate_int_range(16, 1 << 20),
+    "healthinterval": _validate_float_range(0.1, 3600.0),
+    "looplaginterval": _validate_float_range(0.01, 60.0),
+    "peerlabelbuckets": _validate_int_range(1, 512),
 }
 
 

@@ -21,9 +21,12 @@ listen on ``port``, ``pool.connect_to``), or through
 a caller without a socket.  UI events go out on ``node.ui`` (a
 ``UISignaler``); the ``Cleaner`` runs with the node.  The daemon
 (``python -m pybitmessage_tpu_torch``) sets ``node.settings`` and serves
-the API over it.  Sync, TLS, SOCKS, UDP discovery, UPnP, the PoW farm,
-federation, health probes, telemetry, the PoW journal, the email gateway
-and the roles other than ``all`` are not part of this package yet.
+the API over it.  The node runs the health probes (``self.health``:
+loop lag, saturation gauges, the ``clientStatus`` health block), names
+itself in the flight recorder and logs a metrics snapshot a minute.
+Sync, TLS, SOCKS, UDP discovery, UPnP, the PoW farm, federation, the
+sampling profiler, the PoW journal, the email gateway and the roles
+other than ``all`` are not part of this package yet.
 """
 
 from __future__ import annotations
@@ -38,6 +41,8 @@ from ..crypto.keys import priv_to_pub_many
 from ..models.payloads import gen_ack_payload
 from ..network.dandelion import Dandelion
 from ..network.pool import ConnectionPool, NodeContext
+from ..observability import (FLIGHT_RECORDER, HealthMonitor,
+                             log_snapshot_task)
 from ..pow.dispatcher import PowDispatcher
 from ..pow.service import PowService
 from ..pow.verify_service import BatchVerifier
@@ -143,6 +148,13 @@ class Node:
         #: the daemon's ``core.config.Settings`` (None outside it)
         self.settings = None
         self._pump_task: asyncio.Task | None = None
+        self._metrics_task: asyncio.Task | None = None
+        #: always-on runtime health probes: event-loop lag sampler,
+        #: saturation gauges and the clientStatus health block
+        self.health = HealthMonitor(self)
+        #: this node's identity in flight-recorder dumps
+        self.node_id = self.ctx.nonce.hex()
+        FLIGHT_RECORDER.node_id = self.node_id
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -154,6 +166,9 @@ class Node:
         self.cleaner.start()
         await self.pool.start(listen=self.listen)
         self._pump_task = asyncio.create_task(self._pump_objects())
+        # one structured log line a minute with the metrics that changed
+        self._metrics_task = asyncio.create_task(log_snapshot_task(60.0))
+        self.health.start()
         logger.info("node started on %s (port %s)", self.device,
                     self.pool.listen_port if self.listen else "-")
 
@@ -169,13 +184,15 @@ class Node:
         not processed, for the next node on this ``data_dir``; objects
         still between acceptance and the processor go with them."""
         self.shutdown.set()
-        if self._pump_task:
-            self._pump_task.cancel()
-            try:
-                await self._pump_task
-            except asyncio.CancelledError:
-                pass
-            self._pump_task = None
+        await self.health.stop()
+        for task in (self._pump_task, self._metrics_task):
+            if task is not None:
+                task.cancel()
+                try:
+                    await task
+                except asyncio.CancelledError:
+                    pass
+        self._pump_task = self._metrics_task = None
         await self.pool.stop()
         while not self.ctx.object_queue.empty():
             _, _, payload = self.ctx.object_queue.get_nowait()

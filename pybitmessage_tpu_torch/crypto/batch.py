@@ -23,7 +23,10 @@ ABI (``backend=``).
 
 A drain that raises is logged, counted in ``failed_drains`` and settled
 conservatively (verify False, decrypt no-match), as the reference's
-drain loop does; there is no lower rung to walk down to.
+drain loop does; there is no lower rung to walk down to.  Drain sizes,
+seconds, items and ECDH drain widths go to the JAX engine's metric
+families under the rung name ``gpu``; its fallback families have
+nothing to count here.
 """
 
 from __future__ import annotations
@@ -31,14 +34,51 @@ from __future__ import annotations
 import asyncio
 import logging
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Sequence
 
+from ..observability import DEFAULT_SIZE_BUCKETS, REGISTRY
+from ..resilience.policy import ERRORS
 from . import ecies, fallback
 from .keys import priv_scalar32, pub_point64
 from .signing import _HASHERS, digest_order, note_digest
 
 logger = logging.getLogger("pybitmessage_tpu_torch.crypto")
+
+BATCH_SIZE = REGISTRY.histogram(
+    "crypto_batch_size",
+    "Items per coalesced crypto drain (verify: signature checks; "
+    "ecdh: candidate scalars across all trial-decrypt objects)",
+    ("op",), buckets=DEFAULT_SIZE_BUCKETS)
+BATCH_SECONDS = REGISTRY.histogram(
+    "crypto_batch_seconds",
+    "Wall time of one drain's work per op (native call + scalar prep "
+    "+ MAC sweep), excluding coalesce wait — the batch-path analog of "
+    "the per-call ingest_stage_seconds decrypt/sig_verify stages",
+    ("op",))
+BATCH_OPS = REGISTRY.counter(
+    "crypto_batch_ops_total",
+    "Batched crypto items by op and execution path", ("op", "path"))
+RUNG_SECONDS = REGISTRY.counter(
+    "crypto_rung_seconds_total",
+    "Drain work seconds accumulated per crypto-ladder rung "
+    "(tpu/native/pure) — the per-rung half of the costStatus "
+    "attribution plane", ("rung",))
+SHUTDOWN_SETTLED = REGISTRY.counter(
+    "crypto_batch_shutdown_settled_total",
+    "Checks still pending at engine shutdown, settled deterministically "
+    "(verify False / decrypt no-match) instead of leaking "
+    "CancelledError into the ingest workers")
+DRAIN_WIDTH = REGISTRY.histogram(
+    "crypto_ecdh_drain_size",
+    "ECDH pairs per transposed trial-decrypt drain (one backend call "
+    "each; budget-capped by cryptodrainmax) — the shape that must "
+    "clear cryptotpubatchmin for the tpu rung to earn its launch",
+    buckets=DEFAULT_SIZE_BUCKETS)
+
+#: the engine's one rung, as its metric label
+RUNG = "gpu"
 
 _N = fallback.N
 
@@ -111,17 +151,19 @@ class BatchCryptoEngine:
         # still-queued checks resolve deterministically (verify False,
         # decrypt no-match), never as a CancelledError in their callers
         while not self.queue.empty():
-            self._settle(self.queue.get_nowait())
+            self._settle(self.queue.get_nowait(), shutdown=True)
         with self._lock:
             if self._exec is not None:
                 self._exec.shutdown(wait=False, cancel_futures=True)
                 self._exec = None
 
     @staticmethod
-    def _settle(job) -> None:
+    def _settle(job, *, shutdown: bool = False) -> None:
         """Resolve a pending check conservatively (verify False /
-        decrypt no-match)."""
+        decrypt no-match); settlements at shutdown are counted."""
         if not job.fut.done():
+            if shutdown:
+                SHUTDOWN_SETTLED.inc()
             job.fut.set_result(False if isinstance(job, _VerifyJob) else [])
 
     def _executor(self) -> ThreadPoolExecutor:
@@ -179,12 +221,13 @@ class BatchCryptoEngine:
                         job.fut.set_result(matches)
             except asyncio.CancelledError:
                 for job in batch:
-                    self._settle(job)
+                    self._settle(job, shutdown=True)
                 raise
             except Exception:
                 # a drain must never wedge its callers: settle the whole
                 # batch conservatively, count it, and keep draining
                 self.failed_drains += 1
+                ERRORS.labels(site="crypto.batch").inc()
                 logger.exception("crypto batch drain failed; batch "
                                  "settled unverified/no-match")
                 for job in batch:
@@ -194,8 +237,21 @@ class BatchCryptoEngine:
 
     def _execute(self, verifies, decrypts):
         """One drain's work; returns (verify bools, decrypt matches)."""
+        t0 = time.monotonic()
         v_res = self._backend_verify(self.backend, verifies)
+        tv = time.monotonic()
         d_res = self._backend_decrypt(self.backend, decrypts)
+        if verifies:
+            BATCH_SECONDS.labels(op="verify").observe(tv - t0)
+            BATCH_SIZE.labels(op="verify").observe(len(verifies))
+            BATCH_OPS.labels(op="verify", path=RUNG).inc(len(verifies))
+        if decrypts:
+            BATCH_SECONDS.labels(op="decrypt").observe(
+                time.monotonic() - tv)
+            BATCH_SIZE.labels(op="ecdh").observe(
+                sum(len(j.candidates) for j in decrypts))
+            BATCH_OPS.labels(op="decrypt", path=RUNG).inc(len(decrypts))
+        RUNG_SECONDS.labels(rung=RUNG).inc(time.monotonic() - t0)
         self._screen_note(decrypts, d_res)
         self.gpu_items += len(verifies) + len(decrypts)
         return v_res, d_res
@@ -328,6 +384,7 @@ class BatchCryptoEngine:
                 scalars.append(scalar)
                 idx.append((i, j))
             if idx:
+                DRAIN_WIDTH.observe(len(idx))
                 self.drains += 1
                 self.drain_pairs += len(idx)
                 xs = backend.ecdh_batch(len(idx), b"".join(points),

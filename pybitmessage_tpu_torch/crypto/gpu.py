@@ -18,15 +18,20 @@ themselves, so there is no chunking and no padding.
 
 ``CudaSecp(device="cpu")`` runs the kernels' plain torch versions (the
 tests' path).  There is no other rung here: a failed launch raises to
-the caller.
+the caller.  Each drain is attributed to the device-telemetry program
+``secp_verify`` or ``secp_ecdh`` (dispatch, the wait for its results,
+lanes, bytes), as ``crypto/tpu.py`` attributes its drains.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
 
 from .. import resolve_device
+from ..observability.devicetelemetry import record_launch
 from ..ops import secp256k1_cuda
 from . import fallback
 
@@ -82,20 +87,36 @@ class CudaSecp:
         def rows(buf):
             return np.frombuffer(buf, dtype=np.uint8).reshape(n, 32)
 
+        t0 = time.monotonic()
         u1, u2, qx, qy, r = self._upload(rows(u1s), rows(u2s),
                                          points[:, :32], points[:, 32:],
                                          rows(rs))
-        ok = secp256k1_cuda.secp_verify(u1, u2, qx, qy, r).cpu().tolist()
+        ok_dev = secp256k1_cuda.secp_verify(u1, u2, qx, qy, r)
+        t1 = time.monotonic()
+        ok = ok_dev.cpu().tolist()
+        t2 = time.monotonic()
+        record_launch("secp_verify", key=self.device.type,
+                      dispatch_seconds=t1 - t0, wait_seconds=t2 - t1,
+                      span=(t0, t2), items=n, bytes_in=160 * n,
+                      bytes_out=n)
         self._count("verify", n)
         return [bool(ok[i]) and valid[i] for i in range(n)]
 
     def _ecdh(self, n: int, points: np.ndarray, scalars: bytes):
+        t0 = time.monotonic()
         k, px, py = self._upload(
             np.frombuffer(scalars, dtype=np.uint8).reshape(n, 32),
             points[:, :32], points[:, 32:])
         x, y, ok = secp256k1_cuda.secp_ecdh(k, px, py)
+        t1 = time.monotonic()
+        x, y, ok = x.cpu().numpy(), y.cpu().numpy(), ok.cpu().tolist()
+        t2 = time.monotonic()
+        record_launch("secp_ecdh", key=self.device.type,
+                      dispatch_seconds=t1 - t0, wait_seconds=t2 - t1,
+                      span=(t0, t2), items=n, bytes_in=96 * n,
+                      bytes_out=65 * n)
         self._count("ecdh", n)
-        return x.cpu().numpy(), y.cpu().numpy(), ok.cpu().tolist()
+        return x, y, ok
 
     def ecdh_batch(self, n: int, points: bytes,
                    scalars: bytes) -> list[bytes | None]:

@@ -25,9 +25,24 @@ from __future__ import annotations
 import threading
 from collections import OrderedDict
 
+from ..observability import REGISTRY
+
 #: default table size — 64k proofs cover multiple TTL windows of a
 #: busy stream's distinct objects at 32 bytes of key each
 DEFAULT_CAPACITY = 65536
+
+SCREEN_HITS = REGISTRY.counter(
+    "crypto_screen_hits_total",
+    "Trial-decrypt sweeps skipped entirely because the object is a "
+    "cached no-match for the current keyring epoch")
+SCREEN_MISSES = REGISTRY.counter(
+    "crypto_screen_misses_total",
+    "Trial-decrypt screen probes that found no entry (the sweep runs; "
+    "a completed no-match sweep then populates the screen)")
+SCREEN_INVALIDATIONS = REGISTRY.counter(
+    "crypto_screen_invalidations_total",
+    "Keyring-epoch bumps (identity/subscription add or remove) that "
+    "flushed every cached no-match proof")
 
 
 class NegativeScreen:
@@ -57,6 +72,7 @@ class NegativeScreen:
             self.epoch += 1
             self._entries.clear()
             self.invalidations += 1
+        SCREEN_INVALIDATIONS.inc()
 
     def check(self, tag: bytes) -> bool:
         """True when ``tag`` is a cached no-match for the CURRENT
@@ -69,6 +85,7 @@ class NegativeScreen:
                 self.hits += 1
             else:
                 self.misses += 1
+        (SCREEN_HITS if hit else SCREEN_MISSES).inc()
         return hit
 
     def insert(self, tag: bytes, epoch: int) -> bool:

@@ -17,10 +17,16 @@ import hashlib
 import threading
 from collections import OrderedDict
 
+from ..observability import REGISTRY
 from . import fallback
 from .keys import priv_scalar32
 
 _DIGESTS = ("sha256", "sha1")
+
+DIGEST_FALLBACKS = REGISTRY.counter(
+    "crypto_digest_fallback_total",
+    "Signature verifications that missed on the hinted/default digest "
+    "and succeeded on a later one (legacy-peer detection)")
 
 #: pubkey -> digest name that last verified; bounded LRU so a pubkey
 #: flood cannot grow it unbounded
@@ -48,7 +54,9 @@ def note_digest(pubkey: bytes, digest: str, *, fallback: bool) -> None:
     """Record which digest verified for ``pubkey``; ``fallback`` marks
     an attempt order whose first choice missed.  A default-digest hit
     with no other hint stored writes nothing."""
-    if not fallback and digest == _DIGESTS[0]:
+    if fallback:
+        DIGEST_FALLBACKS.inc()
+    elif digest == _DIGESTS[0]:
         with _HINTS_LOCK:
             if _HINTS.get(pubkey) in (None, digest):
                 return

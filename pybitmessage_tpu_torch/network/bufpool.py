@@ -1,5 +1,5 @@
 """Pooled receive buffers for the zero-copy packet path (copy of
-``pybitmessage_tpu.network.bufpool``, without its metrics).
+``pybitmessage_tpu.network.bufpool``).
 
 :class:`BufferPool` hands out refcounted :class:`PooledBuffer` objects
 backed by reusable ``bytearray`` slabs.  The connection fills one per
@@ -13,12 +13,32 @@ dropped for the cost of the single fill copy.
 Ownership contract: ``acquire()`` returns a buffer with refcount 1;
 whoever needs it past the current call frame ``retain()``s it and
 pairs that with ``release()``.  The last release returns the backing
-``bytearray`` to the pool for the next packet.
+``bytearray`` to the pool for the next packet.  Copies, parked buffers
+and misses go to the JAX pool's metric families.
 """
 
 from __future__ import annotations
 
 import threading
+
+from ..observability import REGISTRY
+
+BYTES_COPIED = REGISTRY.counter(
+    "ingest_bytes_copied_total",
+    "Payload bytes copied on the receive path, by copy stage: 'fill' "
+    "= socket chunk into the pooled buffer (paid once per packet), "
+    "'materialize' = pooled view into a stable payload (paid only for "
+    "accepted-new objects and non-object commands)", ("stage",))
+# children bound once: these run per packet / per accepted object
+COPIED_FILL = BYTES_COPIED.labels(stage="fill")
+COPIED_MATERIALIZE = BYTES_COPIED.labels(stage="materialize")
+POOL_BUFFERS = REGISTRY.gauge(
+    "ingest_buffer_pool_buffers",
+    "Reusable receive buffers currently parked in the pool")
+POOL_MISSES = REGISTRY.counter(
+    "ingest_buffer_pool_misses_total",
+    "acquire() calls that had to allocate a fresh buffer (no parked "
+    "buffer was large enough)")
 
 #: buffers parked per pool; beyond this a released buffer is dropped
 #: to the allocator instead (bounds idle memory after a burst)
@@ -60,8 +80,9 @@ class PooledBuffer:
 
     def write_at(self, offset: int, chunk: bytes) -> None:
         """Copy one socket chunk to its final offset (the one 'fill'
-        copy)."""
+        copy, counted)."""
         self._data[offset:offset + len(chunk)] = chunk
+        COPIED_FILL.inc(len(chunk))
 
     def view(self) -> memoryview:
         """The filled payload region, zero-copy."""
@@ -71,6 +92,7 @@ class PooledBuffer:
         """One stable ``bytes`` copy of the payload.  Goes through a
         memoryview so it really is ONE copy — a bytearray slice would
         allocate an intermediate."""
+        COPIED_MATERIALIZE.inc(self._length)
         return bytes(memoryview(self._data)[:self._length])
 
     def __len__(self) -> int:
@@ -114,7 +136,9 @@ class BufferPool:
             if best >= 0:
                 data = self._free.pop(best)
                 self._free_bytes -= len(data)
+                POOL_BUFFERS.set(len(self._free))
                 return PooledBuffer(self, data, length)
+        POOL_MISSES.inc()
         return PooledBuffer(self, bytearray(_round_up(length)), length)
 
     def _park(self, data: bytearray) -> None:
@@ -137,6 +161,7 @@ class BufferPool:
                 i = min(range(len(self._free)),
                         key=lambda j: len(self._free[j]))
                 self._free_bytes -= len(self._free.pop(i))
+            POOL_BUFFERS.set(len(self._free))
 
     def parked(self) -> int:
         with self._lock:

@@ -1,7 +1,8 @@
 """One peer connection: framed packets, handshake, command dispatch
 (copy of ``pybitmessage_tpu.network.connection``, without TLS, the
-set-reconciliation sync, the wire trace context, metrics and chaos
-sites).
+set-reconciliation sync, the wire trace context and chaos sites).
+Frames, framing errors and handshake timeouts go to the JAX
+connection's metric families.
 
 Wire behavior kept: 24-byte header with magic resync
 (bmproto.py:85-104), sha512/4 checksum, version validity checks
@@ -40,6 +41,8 @@ from typing import TYPE_CHECKING
 from ..models.constants import MAGIC, MAX_OBJECT_COUNT, MAX_TIME_OFFSET
 from ..models.objects import (ObjectError, ObjectHeader, check_by_type,
                               extract_tag)
+from ..observability import REGISTRY
+from ..resilience.policy import ERRORS
 from ..models.packet import (HEADER_LEN, PacketError, pack_packet,
                              unpack_header, verify_payload)
 from ..storage.knownnodes import Peer
@@ -64,6 +67,21 @@ BIG_INV_CHUNK = 50000
 #: lets one peer's flood coalesce into device batches without letting
 #: it queue unbounded payloads
 VERIFY_WINDOW = 32
+
+PACKETS = REGISTRY.counter(
+    "network_packets_total", "Framed protocol packets by direction",
+    ("direction",))
+# children bound once: the per-packet path must not pay a family lock
+# and label lookup per frame
+PACKETS_RX = PACKETS.labels(direction="rx")
+PACKETS_TX = PACKETS.labels(direction="tx")
+PACKET_ERRORS = REGISTRY.counter(
+    "network_packet_errors_total",
+    "Frames dropped for bad checksum / oversize payload")
+HANDSHAKE_TIMEOUTS = REGISTRY.counter(
+    "network_handshake_timeout_total",
+    "Connections closed because version/verack never completed — "
+    "black-holed peers no longer pin a slot forever")
 _MAGIC = struct.pack(">L", MAGIC)
 
 
@@ -192,6 +210,7 @@ class BMConnection:
         except asyncio.CancelledError:
             return
         if not self.fully_established and not self._closed:
+            HANDSHAKE_TIMEOUTS.inc()
             logger.debug("connection %s:%s handshake timed out after "
                          "%.0fs; closing", self.host, self.port, timeout)
             await self.close("handshake timeout")
@@ -212,6 +231,7 @@ class BMConnection:
             pass
         except Exception as exc:
             reason = repr(exc)
+            ERRORS.labels(site="net.parse").inc()
             logger.exception("connection %s:%s parser error",
                              self.host, self.port)
         finally:
@@ -239,7 +259,8 @@ class BMConnection:
             await asyncio.wait_for(self.writer.wait_closed(), 3.0)
         except Exception as exc:
             # a transport that fails to close cleanly is routine for a
-            # dead peer, but is logged, never swallowed silently
+            # dead peer, but is counted, never swallowed silently
+            ERRORS.labels(site="net.close").inc()
             logger.debug("transport close for %s:%s failed: %r",
                          self.host, self.port, exc)
         self.pool.connection_closed(self)
@@ -286,7 +307,11 @@ class BMConnection:
             header = header[nxt:] + await self._read_throttled(nxt)
         # a bad magic after resync or an oversize length raises
         # PacketError, which closes the connection
-        command, length, checksum = unpack_header(header)
+        try:
+            command, length, checksum = unpack_header(header)
+        except PacketError:
+            PACKET_ERRORS.inc()
+            raise
         # the payload fills a pooled buffer; checksum, object-header
         # parse, PoW check and duplicate detection run over views of
         # it, and only a NEW object (or a non-object command's payload)
@@ -296,8 +321,10 @@ class BMConnection:
             await self._read_chunked(length, buf.write_at)
             view = buf.view()
             if not verify_payload(view, checksum):
+                PACKET_ERRORS.inc()
                 raise ConnectionClosed("bad checksum")
             self.frames_rx += 1
+            PACKETS_RX.inc()
             self.last_activity = time.time()
             if command == "object":
                 await self.cmd_object(view, buf=buf)
@@ -314,6 +341,7 @@ class BMConnection:
         frame = pack_packet(command, payload)
         await self.ctx.upload_bucket.consume(len(frame))
         self.frames_tx += 1
+        PACKETS_TX.inc()
         self.writer.write(frame)
         await self.writer.drain()
 

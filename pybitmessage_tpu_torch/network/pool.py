@@ -1,7 +1,9 @@
 """Shared node state and the connection pool: dialer, listener, gossip
 cadences (copy of ``pybitmessage_tpu.network.pool``, without TLS,
-SOCKS, UDP discovery, the set-reconciliation sync, the roles' hooks,
-metrics and chaos sites).
+SOCKS, UDP discovery, the set-reconciliation sync, the roles' hooks and
+chaos sites).  Connections, dials, received objects and requeued
+announcements go to the JAX pool's metric families; an object's
+lifecycle gains ``received`` and ``announced`` here.
 
 Reference: src/network/connectionpool.py (dial loop with rating-weighted
 choice + network-group diversity), invthread.py (1 s inv batching with
@@ -19,7 +21,11 @@ from collections import deque
 from typing import Callable, Optional
 
 from ..models.constants import NODE_DANDELION, NODE_NETWORK
+from ..observability import REGISTRY
+from ..observability.lifecycle import LIFECYCLE
+from ..observability.metrics import peer_bucket_label
 from ..resilience import CircuitBreaker
+from ..resilience.policy import ERRORS
 from ..storage.knownnodes import KnownNodes, Peer
 from ..utils.queues import WatermarkQueue
 from .connection import BMConnection
@@ -41,6 +47,20 @@ DEFAULT_DIAL_TIMEOUT = 10.0
 DEFAULT_HANDSHAKE_TIMEOUT = 30.0
 #: per-peer dial breakers kept at most (oldest dropped beyond this)
 MAX_DIAL_BREAKERS = 512
+
+CONNECTIONS = REGISTRY.gauge(
+    "network_connections", "Open connections by direction",
+    ("direction",))
+DIALS = REGISTRY.counter(
+    "network_dial_total", "Outbound dial attempts by outcome",
+    ("result",))
+OBJECTS_RECEIVED = REGISTRY.counter(
+    "network_objects_received_total",
+    "Valid objects accepted from the network")
+ANNOUNCE_RETRIES = REGISTRY.counter(
+    "network_announce_requeue_total",
+    "Inv/addr announcements put back after a failed send — retried "
+    "next tick instead of silently lost")
 
 
 class NodeContext:
@@ -70,8 +90,8 @@ class NodeContext:
         self.announce_buckets = announce_buckets or ANNOUNCE_BUCKETS
         #: byte/s global throttles (0 = unlimited), reference
         #: maxdownloadrate/maxuploadrate semantics
-        self.download_bucket = TokenBucket(0)
-        self.upload_bucket = TokenBucket(0)
+        self.download_bucket = TokenBucket(0, direction="rx")
+        self.upload_bucket = TokenBucket(0, direction="tx")
         self.global_tracker = GlobalTracker()
         #: validated objects flow out here: (hash, header, payload).
         #: Crossing HIGH pauses every connection's read loop until the
@@ -136,6 +156,7 @@ class ConnectionPool:
     # -- lifecycle -----------------------------------------------------------
 
     async def start(self, listen: bool = True) -> None:
+        self._count_connections()
         if listen:
             self._server = await asyncio.start_server(
                 self._accept, self.listen_host, self.ctx.port)
@@ -179,6 +200,7 @@ class ConnectionPool:
         conn = BMConnection(self, reader, writer, outbound=False,
                             host=peer[0], port=peer[1])
         self.inbound[conn] = None
+        self._count_connections()
         conn.start()
         # a peer that never completes version/verack must not pin an
         # inbound slot forever
@@ -190,17 +212,25 @@ class ConnectionPool:
         if br is None:
             while len(self._dial_breakers) >= MAX_DIAL_BREAKERS:
                 self._dial_breakers.pop(next(iter(self._dial_breakers)))
+            # hashed peer-bucket label (``net.dial/bNN``): per-bucket
+            # visibility without per-peer label cardinality
             br = self._dial_breakers[key] = CircuitBreaker(
                 "net.dial:%s" % key,
                 threshold=self.dial_breaker_threshold,
-                cooldown=self.dial_breaker_cooldown)
+                cooldown=self.dial_breaker_cooldown,
+                label=peer_bucket_label("net.dial", key), register=False)
         return br
+
+    def _count_connections(self) -> None:
+        CONNECTIONS.labels(direction="inbound").set(len(self.inbound))
+        CONNECTIONS.labels(direction="outbound").set(len(self.outbound))
 
     async def connect_to(self, peer: Peer) -> BMConnection | None:
         breaker = self._dial_breaker(peer)
         if not breaker.allow():
             # repeatedly-dead peer: don't pay the connect timeout again
             # until the breaker's cooldown lets a probe through
+            DIALS.labels(result="skipped").inc()
             return None
         try:
             reader, writer = await asyncio.wait_for(
@@ -208,6 +238,8 @@ class ConnectionPool:
                 timeout=self.dial_timeout)
         except (OSError, asyncio.TimeoutError) as exc:
             logger.debug("dial %s failed: %r", peer, exc)
+            DIALS.labels(result="failed").inc()
+            ERRORS.labels(site="net.dial").inc()
             breaker.record_failure()
             self.ctx.knownnodes.decrease_rating(peer)
             return None
@@ -215,6 +247,8 @@ class ConnectionPool:
         conn = BMConnection(self, reader, writer, outbound=True,
                             host=peer.host, port=peer.port)
         self.outbound[conn] = None
+        DIALS.labels(result="connected").inc()
+        self._count_connections()
         conn.start()
         conn.arm_handshake_timeout(self.handshake_timeout)
         return conn
@@ -229,6 +263,7 @@ class ConnectionPool:
     def connection_closed(self, conn: BMConnection) -> None:
         self.inbound.pop(conn, None)
         self.outbound.pop(conn, None)
+        self._count_connections()
         if self.ctx.dandelion:
             self.ctx.dandelion.remove_connection(conn)
         if conn.outbound and not conn.fully_established:
@@ -257,6 +292,7 @@ class ConnectionPool:
             if stream not in self.ctx.streams:
                 return
             conns = [c for c in conns if self._subscribes(c, stream)]
+        LIFECYCLE.record(h, "announced")
         for conn in conns:
             conn.tracker.we_should_announce(h)
 
@@ -266,6 +302,8 @@ class ConnectionPool:
         processor.  The source connection is excluded — an inv must
         never echo back to the peer that delivered the object."""
         self.objects_received += 1
+        OBJECTS_RECEIVED.inc()
+        LIFECYCLE.record(h, "received")
         peers = [c for c in self.established() if c is not source]
         if peers:
             self.objects_relayed += 1
@@ -294,6 +332,7 @@ class ConnectionPool:
             except asyncio.CancelledError:
                 raise
             except Exception:
+                ERRORS.labels(site="net.dial_loop").inc()
                 logger.exception("dial loop error")
             await asyncio.sleep(2)
 
@@ -332,6 +371,7 @@ class ConnectionPool:
             except asyncio.CancelledError:
                 raise
             except Exception:
+                ERRORS.labels(site="net.inv_loop").inc()
                 logger.exception("inv loop error")
 
     async def _flush_addr_gossip(self) -> None:
@@ -370,7 +410,8 @@ class ConnectionPool:
                 await conn.send_packet("addr", packet)
             except (ConnectionError, OSError) as exc:
                 # best-effort: the entries re-advertise through other
-                # peers, but the failed send is logged
+                # peers, but the failed send is counted
+                ERRORS.labels(site="net.send").inc()
                 logger.debug("addr gossip to %s failed: %r",
                              conn.host, exc)
 
@@ -405,6 +446,8 @@ class ConnectionPool:
                     # requeue ONLY the unsent groups so the next tick
                     # re-delivers them
                     unsent = [h for hs, _ in sends[i:] for h in hs]
+                    ERRORS.labels(site="net.send").inc()
+                    ANNOUNCE_RETRIES.inc(len(unsent))
                     logger.debug("announce to %s failed (%r); requeued "
                                  "%d hashes", conn.host, exc, len(unsent))
                     for h in unsent:
@@ -423,6 +466,7 @@ class ConnectionPool:
             except asyncio.CancelledError:
                 raise
             except Exception:
+                ERRORS.labels(site="net.download_loop").inc()
                 logger.exception("download loop error")
 
     async def _maintenance_loop(self) -> None:
@@ -443,4 +487,5 @@ class ConnectionPool:
             except asyncio.CancelledError:
                 raise
             except Exception:
+                ERRORS.labels(site="net.maintenance_loop").inc()
                 logger.exception("maintenance loop error")

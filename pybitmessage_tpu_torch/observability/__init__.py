@@ -1,0 +1,43 @@
+"""Process-wide telemetry of the port (twin of
+``pybitmessage_tpu.observability``): metrics registry, span tracer,
+exporters, object lifecycle tracing, flight recorder, runtime health
+probes and the device telemetry plane.
+
+Not here yet: the sampling profiler (``profiling.py``: ``costStatus``,
+``profileDump``, ``GET /debug/profile``), federation
+(``federation.py``) and the wire trace's ``TraceContext`` /
+``SkewEstimator``.
+"""
+
+from .devicetelemetry import (DEVICE_TELEMETRY, DeviceTelemetry,
+                              DeviceTrace, capture_device_trace,
+                              device_status, env_fingerprint,
+                              record_launch, register_program)
+from .export import (escape_help, escape_label_value, log_snapshot_task,
+                     render_prometheus, snapshot)
+from .flightrec import FLIGHT_RECORDER, FlightRecorder
+from .health import HealthMonitor, LoopLagProbe
+from .lifecycle import LIFECYCLE, LifecycleTracer
+from .metrics import (DEFAULT_LATENCY_BUCKETS, DEFAULT_SIZE_BUCKETS,
+                      REGISTRY, Counter, Gauge, Histogram, Registry,
+                      peer_bucket, peer_bucket_label, set_peer_buckets)
+from .tracing import (TRACER, Span, Tracer, current_span,
+                      enable_profiler_annotations, new_span_id,
+                      new_trace_id, profiler_annotations_enabled, trace)
+
+__all__ = [
+    "Counter", "Gauge", "Histogram", "Registry", "REGISTRY",
+    "DEFAULT_LATENCY_BUCKETS", "DEFAULT_SIZE_BUCKETS",
+    "peer_bucket", "peer_bucket_label", "set_peer_buckets",
+    "Span", "Tracer", "TRACER", "trace", "current_span",
+    "enable_profiler_annotations", "profiler_annotations_enabled",
+    "new_trace_id", "new_span_id",
+    "render_prometheus", "snapshot", "log_snapshot_task",
+    "escape_help", "escape_label_value",
+    "LifecycleTracer", "LIFECYCLE",
+    "FlightRecorder", "FLIGHT_RECORDER",
+    "HealthMonitor", "LoopLagProbe",
+    "DeviceTelemetry", "DEVICE_TELEMETRY", "DeviceTrace",
+    "register_program", "record_launch", "device_status",
+    "capture_device_trace", "env_fingerprint",
+]

@@ -5,17 +5,23 @@
 ``pow_search_jit``: it scans up to ``max_chunks`` chunks of ``lanes``
 consecutive nonces and stops at the first chunk holding a hit.
 :func:`solve` drives it in slabs so a shutdown callback can interrupt
-any search; the dispatcher runs it when asked for the CPU.
+any search.  :func:`verify`, the batched PoW check of received objects,
+runs as plain torch ops on the device it is given and is attributed to
+the device-telemetry program ``pow_verify``, as the reference's
+``verify`` is.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Sequence
 
 import torch
 
 from .. import resolve_device
+from ..observability.devicetelemetry import record_launch, register_program
 from ..utils.hashes import double_sha512
+from .bounds import POW_TRIAL
 from .sha512 import double_sha512_trial, initial_hash_words, trial_values
 from .u64 import MASK64, from_i64, le_u, to_i64, words_from_bytes
 
@@ -129,8 +135,18 @@ def verify(items: Sequence[tuple[int, bytes, int]], device=None) -> list[bool]:
     targets = [to_i64(target) for _, _, target in items] + [0] * pad
     words = ([words_from_bytes(ih) for _, ih, _ in items]
              + [[0] * 8] * pad)
+    t0 = time.monotonic()
     ok = pow_verify_batch(
         torch.tensor(nonces, dtype=torch.int64, device=dev),
         torch.tensor(words, dtype=torch.int64, device=dev).T,
         torch.tensor(targets, dtype=torch.int64, device=dev))
-    return [bool(b) for b in ok[:n].tolist()]
+    t1 = time.monotonic()
+    ok = ok[:n].tolist()            # the wait for the device's results
+    t2 = time.monotonic()
+    record_launch("pow_verify", key=dev.type, dispatch_seconds=t1 - t0,
+                  wait_seconds=t2 - t1, span=(t0, t2), items=size,
+                  bytes_in=80 * size, bytes_out=n)
+    return [bool(b) for b in ok]
+
+
+register_program("pow_verify", cost=POW_TRIAL, module="ops/pow_search.py")

@@ -44,7 +44,9 @@ import numpy as np
 import torch
 
 from ..crypto import fallback
+from ..observability.devicetelemetry import register_program
 from . import _build
+from .bounds import SECP_ECDH_LANE, SECP_VERIFY_LANE
 from .secp256k1 import ecdh_ref, verify_ref
 
 #: kernel launches per wrapper, counted where the kernel is launched
@@ -149,3 +151,10 @@ def secp_ecdh(k: torch.Tensor, px: torch.Tensor, py: torch.Tensor):
     _build.check(lib, err, "bm_secp_ecdh")
     LAUNCHES["secp_ecdh"] += 1
     return x, y, ok
+
+
+# the host driver that attributes their launches is crypto/gpu.py
+register_program("secp_verify", cost=SECP_VERIFY_LANE,
+                 module="ops/secp256k1_cuda.py")
+register_program("secp_ecdh", cost=SECP_ECDH_LANE,
+                 module="ops/secp256k1_cuda.py")

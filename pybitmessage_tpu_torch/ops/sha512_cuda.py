@@ -21,8 +21,10 @@ the pipeline account trials exactly as the reference does.  How a kernel
 spreads its threads over a launch's range is its own business.
 
 :func:`solve` is the single-object host loop; it keeps one launch in
-flight ahead of the one being harvested.  Batches go through
-``pow/pipeline.py``.
+flight ahead of the one being harvested, attributes each launch to the
+device-telemetry program ``pallas_slab`` and leaves a ``slab_harvest``
+event in the flight recorder.  Batches go through
+``pow/pipeline.py`` (``batch_search``, ``packed_search``).
 """
 
 from __future__ import annotations
@@ -34,8 +36,11 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..observability.devicetelemetry import record_launch, register_program
+from ..observability.flightrec import record as _flight
 from ..utils.hashes import double_sha512
 from . import _build
+from .bounds import POW_TRIAL
 from .pow_search import PowInterrupted
 from .sha512 import double_sha512_trial, initial_hash_words
 from .u64 import MASK64, le_u, shr, to_i64
@@ -366,46 +371,75 @@ def solve(initial_hash: bytes, target: int, *, start_nonce: int = 0,
         chunks = tuner.suggest("cuda_single", chunks_per_call,
                                lo=chunks_per_call // 2,
                                hi=chunks_per_call * 2)
-    trials_per_slab = rows * LANE_COLS * chunks * unroll
+    step_trials = rows * LANE_COLS * unroll
+    trials_per_slab = step_trials * chunks
 
-    def launch(base: int) -> HostCopy:
-        return HostCopy(*cuda_search(ih_words, base, target, rows=rows,
+    def launch(base: int):
+        """(HostCopy, dispatch start, dispatch end) of one slab."""
+        t0 = time.monotonic()
+        copy = HostCopy(*cuda_search(ih_words, base, target, rows=rows,
                                      chunks=chunks, unroll=unroll))
+        return copy, t0, time.monotonic()
 
-    def harvest(copy: HostCopy):
+    def harvest(copy: HostCopy, t0: float, t1: float):
+        t_f = time.monotonic()
         found, nonce = copy.result()
+        t_done = time.monotonic()
         idx = int(found.argmax())
-        if not found[idx]:
+        hit = bool(found[idx])
+        # the trials this slab's data needed: up to the hit step
+        record_launch("pallas_slab", key=dev.type, dispatch_seconds=t1 - t0,
+                      wait_seconds=t_done - t_f, span=(t0, t_done),
+                      items=(idx + 1) * step_trials if hit
+                      else trials_per_slab, bytes_in=8,
+                      bytes_out=int(found.nbytes + nonce.nbytes))
+        _flight("slab_harvest", program="pallas_slab", hit=hit,
+                wait_ms=round((t_done - t_f) * 1e3, 2))
+        if not hit:
             return None
         value = (int(nonce[idx, 0]) << 32) | int(nonce[idx, 1])
         check_nonce(value, initial_hash, target)
         return value
 
+    def abandon(slab) -> None:
+        """A slab in flight when the answer came: a launch the host never
+        reads (no wait, no work items)."""
+        _, t0, t1 = slab
+        record_launch("pallas_slab", key=dev.type, dispatch_seconds=t1 - t0,
+                      bytes_in=8)
+
     base = start_nonce & MASK64
     trials = 0
-    pending = None      # (HostCopy, dispatch time, end base)
+    pending = None      # ((HostCopy, dispatch start, end), end base)
     while True:
         if should_stop is not None and should_stop():
             # the in-flight slab may already hold the answer
             if pending is not None:
                 trials += trials_per_slab
-                nonce = harvest(pending[0])
+                nonce = harvest(*pending[0])
                 if nonce is not None:
                     return nonce, trials
                 if progress is not None:
-                    progress(pending[2])
+                    progress(pending[1])
             raise PowInterrupted("CUDA PoW interrupted by shutdown")
         end_base = (base + trials_per_slab) & MASK64
-        current = (launch(base), time.monotonic(), end_base)
+        current = (launch(base), end_base)
         base = end_base
         if pending is not None:
             trials += trials_per_slab
-            nonce = harvest(pending[0])
+            nonce = harvest(*pending[0])
             if tuner is not None:
                 tuner.record("cuda_single", chunks,
-                             time.monotonic() - pending[1])
+                             time.monotonic() - pending[0][2])
             if nonce is not None:
+                abandon(current[0])
                 return nonce, trials
             if progress is not None:
-                progress(pending[2])
+                progress(pending[1])
         pending = current
+
+
+register_program("pallas_slab", cost=POW_TRIAL, module="ops/sha512_cuda.py")
+register_program("batch_search", cost=POW_TRIAL, module="ops/sha512_cuda.py")
+register_program("packed_search", cost=POW_TRIAL,
+                 module="ops/sha512_cuda.py")

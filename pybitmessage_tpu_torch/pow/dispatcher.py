@@ -19,6 +19,10 @@ Timing attributes:
     solve-only time and trials/s.
 ``last_verify_seconds``
     host double-SHA512 re-check of the last single solve's nonce.
+
+Each call runs in a ``pow.solve`` / ``pow.solve_batch`` span and feeds
+the JAX dispatcher's attempt, latency, host-verify and trial families;
+the ladder's fallback and mesh families have nothing to count here.
 """
 
 from __future__ import annotations
@@ -28,12 +32,28 @@ import time
 from typing import Callable
 
 from .. import resolve_device
+from ..observability import REGISTRY, trace
 from ..ops import sha512_cuda
 from ..ops.pow_search import PowInterrupted
 from .pipeline import AUTOTUNER, plan_batch, solve_batch_pipelined
 
 #: slab-stall deadline handed to the pipeline, seconds per harvest
 STALL_TIMEOUT = 120.0
+
+SOLVE_SECONDS = REGISTRY.histogram(
+    "pow_solve_seconds",
+    "Solve-only latency of one PoW launch (single object or fused "
+    "batch), excluding the dispatcher's host verification",
+    ("backend",))
+HOST_VERIFY_SECONDS = REGISTRY.histogram(
+    "pow_host_verify_seconds",
+    "Host-side double-SHA512 re-check of a winning nonce")
+ATTEMPTS = REGISTRY.counter(
+    "pow_attempts_total", "Solve attempts entering each ladder tier",
+    ("backend",))
+TRIALS = REGISTRY.counter(
+    "pow_trials_total", "Double-SHA512 trial hashes executed",
+    ("backend",))
 
 
 def host_trial(nonce: int, initial_hash: bytes) -> int:
@@ -90,19 +110,27 @@ class PowDispatcher:
     def __call__(self, initial_hash: bytes, target: int, *,
                  start_nonce: int = 0,
                  should_stop: Callable[[], bool] | None = None):
-        t0 = time.monotonic()
-        nonce, trials = self._solve(initial_hash, target, start_nonce,
-                                    should_stop)
-        solve_dt = max(time.monotonic() - t0, 1e-9)
-        v0 = time.monotonic()
-        if host_trial(nonce, initial_hash) > target:
-            raise ArithmeticError("backend %s returned a nonce failing "
-                                  "host verification" % self.last_backend)
-        verify_dt = time.monotonic() - v0
+        with trace("pow.solve") as span:
+            t0 = time.monotonic()
+            nonce, trials = self._solve(initial_hash, target, start_nonce,
+                                        should_stop)
+            solve_dt = max(time.monotonic() - t0, 1e-9)
+            v0 = time.monotonic()
+            value = host_trial(nonce, initial_hash)
+            verify_dt = time.monotonic() - v0
+            if value > target:
+                raise ArithmeticError(
+                    "backend %s returned a nonce failing host "
+                    "verification" % self.last_backend)
+            span.attrs["backend"] = self.last_backend
+            span.attrs["trials"] = trials
         self.last_solve_seconds = solve_dt
         self.last_solve_rate = trials / solve_dt
         self.last_verify_seconds = verify_dt
         self.last_rate = trials / (solve_dt + verify_dt)
+        SOLVE_SECONDS.labels(backend=self.last_backend).observe(solve_dt)
+        HOST_VERIFY_SECONDS.observe(verify_dt)
+        TRIALS.labels(backend=self.last_backend).inc(trials)
         return nonce, trials
 
     # keep the explicit name too
@@ -123,29 +151,35 @@ class PowDispatcher:
             return []
         starts = list(start_nonces) if start_nonces else [0] * len(items)
         t0 = time.monotonic()
-        if len(items) > 1 or plan_batch(items).mode == "single-sync":
-            self.last_backend = self._backend + "-batch"
-            results = solve_batch_pipelined(
-                items, device=self.device, should_stop=should_stop,
-                start_nonces=starts, progress=progress,
-                stall_timeout=STALL_TIMEOUT)
-        else:
-            prog = None
-            if progress is not None:
-                prog = lambda n: progress(0, n)  # noqa: E731
-            (ih, t), = items
-            results = [self._solve(ih, t, starts[0], should_stop,
-                                   progress=prog)]
+        with trace("pow.solve_batch", objects=len(items)) as span:
+            if len(items) > 1 or plan_batch(items).mode == "single-sync":
+                self.last_backend = self._backend + "-batch"
+                ATTEMPTS.labels(backend=self.last_backend).inc()
+                results = solve_batch_pipelined(
+                    items, device=self.device, should_stop=should_stop,
+                    start_nonces=starts, progress=progress,
+                    stall_timeout=STALL_TIMEOUT)
+            else:
+                prog = None
+                if progress is not None:
+                    prog = lambda n: progress(0, n)  # noqa: E731
+                (ih, t), = items
+                results = [self._solve(ih, t, starts[0], should_stop,
+                                       progress=prog)]
+            span.attrs["backend"] = self.last_backend
         dt = max(time.monotonic() - t0, 1e-9)
         trials = sum(r[1] for r in results)
         self.last_solve_seconds = dt
         self.last_solve_rate = trials / dt
         self.last_rate = trials / dt
+        SOLVE_SECONDS.labels(backend=self.last_backend).observe(dt)
+        TRIALS.labels(backend=self.last_backend).inc(trials)
         return results
 
     def _solve(self, initial_hash, target, start_nonce, should_stop,
                progress=None):
         self.last_backend = self._backend
+        ATTEMPTS.labels(backend=self.last_backend).inc()
         return sha512_cuda.solve(
             initial_hash, target, start_nonce=start_nonce,
             should_stop=should_stop, tuner=AUTOTUNER, progress=progress,

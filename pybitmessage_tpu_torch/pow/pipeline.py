@@ -19,6 +19,13 @@ Whether a kernel or its plain version runs follows the device of the
 call: on CUDA the kernels of ``ops.sha512_cuda``; on the CPU
 :func:`_packed_search_ref`, with the same (B, 3)-row output contract, so
 the planning and pipelining logic runs unchanged without a card.
+
+Every stage reports through ``observability.REGISTRY`` (the JAX
+pipeline's families: device-busy ratio, depth, dispatch-ahead, device
+wait, pack size and occupancy, mode, slab seconds, autotuned chunks),
+and every launch is attributed to its device-telemetry program
+(``batch_search`` or ``packed_search``) at its harvest, or as abandoned
+when the batch finished without reading it.
 """
 
 from __future__ import annotations
@@ -34,6 +41,10 @@ from typing import Callable
 import torch
 
 from .. import resolve_device
+from ..observability import DEFAULT_SIZE_BUCKETS, REGISTRY
+from ..observability.devicetelemetry import record_launch
+from ..observability.flightrec import FLIGHT_RECORDER
+from ..observability.flightrec import record as _flight
 from ..ops.pow_search import PowInterrupted
 from ..ops.sha512 import trial_values
 from ..ops.sha512_cuda import (BATCH_OBJS, BATCH_UNROLL, DEFAULT_ROWS,
@@ -43,6 +54,38 @@ from ..ops.sha512_cuda import (BATCH_OBJS, BATCH_UNROLL, DEFAULT_ROWS,
 from ..ops.u64 import ALWAYS_HIT, MASK64, le_u, to_i64, words_from_bytes
 
 logger = logging.getLogger("pybitmessage_tpu_torch.pow")
+
+DEVICE_BUSY = REGISTRY.gauge(
+    "pow_pipeline_device_busy_ratio",
+    "Fraction of the last pipelined solve's wall time the host spent "
+    "blocked on device results — a lower bound on true device "
+    "occupancy; the sync-path penalty shows up as this dropping")
+PIPELINE_DEPTH = REGISTRY.gauge(
+    "pow_pipeline_depth", "Slabs currently in flight (dispatch-ahead)")
+DISPATCH_AHEAD = REGISTRY.histogram(
+    "pow_pipeline_dispatch_ahead_size",
+    "In-flight slab count sampled at each harvest",
+    buckets=DEFAULT_SIZE_BUCKETS)
+DEVICE_WAIT = REGISTRY.histogram(
+    "pow_pipeline_device_wait_seconds",
+    "Blocking wait for one slab's results at harvest time")
+PACK_SIZE = REGISTRY.histogram(
+    "pow_pack_size",
+    "Live (non-pad, unsolved) objects sharing one packed slab launch",
+    buckets=DEFAULT_SIZE_BUCKETS)
+PACK_OCCUPANCY = REGISTRY.gauge(
+    "pow_pack_occupancy_ratio",
+    "Fraction of the last packed slab's lanes owned by live objects")
+PIPELINE_MODE = REGISTRY.counter(
+    "pow_pipeline_mode_total",
+    "Pipelined solve launches by execution mode", ("mode",))
+SLAB_SECONDS = REGISTRY.histogram(
+    "pow_slab_seconds",
+    "Wall latency of one device slab launch as seen by the pipeline "
+    "(dispatch to harvested) — the autotuner's input", ("kind",))
+AUTOTUNE_CHUNKS = REGISTRY.gauge(
+    "pow_slab_autotune_chunks",
+    "Chunks-per-launch the autotuner currently suggests", ("kind",))
 
 
 class SlabStallError(RuntimeError):
@@ -81,6 +124,7 @@ class SlabAutotuner:
                 per = 10 * prev
             self._per_chunk[kind] = per if prev is None else (
                 self.ALPHA * per + (1 - self.ALPHA) * prev)
+        SLAB_SECONDS.labels(kind=kind).observe(seconds)
 
     def suggest(self, kind: str, default: int,
                 lo: int | None = None, hi: int | None = None,
@@ -93,7 +137,9 @@ class SlabAutotuner:
             return default
         raw = self.target_seconds / (per * max(groups, 1))
         chunks = 1 << max(0, round(math.log2(max(raw, 1.0))))
-        return max(lo or self.MIN_CHUNKS, min(hi or self.MAX_CHUNKS, chunks))
+        chunks = max(lo or self.MIN_CHUNKS, min(hi or self.MAX_CHUNKS, chunks))
+        AUTOTUNE_CHUNKS.labels(kind=kind).set(chunks)
+        return chunks
 
     def seconds_per_chunk(self, kind: str) -> float | None:
         """EWMA seconds per grid step (None until first record)."""
@@ -226,8 +272,10 @@ class _PipelineDriver:
 
     ``next_launch()`` returns a (tag, in-flight result) pair or None when
     no work remains; ``harvest(tag, host_result)`` consumes one finished
-    slab; ``fetch`` turns an in-flight result into host arrays (by
+    slab; ``abandon(tag)`` is told of each slab left unread once
+    ``done()``; ``fetch`` turns an in-flight result into host arrays (by
     default ``HostCopy.result``: an event wait, never a stream sync).
+    ``last_wait`` is the wait of the slab being harvested.
     """
 
     #: slabs in flight: one harvested while the next runs
@@ -242,6 +290,7 @@ class _PipelineDriver:
         self.stall_timeout = stall_timeout
         self._guard_pool = None
         self.wait_seconds = 0.0
+        self.last_wait = 0.0
         self.wall_seconds = 0.0
         self.slabs = 0
 
@@ -255,6 +304,11 @@ class _PipelineDriver:
         try:
             return fut.result(self.stall_timeout)
         except cf.TimeoutError:
+            # black box: dump the ring while the pre-stall context
+            # (launches, breaker flips) is still in it
+            FLIGHT_RECORDER.record("stall", site="pow.slab",
+                                   timeout=self.stall_timeout)
+            FLIGHT_RECORDER.dump("stall")
             logger.error("pow.slab stalled: harvest exceeded %.1fs; "
                          "abandoning the launch", self.stall_timeout)
             # consume whatever the wedged worker eventually produces so
@@ -265,7 +319,7 @@ class _PipelineDriver:
             raise SlabStallError("pow.slab exceeded %.1fs stall deadline"
                                  % self.stall_timeout) from None
 
-    def run(self, next_launch, harvest, done=None) -> None:
+    def run(self, next_launch, harvest, done=None, abandon=None) -> None:
         inflight: deque = deque()
         t_start = time.monotonic()
         try:
@@ -273,6 +327,9 @@ class _PipelineDriver:
                 if done is not None and done():
                     # every result is in: what is still in flight is
                     # speculation - abandon it unread
+                    if abandon is not None:
+                        for tag, _ in inflight:
+                            abandon(tag)
                     inflight.clear()
                     break
                 if self.should_stop is not None and self.should_stop():
@@ -288,18 +345,29 @@ class _PipelineDriver:
                         break
                     inflight.append(nxt)
                     self.slabs += 1
+                    PIPELINE_DEPTH.set(len(inflight))
+                    _flight("slab_launch", n=self.slabs,
+                            inflight=len(inflight))
                 if not inflight:
                     break
+                DISPATCH_AHEAD.observe(len(inflight))
                 tag, pending = inflight.popleft()
                 t0 = time.monotonic()
                 host = self._fetch(pending)
-                self.wait_seconds += time.monotonic() - t0
+                self.last_wait = time.monotonic() - t0
+                self.wait_seconds += self.last_wait
+                DEVICE_WAIT.observe(self.last_wait)
+                PIPELINE_DEPTH.set(len(inflight))
+                _flight("slab_harvest", wait_ms=round(self.last_wait * 1e3, 2),
+                        inflight=len(inflight))
                 harvest(tag, host)
         finally:
+            PIPELINE_DEPTH.set(0)
             if self._guard_pool is not None:
                 self._guard_pool.shutdown(wait=False)
                 self._guard_pool = None
             self.wall_seconds = max(time.monotonic() - t_start, 1e-9)
+            DEVICE_BUSY.set(self.busy_ratio)
 
     @property
     def busy_ratio(self) -> float:
@@ -377,6 +445,7 @@ def solve_batch_pipelined(items, *, rows: int = DEFAULT_ROWS, device=None,
     on_cuda = dev.type == "cuda"
     if plan is None:
         plan = plan_batch(items, rows=rows)
+    PIPELINE_MODE.labels(mode=plan.mode).inc()
 
     if plan.mode == "single-sync":
         return [_solve_single_sync(
@@ -400,6 +469,8 @@ def solve_batch_pipelined(items, *, rows: int = DEFAULT_ROWS, device=None,
         step_trials = rows * LANE_COLS * unroll
         kind = "batch"
     slab_trials = step_trials * plan.chunks     # per object per launch
+    # device-telemetry attribution: the program this plan launches
+    tele_prog = "packed_search" if plan.mode == "packed" else "batch_search"
 
     groups = [_LaunchGroup(items, plan.order[s:s + width], width, dev,
                            starts=start_nonces)
@@ -443,8 +514,15 @@ def solve_batch_pipelined(items, *, rows: int = DEFAULT_ROWS, device=None,
                     break
         if cand is None:
             return None
+        if plan.mode == "packed":
+            # pack statistics describe lane sharing, which only the
+            # packed kernel does
+            live = cand.live()
+            PACK_SIZE.observe(live)
+            PACK_OCCUPANCY.set(live / cand.width)
         t0 = time.monotonic()
         pending = search(cand)
+        t1 = time.monotonic()
         inflight_groups.add(id(cand))
         cand.launches += 1
         executed["launches"] += 1
@@ -455,14 +533,15 @@ def solve_batch_pipelined(items, *, rows: int = DEFAULT_ROWS, device=None,
         # THIS slab harvests miss-free (the live bases may already
         # include speculative launches)
         end_bases = list(cand.bases)
-        return ((cand, t0, end_bases), pending)
+        return ((cand, t0, t1, end_bases), pending)
 
     def harvest(tag, host):
-        g, t0, end_bases = tag
+        g, t0, t1, end_bases = tag
         (out,) = host
         inflight_groups.discard(id(g))
-        AUTOTUNER.record(kind, plan.chunks * (g.width // pack),
-                         time.monotonic() - t0)
+        t_h = time.monotonic()
+        AUTOTUNER.record(kind, plan.chunks * (g.width // pack), t_h - t0)
+        before = executed["trials"]
         for k in range(g.width):
             if g.done[k]:
                 # solved/pad slots still ran one always-hit step
@@ -483,12 +562,23 @@ def solve_batch_pipelined(items, *, rows: int = DEFAULT_ROWS, device=None,
                 executed["trials"] += slab_trials
                 if progress is not None:
                     progress(g.idx[k], end_bases[k])
+        record_launch(tele_prog, key=dev.type, dispatch_seconds=t1 - t0,
+                      wait_seconds=driver.last_wait, span=(t0, t_h),
+                      items=executed["trials"] - before,
+                      bytes_in=16 * g.width, bytes_out=int(out.nbytes))
+
+    def abandon(tag):
+        g, t0, t1, _ = tag
+        inflight_groups.discard(id(g))
+        record_launch(tele_prog, key=dev.type, dispatch_seconds=t1 - t0,
+                      bytes_in=16 * g.width)
 
     driver = _PipelineDriver(should_stop=should_stop,
                              stall_timeout=stall_timeout)
     try:
         driver.run(next_launch, harvest,
-                   done=lambda: all(r is not None for r in results))
+                   done=lambda: all(r is not None for r in results),
+                   abandon=abandon)
     except PowInterrupted:
         if any(r is None for r in results):
             raise
@@ -530,9 +620,18 @@ def _solve_single_sync(item, *, rows: int, chunks: int,
         else:
             out = _packed_search_ref(ih_dev, b_dev, t_dev,
                                      lanes=step_trials, chunks=chunks)
-        (out,) = HostCopy(out).result()
-        AUTOTUNER.record("packed", chunks, time.monotonic() - t0)
+        copy = HostCopy(out)
+        t1 = time.monotonic()
+        (out,) = copy.result()
+        t2 = time.monotonic()
+        AUTOTUNER.record("packed", chunks, t2 - t0)
         step1 = int(out[0, 0])
+        record_launch("packed_search",
+                      key=device.type,
+                      dispatch_seconds=t1 - t0, wait_seconds=t2 - t1,
+                      span=(t0, t2),
+                      items=step1 * step_trials if step1 else slab_trials,
+                      bytes_in=16, bytes_out=int(out.nbytes))
         if step1:
             trials += step1 * step_trials
             nonce = (int(out[0, 1]) << 32) | int(out[0, 2])

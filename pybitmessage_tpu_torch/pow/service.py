@@ -8,8 +8,10 @@ failure requeues the batch with exponential backoff instead of dropping
 it; only ``MAX_ATTEMPTS`` consecutive failures surface the error to the
 callers.  A shutdown-driven interrupt cancels the batch's futures.
 
-The reference's PoW journal and lifecycle hooks are not part of this
-port yet.
+Queue depth, waits, batch sizes, completions and requeues go to the
+JAX service's metric families; each request's pre-nonce initial hash
+enters the lifecycle timeline (``pow_queued`` -> ``pow_solved``).  The
+reference's PoW journal is not part of this port yet.
 """
 
 from __future__ import annotations
@@ -20,9 +22,31 @@ import random
 import time
 from dataclasses import dataclass
 
+from ..observability import DEFAULT_SIZE_BUCKETS, REGISTRY
+from ..observability.flightrec import record as _flight
+from ..observability.lifecycle import LIFECYCLE
 from ..ops.pow_search import PowInterrupted
 
 logger = logging.getLogger("pybitmessage_tpu_torch.pow")
+
+BATCH_SIZE = REGISTRY.histogram(
+    "pow_batch_size",
+    "Objects coalesced into one solve_batch launch (window occupancy)",
+    buckets=DEFAULT_SIZE_BUCKETS)
+QUEUE_WAIT = REGISTRY.histogram(
+    "pow_queue_wait_seconds",
+    "Time a solve request waited in the coalescing queue before its "
+    "batch launched")
+QUEUE_DEPTH = REGISTRY.gauge(
+    "pow_queue_depth", "Solve requests currently queued or coalescing")
+BATCHES = REGISTRY.counter(
+    "pow_batches_total", "Coalesced solve_batch launches")
+SOLVED = REGISTRY.counter(
+    "pow_solved_total", "Solve requests completed through the service")
+REQUEUED = REGISTRY.counter(
+    "pow_requeue_total",
+    "Solve requests put back on the queue after a dispatcher failure "
+    "or interrupt — the no-object-loss path", ("reason",))
 
 #: default coalescing window in seconds
 DEFAULT_WINDOW = 0.05
@@ -92,8 +116,12 @@ class PowService:
     async def solve(self, initial_hash: bytes, target: int):
         """Queue one solve; returns (nonce, trials) when its batch lands."""
         fut = asyncio.get_running_loop().create_future()
+        # lifecycle: a locally-generated object enters the timeline by
+        # its pre-nonce initial hash
+        LIFECYCLE.record(initial_hash, "pow_queued")
         await self.queue.put(_Request(initial_hash, target, fut,
                                       time.monotonic()))
+        QUEUE_DEPTH.set(self.queue.qsize())
         return await fut
 
     async def _run(self) -> None:
@@ -104,6 +132,11 @@ class PowService:
             batch = [first]
             while not self.queue.empty():
                 batch.append(self.queue.get_nowait())
+            now = time.monotonic()
+            for req in batch:
+                QUEUE_WAIT.observe(now - req.enqueued)
+            BATCH_SIZE.observe(len(batch))
+            QUEUE_DEPTH.set(self.queue.qsize())
             items = [(r.initial_hash, r.target) for r in batch]
             starts = [r.start_nonce for r in batch]
 
@@ -129,15 +162,20 @@ class PowService:
                 continue
             self.batches += 1
             self.solved += len(batch)
+            BATCHES.inc()
+            SOLVED.inc(len(batch))
             if len(batch) > 1:
                 logger.info("batched PoW: %d objects in one call (%s)",
                             len(batch), self.dispatcher.last_backend)
             for req, res in zip(batch, results):
+                LIFECYCLE.record(req.initial_hash, "pow_solved")
                 if not req.future.done():
                     req.future.set_result(res)
 
     @staticmethod
     def _settle_interrupted(batch: list[_Request]) -> None:
+        REQUEUED.labels(reason="interrupt").inc(len(batch))
+        _flight("pow_requeue", reason="interrupt", n=len(batch))
         for req in batch:
             if not req.future.done():
                 req.future.cancel()
@@ -151,6 +189,7 @@ class PowService:
         for req in batch:
             req.attempts += 1
             if req.attempts >= self.MAX_ATTEMPTS:
+                REQUEUED.labels(reason="exhausted").inc()
                 logger.error("PoW solve failed after %d attempts; "
                              "surfacing the error to the caller",
                              req.attempts)
@@ -160,6 +199,9 @@ class PowService:
                 survivors.append(req)
         if not survivors:
             return
+        REQUEUED.labels(reason="failure").inc(len(survivors))
+        _flight("pow_requeue", reason="failure", n=len(survivors),
+                error=repr(exc)[:120])
         attempt = min(r.attempts for r in survivors) - 1
         pause = self.retry.delay(attempt)
         logger.warning("dispatcher failed (%r); requeueing %d solve(s), "
@@ -172,3 +214,4 @@ class PowService:
             raise
         for req in survivors:
             self.queue.put_nowait(req)
+        QUEUE_DEPTH.set(self.queue.qsize())

@@ -12,7 +12,8 @@ to XLA); smaller drains take two host SHA-512s per object, which beat a
 device round trip.
 
 A device failure is not re-run on the host: it reaches the callers of
-that batch as their exception.
+that batch as their exception.  Paths, drains, batch sizes and
+rejections go to the JAX verifier's metric families.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 from .. import resolve_device
+from ..observability import DEFAULT_SIZE_BUCKETS, REGISTRY
 from ..models.constants import (DEFAULT_EXTRA_BYTES,
                                 DEFAULT_NONCE_TRIALS_PER_BYTE)
 from ..models.pow_math import check_pow, pow_target
@@ -30,6 +32,24 @@ from ..utils.hashes import sha512
 
 #: the smallest drain worth a device round trip
 MIN_DEVICE_BATCH = 4
+
+VERIFIED = REGISTRY.counter(
+    "pow_verify_total",
+    "Incoming-object PoW checks by execution path", ("path",))
+VERIFY_BATCHES = REGISTRY.counter(
+    "pow_verify_batches_total", "Device verification batches launched")
+VERIFY_BATCH_SIZE = REGISTRY.histogram(
+    "pow_verify_batch_size",
+    "Objects per coalesced verification drain (host or device)",
+    buckets=DEFAULT_SIZE_BUCKETS)
+VERIFY_REJECTED = REGISTRY.counter(
+    "pow_verify_rejected_total",
+    "Incoming objects whose embedded PoW failed the target")
+VERIFY_SHUTDOWN = REGISTRY.counter(
+    "pow_verify_shutdown_unverified_total",
+    "Checks still pending at verifier shutdown, settled as unverified "
+    "(False) instead of leaking CancelledError into per-connection "
+    "verification tasks")
 
 
 class BatchVerifier:
@@ -74,6 +94,7 @@ class BatchVerifier:
         while not self.queue.empty():
             _, fut = self.queue.get_nowait()
             if not fut.done():
+                VERIFY_SHUTDOWN.inc()
                 fut.set_result(False)
 
     async def check(self, object_bytes: bytes) -> bool:
@@ -101,6 +122,7 @@ class BatchVerifier:
                 batch.append(await self.queue.get())
                 while not self.queue.empty():
                     batch.append(self.queue.get_nowait())
+                VERIFY_BATCH_SIZE.observe(len(batch))
                 if len(batch) >= MIN_DEVICE_BATCH:
                     try:
                         results = await self._device_verify(
@@ -114,9 +136,13 @@ class BatchVerifier:
                         continue
                     self.device_checked += len(batch)
                     self.device_batches += 1
+                    VERIFIED.labels(path="device").inc(len(batch))
+                    VERIFY_BATCHES.inc()
                 else:
                     results = [self._host_check(ob) for ob, _ in batch]
                     self.host_checked += len(batch)
+                    VERIFIED.labels(path="host").inc(len(batch))
+                VERIFY_REJECTED.inc(sum(1 for ok in results if not ok))
                 for (_, fut), ok in zip(batch, results):
                     if not fut.done():
                         fut.set_result(bool(ok))
@@ -125,6 +151,7 @@ class BatchVerifier:
                 # would hang its caller forever
                 for _, fut in batch:
                     if not fut.done():
+                        VERIFY_SHUTDOWN.inc()
                         fut.set_result(False)
                 raise
 

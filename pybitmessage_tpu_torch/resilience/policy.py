@@ -1,6 +1,6 @@
 """Resilience primitives (copy of ``pybitmessage_tpu.resilience.policy``:
-``Deadline``, ``RetryPolicy`` and ``CircuitBreaker``, without their
-registry, metrics and flight-recorder trail, and without
+``Deadline``, ``RetryPolicy`` and ``CircuitBreaker`` with their registry
+``BREAKERS``, metrics and flight-recorder trail, without
 ``Deadline.check`` / ``DeadlineExceeded``, which nothing raises).
 
 - :class:`RetryPolicy` — exponential backoff with bounded jitter;
@@ -11,6 +11,9 @@ registry, metrics and flight-recorder trail, and without
 - :class:`CircuitBreaker` — ``threshold`` consecutive failures open
   it, a ``cooldown`` later exactly ONE probe is let through
   (half-open); the probe's outcome closes or re-opens it.  Thread-safe.
+
+``resilience_errors_total{site}`` counts the handled errors the port's
+loops swallow (the JAX package's sites of the ported modules).
 """
 
 from __future__ import annotations
@@ -22,7 +25,39 @@ import threading
 import time
 from typing import Callable
 
+from ..observability import REGISTRY
+from ..observability.flightrec import record as _flight
+
 logger = logging.getLogger("pybitmessage_tpu_torch.resilience")
+
+RETRIES = REGISTRY.counter(
+    "resilience_retry_total",
+    "Retry-policy attempt outcomes by call site",
+    ("site", "outcome"))
+ERRORS = REGISTRY.counter(
+    "resilience_errors_total",
+    "Handled (non-fatal) errors by site — every swallowed exception in "
+    "pow/ and network/ counts here instead of vanishing",
+    ("site",))
+BREAKER_STATE = REGISTRY.gauge(
+    "resilience_breaker_state",
+    "Circuit breaker state: 0 closed, 1 half-open, 2 open",
+    ("breaker",))
+BREAKER_TRANSITIONS = REGISTRY.counter(
+    "resilience_breaker_transitions_total",
+    "Circuit breaker state transitions", ("breaker", "to"))
+BREAKER_SHORT_CIRCUITS = REGISTRY.counter(
+    "resilience_breaker_short_circuit_total",
+    "Calls refused outright because the breaker was open", ("breaker",))
+BREAKER_RECOVERY_SECONDS = REGISTRY.histogram(
+    "resilience_breaker_recovery_seconds",
+    "Time from a breaker opening to the half-open probe closing it "
+    "again — the outage length the ladder actually experienced",
+    ("breaker",))
+
+#: registered breakers by name (the clientStatus snapshot and the
+#: health block's open-breaker list)
+BREAKERS: dict[str, "CircuitBreaker"] = {}
 
 
 _DEADLINE: contextvars.ContextVar["Deadline | None"] = \
@@ -103,10 +138,13 @@ class RetryPolicy:
         """The sleep before the next attempt; raises the original error
         when the policy (or the deadline) is out of budget."""
         if attempt + 1 >= self.attempts:
+            RETRIES.labels(site=site, outcome="gave_up").inc()
             raise exc
         pause = self.delay(attempt)
         if deadline is not None and deadline.remaining() < pause:
+            RETRIES.labels(site=site, outcome="deadline").inc()
             raise exc
+        RETRIES.labels(site=site, outcome="retried").inc()
         logger.debug("%s failed (attempt %d/%d), retrying in %.2fs: %r",
                      site, attempt + 1, self.attempts, pause, exc)
         return pause
@@ -126,6 +164,7 @@ class RetryPolicy:
 
 
 CLOSED, HALF_OPEN, OPEN = "closed", "half-open", "open"
+_STATE_VALUE = {CLOSED: 0, HALF_OPEN: 1, OPEN: 2}
 
 
 class CircuitBreaker:
@@ -134,15 +173,24 @@ class CircuitBreaker:
     - CLOSED: calls flow; ``threshold`` CONSECUTIVE failures open it.
     - OPEN: :meth:`allow` refuses everything until ``cooldown`` elapses.
     - HALF-OPEN: exactly one probe call is admitted; its success closes
-      the breaker, its failure re-opens it for another full cooldown.
+      the breaker (recovery latency is recorded), its failure re-opens
+      it for another full cooldown.
+
+    ``label`` names the metric series; breakers sharing a label (the
+    per-peer dial breakers, by hashed peer bucket) share its transition
+    and short-circuit counters.  Only registered breakers
+    (``register=True``, published in :data:`BREAKERS`) write the state
+    gauge, which they own 1:1.
     """
 
     def __init__(self, name: str, *, threshold: int = 3,
                  cooldown: float = 60.0,
-                 clock: Callable[[], float] = time.monotonic):
+                 clock: Callable[[], float] = time.monotonic,
+                 label: str | None = None, register: bool = True):
         if threshold < 1:
             raise ValueError("threshold must be >= 1")
         self.name = name
+        self.label = label or name
         self.threshold = threshold
         self.cooldown = cooldown
         self.clock = clock
@@ -150,7 +198,25 @@ class CircuitBreaker:
         self._state = CLOSED
         self._failures = 0
         self._opened_at = 0.0
+        self._first_opened_at: float | None = None
         self._probe_in_flight = False
+        self._registered = register
+        if register:
+            BREAKERS[name] = self
+            BREAKER_STATE.labels(breaker=self.label).set(0)
+
+    def _transition(self, to: str) -> None:
+        # caller holds the lock
+        if to == self._state:
+            return
+        frm = self._state
+        self._state = to
+        if self._registered:
+            BREAKER_STATE.labels(breaker=self.label).set(_STATE_VALUE[to])
+        BREAKER_TRANSITIONS.labels(breaker=self.label, to=to).inc()
+        # breaker flips are what a post-mortem wants in the ring
+        _flight("breaker", name=self.name, frm=frm, to=to)
+        logger.info("breaker %s -> %s", self.name, to)
 
     @property
     def state(self) -> str:
@@ -161,7 +227,7 @@ class CircuitBreaker:
     def _maybe_half_open(self) -> None:
         if self._state == OPEN and \
                 self.clock() - self._opened_at >= self.cooldown:
-            self._state = HALF_OPEN
+            self._transition(HALF_OPEN)
             self._probe_in_flight = False
 
     def allow(self) -> bool:
@@ -174,11 +240,25 @@ class CircuitBreaker:
             if self._state == HALF_OPEN and not self._probe_in_flight:
                 self._probe_in_flight = True
                 return True
+            BREAKER_SHORT_CIRCUITS.labels(breaker=self.label).inc()
             return False
+
+    def available(self) -> bool:
+        """Like :meth:`allow` without consuming the half-open probe
+        slot: a read-only health check."""
+        with self._lock:
+            self._maybe_half_open()
+            return self._state != OPEN
 
     def record_success(self) -> None:
         with self._lock:
-            self._state = CLOSED
+            if self._state in (HALF_OPEN, OPEN):
+                if self._first_opened_at is not None:
+                    BREAKER_RECOVERY_SECONDS.labels(
+                        breaker=self.label).observe(
+                        self.clock() - self._first_opened_at)
+                    self._first_opened_at = None
+                self._transition(CLOSED)
             self._failures = 0
             self._probe_in_flight = False
 
@@ -189,9 +269,11 @@ class CircuitBreaker:
                 # failed probe: back to a full cooldown
                 self._opened_at = now
                 self._probe_in_flight = False
-                self._state = OPEN
+                self._transition(OPEN)
                 return
             self._failures += 1
             if self._failures >= self.threshold and self._state == CLOSED:
                 self._opened_at = now
-                self._state = OPEN
+                if self._first_opened_at is None:
+                    self._first_opened_at = now
+                self._transition(OPEN)

@@ -19,7 +19,7 @@ import threading
 import time
 from typing import Any, Iterable, Sequence
 
-from ..resilience.policy import RetryPolicy
+from ..resilience.policy import ERRORS, RetryPolicy
 
 logger = logging.getLogger("pybitmessage_tpu_torch.db")
 
@@ -150,6 +150,7 @@ class Database:
                                base_delay=0.02, max_delay=0.5).call(
                 fn, site="db.write", retry_on=(sqlite3.OperationalError,))
         except sqlite3.OperationalError:
+            ERRORS.labels(site="db.write").inc()
             logger.exception("SQLite write failed after %d attempts",
                              self.WRITE_ATTEMPTS)
             raise

@@ -1,12 +1,12 @@
 """Object inventory: RAM cache of new objects over the SQL table (copy of
-``pybitmessage_tpu.storage.inventory``, without its metrics and the
-sync digest).
+``pybitmessage_tpu.storage.inventory``, without the sync digest).
 
 Same two-tier semantics as the reference (src/storage/sqlite.py:12-124):
 ``_pending`` holds objects received since the last flush; ``_known``
 caches hash->stream existence so inv floods don't hit SQL per lookup.
 ``flush()`` bulk-inserts, ``clean()`` drops objects expired more than
-3 hours ago.
+3 hours ago.  Lookups, held objects and flushes go to the JAX
+inventory's metric families.
 """
 
 from __future__ import annotations
@@ -17,7 +17,20 @@ from dataclasses import dataclass
 from typing import Iterable
 
 from ..models.constants import EXPIRES_GRACE
+from ..observability import REGISTRY
 from .db import Database
+
+LOOKUPS = REGISTRY.counter(
+    "inventory_lookups_total",
+    "Inventory existence checks by outcome (hit = RAM/SQL knows the "
+    "hash)", ("result",))
+# bound once: __contains__ runs per inv-flood entry
+LOOKUP_HIT = LOOKUPS.labels(result="hit")
+LOOKUP_MISS = LOOKUPS.labels(result="miss")
+ITEMS = REGISTRY.gauge(
+    "inventory_items", "Objects held in the inventory (pending + SQL)")
+FLUSHES = REGISTRY.counter(
+    "inventory_flushes_total", "Pending->SQL bulk-insert flushes")
 
 
 @dataclass(frozen=True)
@@ -37,16 +50,22 @@ class Inventory:
         self._lock = threading.RLock()
         self._pending: dict[bytes, InventoryItem] = {}
         self._known: dict[bytes, int] = {}  # hash -> stream existence cache
+        # process-wide gauge: the most recently constructed/cleaned
+        # Inventory owns the reading (one live inventory per daemon)
+        ITEMS.set(len(self))
 
     def __contains__(self, hash_: bytes) -> bool:
         with self._lock:
             if hash_ in self._pending or hash_ in self._known:
+                LOOKUP_HIT.inc()
                 return True
             rows = self._db.query(
                 "SELECT streamnumber FROM inventory WHERE hash=?", (hash_,))
             if not rows:
+                LOOKUP_MISS.inc()
                 return False
             self._known[hash_] = rows[0][0]
+            LOOKUP_HIT.inc()
             return True
 
     def __getitem__(self, hash_: bytes) -> InventoryItem:
@@ -63,6 +82,8 @@ class Inventory:
 
     def __setitem__(self, hash_: bytes, item: InventoryItem) -> None:
         with self._lock:
+            if hash_ not in self._pending and hash_ not in self._known:
+                ITEMS.inc()
             self._pending[hash_] = item
             self._known[hash_] = item.stream
 
@@ -113,12 +134,14 @@ class Inventory:
     def flush(self) -> None:
         with self._lock:
             if not self._pending:
+                FLUSHES.inc()
                 return
             self._db.executemany(
                 "INSERT INTO inventory VALUES (?, ?, ?, ?, ?, ?)",
                 [(h, v.type, v.stream, v.payload, v.expires, v.tag)
                  for h, v in self._pending.items()])
             self._pending.clear()
+            FLUSHES.inc()
 
     def clean(self) -> None:
         """Purge objects >3h expired; rebuild the existence cache."""
@@ -129,6 +152,7 @@ class Inventory:
             self._known.clear()
             for h, v in self._pending.items():
                 self._known[h] = v.stream
+            ITEMS.set(len(self))
 
     def hashes(self) -> Iterable[bytes]:
         with self._lock:

@@ -1,5 +1,5 @@
 """Write-behind buffer over the message store — SQL off the hot loop (copy
-of ``pybitmessage_tpu.storage.writebehind``, without its metrics).
+of ``pybitmessage_tpu.storage.writebehind``).
 
 The ingest fast path's store stage: inbox deliveries, pubkey inserts
 and sent-ack status updates land in an in-memory buffer and are
@@ -22,7 +22,9 @@ Correctness rules:
   :class:`.messages.MessageStore`.
 
 Thread-safe: stage callbacks buffer from the event loop while the
-drain runs in an executor thread.
+drain runs in an executor thread.  Drain sizes, outcomes and the
+buffered rows go to the JAX store's metric families; an inbox insert
+marks the object's lifecycle ``stored``.
 """
 
 from __future__ import annotations
@@ -31,9 +33,22 @@ import logging
 import threading
 import time
 
+from ..observability import DEFAULT_SIZE_BUCKETS, REGISTRY
+from ..observability.lifecycle import LIFECYCLE
 from .messages import MessageStore
 
 logger = logging.getLogger("pybitmessage_tpu_torch.storage")
+
+FLUSH_SIZE = REGISTRY.histogram(
+    "storage_write_behind_flush_size",
+    "Buffered rows drained per write-behind flush (one transaction)",
+    buckets=DEFAULT_SIZE_BUCKETS)
+FLUSHES = REGISTRY.counter(
+    "storage_write_behind_flushes_total",
+    "Write-behind drain attempts by outcome", ("result",))
+PENDING = REGISTRY.gauge(
+    "storage_write_behind_pending",
+    "Rows currently buffered awaiting the next drain")
 
 _INSERT_INBOX = "INSERT INTO inbox VALUES (?,?,?,?,?,?,?,?,?,?)"
 _INSERT_PUBKEY = "INSERT INTO pubkeys VALUES (?,?,?,?,?)"
@@ -82,6 +97,10 @@ class WriteBehindStore:
                 (msgid, toaddress, fromaddress, subject,
                  str(int(time.time())), message, "inbox", encoding,
                  False, sighash))
+            self._update_gauge()
+        # msgid is the inventory hash: "stored" marks acceptance into
+        # the (buffered) store, not the fsync
+        LIFECYCLE.record(msgid, "stored")
         return True
 
     def store_pubkey(self, address: str, version: int, payload: bytes,
@@ -91,12 +110,14 @@ class WriteBehindStore:
             self._pubkeys.append(
                 (address, version, payload, int(time.time()),
                  "yes" if used_personally else "no"))
+            self._update_gauge()
 
     def update_sent_status(self, ackdata: bytes, status: str,
                            sleeptill: int = 0) -> None:
         with self._lock:
             self._sent.append(
                 (status, int(time.time()), sleeptill, ackdata))
+            self._update_gauge()
 
     # -- buffer-aware reads --------------------------------------------------
 
@@ -115,6 +136,11 @@ class WriteBehindStore:
 
     def should_flush(self) -> bool:
         return self.pending_rows() >= self.max_rows
+
+    def _update_gauge(self) -> None:
+        # caller holds the lock
+        PENDING.set(len(self._inbox) + len(self._pubkeys)
+                    + len(self._sent))
 
     def flush(self) -> bool:
         """Drain the buffer in one transaction; False when the write
@@ -138,6 +164,8 @@ class WriteBehindStore:
                 self._inbox = inbox + self._inbox
                 self._pubkeys = pubkeys + self._pubkeys
                 self._sent = sent + self._sent
+                self._update_gauge()
+            FLUSHES.labels(result="failed").inc()
             logger.exception("write-behind drain failed; %d row(s) "
                              "kept buffered for the next drain", n)
             return False
@@ -149,4 +177,7 @@ class WriteBehindStore:
                 # superseded it while the drain ran
                 if self._pending_pubkeys.get(row[0]) is row[2]:
                     del self._pending_pubkeys[row[0]]
+            self._update_gauge()
+        FLUSH_SIZE.observe(n)
+        FLUSHES.labels(result="ok").inc()
         return True

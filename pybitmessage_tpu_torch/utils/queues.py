@@ -1,6 +1,5 @@
 """Byte-size-bounded and watermark-backpressured asyncio queues (copy of
-``pybitmessage_tpu.utils.queues``, without its metrics and
-flight-recorder hooks).
+``pybitmessage_tpu.utils.queues``).
 
 Reference semantics (src/queues.py:14-38): the objectProcessorQueue
 caps *unprocessed payload bytes* at 32 MB and blocks producers — a
@@ -12,14 +11,28 @@ cap; ``get`` frees budget and wakes waiters.
 never fails (a validated object is never dropped), but crossing the
 HIGH watermark clears a resume event that read loops await before their
 next packet, until the drain side works the queue back under the LOW
-watermark.
+watermark.  Its depth and pauses go to ``ingest_queue_depth`` and
+``ingest_pause_total``; each pause and resume is a flight-recorder
+event.
 """
 
 from __future__ import annotations
 
 import asyncio
 
+from ..observability import REGISTRY
+from ..observability.flightrec import record as _flight
+
 DEFAULT_MAX_BYTES = 32 * 1024 * 1024
+
+INGEST_DEPTH = REGISTRY.gauge(
+    "ingest_queue_depth",
+    "Validated objects waiting between the network pool and the "
+    "object processor")
+INGEST_PAUSES = REGISTRY.counter(
+    "ingest_pause_total",
+    "Read-loop pauses: the ingest queue crossed its high watermark "
+    "and connection reads stalled until the low watermark")
 
 #: default high/low watermarks for the network object queue — sized in
 #: objects (the byte cap lives one stage later in ByteBoundedQueue)
@@ -47,15 +60,19 @@ class WatermarkQueue(asyncio.Queue):
         self._resume.set()
 
     def _update(self) -> None:
+        size = self.qsize()
+        INGEST_DEPTH.set(size)
         if not self.high:
             return
-        size = self.qsize()
         if not self.paused and size >= self.high:
             self.paused = True
             self._resume.clear()
+            INGEST_PAUSES.inc()
+            _flight("ingest_pause", depth=size, high=self.high)
         elif self.paused and size <= self.low:
             self.paused = False
             self._resume.set()
+            _flight("ingest_resume", depth=size, low=self.low)
 
     def put_nowait(self, item) -> None:
         super().put_nowait(item)

@@ -1,6 +1,5 @@
 """Signature checks and trial decrypts of the ingest path, off the event
-loop (copy of ``pybitmessage_tpu.workers.cryptopool``, without its
-metrics).
+loop (copy of ``pybitmessage_tpu.workers.cryptopool``).
 
 With a :class:`~..crypto.batch.BatchCryptoEngine` attached
 (``self.batch``, as the node attaches one), :meth:`verify` and
@@ -10,6 +9,8 @@ card.  An attached engine that is not running is an error, never a
 quiet turn to host threads.  Only a pool built without an engine (the
 caller asked for host crypto) runs the pure-Python checks on a bounded
 thread pool, with first-match early-cancel for trial decrypts.
+Operations, fan-outs, outcomes and early cancels go to the JAX pool's
+metric families.
 """
 
 from __future__ import annotations
@@ -22,10 +23,27 @@ from typing import Iterable
 
 from ..crypto.ecies import decrypt
 from ..crypto.signing import verify
+from ..observability import DEFAULT_SIZE_BUCKETS, REGISTRY
 
 #: worker count — crypto is CPU-bound, so more threads than cores only
 #: adds contention
 POOL_SIZE = max(1, min(8, (os.cpu_count() or 2)))
+
+OPS = REGISTRY.counter(
+    "crypto_pool_ops_total",
+    "Crypto operations executed through the worker pool",
+    ("op",))
+DECRYPT_FANOUT = REGISTRY.histogram(
+    "crypto_decrypt_fanout_size",
+    "Candidate keys fanned out per trial-decrypt call",
+    buckets=DEFAULT_SIZE_BUCKETS)
+DECRYPT_RESULTS = REGISTRY.counter(
+    "crypto_decrypt_total",
+    "Trial-decrypt calls by outcome", ("result",))
+EARLY_CANCELS = REGISTRY.counter(
+    "crypto_decrypt_early_cancel_total",
+    "Queued trial-decrypt attempts skipped because another key "
+    "already matched (first-match early-cancel)")
 
 
 class CryptoPool:
@@ -35,6 +53,8 @@ class CryptoPool:
     def __init__(self, *, batch=None):
         self._exec: ThreadPoolExecutor | None = None
         self._lock = threading.Lock()
+        #: worker threads (the health monitor's backlog denominator)
+        self.size = POOL_SIZE
         #: the coalescing batch engine; its drain task is started and
         #: stopped by the owning ObjectProcessor
         self.batch = batch
@@ -58,7 +78,7 @@ class CryptoPool:
         with self._lock:
             if self._exec is None:
                 self._exec = ThreadPoolExecutor(
-                    max_workers=POOL_SIZE,
+                    max_workers=self.size,
                     thread_name_prefix="bmtpu-crypto")
             return self._exec
 
@@ -80,6 +100,7 @@ class CryptoPool:
     async def verify(self, data: bytes, signature: bytes,
                      pubkey: bytes) -> bool:
         """One ECDSA verification (never raises for a bad signature)."""
+        OPS.labels(op="verify").inc()
         engine = self._engine()
         if engine is not None:
             return await engine.verify(data, signature, pubkey)
@@ -112,21 +133,29 @@ class CryptoPool:
             # read voids any no-match proof this sweep could produce
             epoch = screen.epoch
             if screen.check(tag):
+                DECRYPT_RESULTS.labels(result="screened").inc()
                 return []
         else:
             tag = None          # no screen attached: record nothing
         keys = list(keys)
         if not keys:
             return []
+        DECRYPT_FANOUT.observe(len(keys))
+        OPS.labels(op="decrypt").inc(len(keys))
         engine = self._engine()
         if engine is not None:
-            return await engine.try_decrypt(payload, keys, tag=tag,
-                                            epoch=epoch)
+            matches = await engine.try_decrypt(payload, keys, tag=tag,
+                                               epoch=epoch)
+            DECRYPT_RESULTS.labels(
+                result="hit" if matches else "miss").inc()
+            return matches
         self.host_decrypts += 1
         found = threading.Event()
+        skipped = [0]
 
         def attempt(priv: bytes):
             if found.is_set():
+                skipped[0] += 1
                 return None     # another key already matched
             try:
                 out = decrypt(payload, priv)
@@ -141,7 +170,10 @@ class CryptoPool:
                                       for priv, _ in keys])
         matches = [(out, handle) for out, (_, handle) in zip(outs, keys)
                    if out is not None]
+        if skipped[0]:
+            EARLY_CANCELS.inc(skipped[0])
         if tag is not None and not matches:
             # the sweep tried every key: a genuine no-match proof
             screen.insert(tag, epoch)
+        DECRYPT_RESULTS.labels(result="hit" if matches else "miss").inc()
         return matches

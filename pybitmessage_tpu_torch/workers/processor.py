@@ -1,6 +1,6 @@
 """Incoming-object processor: ack matching, pubkey/msg/broadcast pipelines
 (copy of ``pybitmessage_tpu.workers.processor``, without the onion-peer,
-email-gateway and mailing-list branches, metrics and lifecycle records).
+email-gateway and mailing-list branches).
 
 Reference: class_objectProcessor.py — checkackdata (129-154),
 processgetpubkey (176-268), processpubkey (270-433), processmsg
@@ -14,6 +14,10 @@ into drains, one kernel launch each on the card (a pool without an
 engine runs them on host threads); the store stage buffers rows into a
 write-behind drain.  The queue survives stop and start: what is left
 unprocessed, in flight included, is persisted and replayed.
+
+Each object runs in a ``processor.object`` span (``worker_process_seconds``),
+its stages feed ``ingest_stage_seconds`` and its lifecycle timeline
+gains ``parsed``, ``decrypted``, ``verified`` and ``delivered``.
 """
 
 from __future__ import annotations
@@ -36,6 +40,9 @@ from ..models.payloads import (
     parse_pubkey_inner,
 )
 from ..models.pow_math import check_pow, pow_target, pow_value
+from ..observability import REGISTRY, trace
+from ..observability.lifecycle import LIFECYCLE
+from ..resilience.policy import ERRORS
 from ..storage.messages import ACKRECEIVED, MessageStore
 from ..storage.writebehind import WriteBehindStore
 from ..utils.addresses import decode_address, encode_address
@@ -56,6 +63,36 @@ PUBKEY_RESEND_INTERVAL = 28 * 24 * 3600
 DEFAULT_CONCURRENCY = 8
 #: write-behind drain cadence, seconds
 FLUSH_INTERVAL = 0.05
+
+OBJECTS_PROCESSED = REGISTRY.counter(
+    "worker_objects_processed_total",
+    "Objects through the processor pipeline by type", ("type",))
+PROCESS_SECONDS = REGISTRY.histogram(
+    "worker_process_seconds",
+    "Per-object processing latency (decrypt, verify, store)")
+STAGE_SECONDS = REGISTRY.histogram(
+    "ingest_stage_seconds",
+    "Per-stage ingest latency (parse, decrypt, sig_verify, store, "
+    "flush)", ("stage",))
+
+
+class _Stage:
+    """Times one ingest stage into ``ingest_stage_seconds`` (a full
+    tracer span per stage would pay label and ring costs four times an
+    object)."""
+
+    __slots__ = ("_child", "_t0")
+
+    def __init__(self, stage: str):
+        self._child = STAGE_SECONDS.labels(stage=stage)
+
+    def __enter__(self):
+        self._t0 = time.monotonic()
+        return self
+
+    def __exit__(self, *exc):
+        self._child.observe(time.monotonic() - self._t0)
+        return False
 
 
 class ObjectProcessor:
@@ -168,7 +205,8 @@ class ObjectProcessor:
                 await self._flush_store()
 
     async def _flush_store(self) -> None:
-        await self.crypto.run(self._wb.flush)
+        with _Stage("flush"):
+            await self.crypto.run(self._wb.flush)
 
     async def _run(self) -> None:
         while not self.shutdown.is_set():
@@ -180,6 +218,7 @@ class ObjectProcessor:
             except asyncio.CancelledError:
                 raise
             except Exception:
+                ERRORS.labels(site="ingest.process").inc()
                 logger.exception("object processing failed")
             finally:
                 self.active -= 1
@@ -187,20 +226,36 @@ class ObjectProcessor:
 
     async def process(self, payload: bytes) -> None:
         try:
-            header = ObjectHeader.parse(payload)
+            with _Stage("parse"):
+                header = ObjectHeader.parse(payload)
         except ValueError:
+            OBJECTS_PROCESSED.labels(type="unparseable").inc()
             return
+        # one inventory hash per object: it keys the lifecycle timeline
+        # and the delivery paths
         h = inventory_hash(payload)
+        LIFECYCLE.record(h, "parsed")
+        kind = "other"
         try:
-            if header.object_type == OBJECT_GETPUBKEY:
-                await self._process_getpubkey(header, payload)
-            elif header.object_type == OBJECT_PUBKEY:
-                await self._process_pubkey(header, payload)
-            elif header.object_type == OBJECT_MSG:
-                await self._process_msg(header, payload, h)
-            elif header.object_type == OBJECT_BROADCAST:
-                await self._process_broadcast(header, payload, h)
+            with trace("processor.object",
+                       histogram=PROCESS_SECONDS) as span:
+                if header.object_type == OBJECT_GETPUBKEY:
+                    kind = "getpubkey"
+                    await self._process_getpubkey(header, payload)
+                elif header.object_type == OBJECT_PUBKEY:
+                    kind = "pubkey"
+                    await self._process_pubkey(header, payload)
+                elif header.object_type == OBJECT_MSG:
+                    kind = "msg"
+                    await self._process_msg(header, payload, h)
+                elif header.object_type == OBJECT_BROADCAST:
+                    kind = "broadcast"
+                    await self._process_broadcast(header, payload, h)
+                span.attrs["type"] = kind
         finally:
+            # failed objects count too: a raising handler must not
+            # leave worker_process_seconds ahead of the counter
+            OBJECTS_PROCESSED.labels(type=kind).inc()
             if self._wb.should_flush() or not self._running:
                 # a storm must not grow the buffer unbounded between
                 # ticks; direct (un-started) calls stay write-through
@@ -257,9 +312,11 @@ class ObjectProcessor:
                 # sig covers payload[8:] through the difficulty varints
                 # (objectProcessor.py:362-371)
                 end = _difficulty_end(payload, i + 4 + 128)
-                if not await self.crypto.verify(
+                with _Stage("sig_verify"):
+                    ok = await self.crypto.verify(
                         payload[8:end], data.signature,
-                        data.pub_signing_key):
+                        data.pub_signing_key)
+                if not ok:
                     logger.debug("v3 pubkey bad signature")
                     return
             ripe = address_ripe(data.pub_signing_key,
@@ -272,8 +329,9 @@ class ObjectProcessor:
             toaddress = self.sender.needed_pubkeys.get(tag)
             if toaddress is None:
                 return
-            data = await self.sender.decrypt_pubkey_object(
-                payload, decode_address(toaddress))
+            with _Stage("decrypt"):
+                data = await self.sender.decrypt_pubkey_object(
+                    payload, decode_address(toaddress))
             if data is None:
                 logger.debug("v4 pubkey failed decrypt/verify")
                 return
@@ -283,7 +341,9 @@ class ObjectProcessor:
 
     async def _store_pubkey(self, address: str, version: int, inner: bytes,
                             used_personally: bool = False) -> None:
-        self.store.store_pubkey(address, version, inner, used_personally)
+        with _Stage("store"):
+            self.store.store_pubkey(address, version, inner,
+                                    used_personally)
         logger.debug("stored pubkey for %s", address)
         # the send pipeline reads through the UNBUFFERED store: drain
         # now so the key (and the status flips below) are visible
@@ -317,11 +377,13 @@ class ObjectProcessor:
             for ident in idents:
                 yield ident.priv_encryption, ident
 
-        matches = await self.crypto.try_decrypt_many(
-            encrypted, _candidates(), tag=h)
+        with _Stage("decrypt"):
+            matches = await self.crypto.try_decrypt_many(
+                encrypted, _candidates(), tag=h)
         if not matches:
             return
         decrypted, match = matches[0]
+        LIFECYCLE.record(h, "decrypted")
         try:
             plain = MsgPlaintext.decode(decrypted)
         except PayloadError as exc:
@@ -334,10 +396,13 @@ class ObjectProcessor:
             return
         signed = msg_signed_data(payload, header.version, header.stream,
                                  decrypted[:plain.signed_span])
-        if not await self.crypto.verify(signed, plain.signature,
-                                        plain.pub_signing_key):
+        with _Stage("sig_verify"):
+            ok = await self.crypto.verify(signed, plain.signature,
+                                          plain.pub_signing_key)
+        if not ok:
             logger.debug("msg signature invalid")
             return
+        LIFECYCLE.record(h, "verified")
         # demanded-difficulty recheck (objectProcessor.py:615-629)
         if not match.chan:
             req_ntpb = max(match.nonce_trials_per_byte, self.min_ntpb)
@@ -360,14 +425,17 @@ class ObjectProcessor:
                         from_address, self.list_mode)
             return
         body = msgcoding.decode_message(plain.message, plain.encoding)
-        delivered = await self.crypto.run(
-            lambda: self.store.deliver_inbox(
-                msgid=h, toaddress=match.address, fromaddress=from_address,
-                subject=body.subject, message=body.body,
-                encoding=plain.encoding, sighash=sha512(plain.signature)))
+        with _Stage("store"):
+            delivered = await self.crypto.run(
+                lambda: self.store.deliver_inbox(
+                    msgid=h, toaddress=match.address,
+                    fromaddress=from_address, subject=body.subject,
+                    message=body.body, encoding=plain.encoding,
+                    sighash=sha512(plain.signature)))
         if not delivered:
             logger.debug("duplicate message dropped (sighash)")
             return
+        LIFECYCLE.record(h, "delivered")
         logger.debug("message delivered: %s -> %s", from_address,
                      match.address)
         self.ui_signal("displayNewInboxMessage",
@@ -416,8 +484,11 @@ class ObjectProcessor:
                     if s.version <= 3]
         else:
             return
-        matches = await self.crypto.try_decrypt_many(
-            payload[i:], [(s.broadcast_key, s) for s in subs], tag=h)
+        with _Stage("decrypt"):
+            matches = await self.crypto.try_decrypt_many(
+                payload[i:], [(s.broadcast_key, s) for s in subs], tag=h)
+        if matches:
+            LIFECYCLE.record(h, "decrypted")
         for decrypted, sub in matches:
             try:
                 plain = BroadcastPlaintext.decode(decrypted)
@@ -431,17 +502,23 @@ class ObjectProcessor:
                 payload[8:header.header_length
                         + (32 if header.version == 5 else 0)],
                 decrypted[:plain.signed_span])
-            if not await self.crypto.verify(signed, plain.signature,
-                                            plain.pub_signing_key):
+            with _Stage("sig_verify"):
+                ok = await self.crypto.verify(signed, plain.signature,
+                                              plain.pub_signing_key)
+            if not ok:
                 logger.debug("broadcast signature invalid")
                 continue
+            LIFECYCLE.record(h, "verified")
             body = msgcoding.decode_message(plain.message, plain.encoding)
-            await self.crypto.run(
-                lambda: self.store.deliver_inbox(
-                    msgid=h, toaddress="[Broadcast]",
-                    fromaddress=sub.address, subject=body.subject,
-                    message=body.body, encoding=plain.encoding,
-                    sighash=sha512(plain.signature)))
+            with _Stage("store"):
+                delivered = await self.crypto.run(
+                    lambda: self.store.deliver_inbox(
+                        msgid=h, toaddress="[Broadcast]",
+                        fromaddress=sub.address, subject=body.subject,
+                        message=body.body, encoding=plain.encoding,
+                        sighash=sha512(plain.signature)))
+            if delivered:
+                LIFECYCLE.record(h, "delivered")
             logger.debug("broadcast delivered from %s", sub.address)
             self.ui_signal("displayNewInboxMessage",
                            (h, "[Broadcast]", sub.address, body.subject,

@@ -1,6 +1,6 @@
 """Send pipeline: the sent-message state machine + PoW dispatch (copy of
 ``pybitmessage_tpu.workers.sender``, without the onion-peer
-announcement and metrics).
+announcement).
 
 Reference: class_singleWorker.py — sendMsg (717-1373), sendBroadcast
 (532-715), sendOutOrStoreMyV4Pubkey (417-530), requestPubKey
@@ -11,6 +11,9 @@ Every PoW goes through the port's ``PowService`` (the nonce-search
 kernels on the card); signing and encryption run on the host.  A v4
 pubkey found in the inventory is decrypted and its signature checked
 through the node's ``CryptoPool``, i.e. the batch engine on the card.
+Each PoW wait runs in a ``worker.pow`` span feeding
+``worker_pow_wait_seconds``; each published object counts into
+``worker_objects_published_total``.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from ..models.payloads import (
     object_shell, parse_pubkey_inner,
 )
 from ..models.pow_math import pow_target
+from ..observability import REGISTRY, trace
 from ..storage.messages import (
     ACKRECEIVED, AWAITINGPUBKEY, BROADCASTSENT, DOINGMSGPOW,
     DOINGPUBKEYPOW, MSGQUEUED, MSGSENT, MSGSENTNOACKEXPECTED, MessageStore,
@@ -54,6 +58,17 @@ logger = logging.getLogger("pybitmessage_tpu_torch.worker")
 
 #: re-request a pubkey after this long (class_singleWorker.py getpubkey)
 GETPUBKEY_RETRY = 2.5 * 24 * 3600
+
+POW_WAIT_SECONDS = REGISTRY.histogram(
+    "worker_pow_wait_seconds",
+    "End-to-end PoW wait in the send pipeline: coalescing queue + "
+    "solve + host verify")
+OBJECTS_PUBLISHED = REGISTRY.counter(
+    "worker_objects_published_total",
+    "Locally generated objects entered into the inventory",
+    ("type",))
+_TYPE_NAMES = {OBJECT_GETPUBKEY: "getpubkey", OBJECT_MSG: "msg",
+               OBJECT_PUBKEY: "pubkey", OBJECT_BROADCAST: "broadcast"}
 
 
 def _jitter_ttl(ttl: int) -> int:
@@ -170,7 +185,9 @@ class SendWorker:
                             clamp=False)
         initial = sha512(payload_sans_nonce)
         t0 = time.monotonic()
-        nonce, trials = await self.pow_service.solve(initial, target)
+        with trace("worker.pow", bytes=len(payload_sans_nonce) + 8,
+                   histogram=POW_WAIT_SECONDS):
+            nonce, trials = await self.pow_service.solve(initial, target)
         dt = max(time.monotonic() - t0, 1e-9)
         logger.debug("PoW done: %d trials in %.2fs (%.0f H/s)",
                      trials, dt, trials / dt)
@@ -180,6 +197,8 @@ class SendWorker:
                  tag: bytes = b"") -> bytes:
         h = inventory_hash(payload)
         expires = int.from_bytes(payload[8:16], "big")
+        OBJECTS_PUBLISHED.labels(
+            type=_TYPE_NAMES.get(object_type, str(object_type))).inc()
         self.inventory.add(h, object_type, stream, payload, expires, tag)
         if self.pool is not None:
             self.pool.announce_object(h, stream, local=True)

@@ -46,8 +46,7 @@ UNPORTED = (
     "setMailingList",
     "roleStatus", "shardStatus", "shardShed",
     "farmStatus",
-    "metrics", "federatedStatus", "dumpFlightRecorder", "costStatus",
-    "profileDump", "deviceStatus", "profileDevice", "objectTimeline",
+    "federatedStatus", "costStatus", "profileDump",
 )
 
 #: masked in answers: random or clock readings in either package
@@ -208,14 +207,14 @@ def _commands(handler_cls) -> set[str]:
 def test_command_table_is_the_jax_table_less_the_unported():
     JaxHandler = _jax()[2]
     jax_names, port_names = _commands(JaxHandler), _commands(CommandHandler)
-    assert len(UNPORTED) == 19
+    assert len(UNPORTED) == 14
     assert port_names == jax_names - set(UNPORTED)
     assert set(UNPORTED) <= jax_names
-    # 58 commands, plus the five aliases both register
+    # 63 commands, plus the five aliases both register
     aliases = {"getAllInboxMessageIDs", "getAllSentMessageIDs",
                "getInboxMessageByID", "getSentMessageByID",
                "getSentMessagesBySender"}
-    assert len(port_names - aliases) == 58
+    assert len(port_names - aliases) == 63
 
 
 @pytest.mark.parametrize("method", UNPORTED)
@@ -512,17 +511,21 @@ async def test_client_status_keys_are_the_jax_keys_the_port_fills():
         assert set(pst) <= set(jst)
         for key in ("networkConnections", "networkStatus",
                     "numberOfMessagesProcessed", "pendingDownload",
-                    "bytesReceived", "powBackend", "powVerify", "device"):
+                    "bytesReceived", "powBackend", "powVerify", "device",
+                    "health"):
             assert key in pst
-        for key in ("resilience", "farm", "clients", "health",
-                    "lifecycle"):
+        for key in ("resilience", "farm", "clients", "lifecycle"):
             assert key not in pst
         assert pst["networkStatus"] == jst["networkStatus"]
         assert set(pst["powVerify"]) == set(jst["powVerify"])
         assert pst["powBackends"] == ["torch"]
-        assert set(pst["device"]) == {"programs"}
+        assert set(pst["device"]) == set(jst["device"]) == {
+            "programs", "env", "dropped"}
         for row in pst["device"]["programs"].values():
-            assert set(row) == {"launches"} and row["launches"] > 0
+            assert set(row) == {"launches", "compiles", "cacheHits",
+                                "hashrateHps", "mfu"}
+            assert row["launches"] > 0
+        assert set(pst["health"]) == set(jst["health"])
 
 
 async def test_an_ack_emits_the_jax_ui_event():
