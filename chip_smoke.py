@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's send and receive paths and its node on a card.
+"""Drive the PyTorch/CUDA port's send and receive paths, its node, daemon and PoW farm on a card.
 
     python3 chip_smoke.py [--seed N] [--report PATH]
 
@@ -75,6 +75,25 @@ Phases (any failure exits non-zero):
    text and its ``device_launches_total`` equals ``clientStatus``;
    ``deviceStatus`` names the H100 and ``dumpFlightRecorder`` holds
    events;
+8. the PoW solver farm (``phase_farm``), ``python -m
+   pybitmessage_tpu_torch`` daemons on the card at network difficulty:
+   (n) daemon F serves the farm (``powfarmlisten``, ``powfarmauth``, a
+   table of 8 signed tenants and E's); 8 signed ``FarmClient``s submit
+   4 interactive 1 KB messages each and, 0.2 s later, 1,250 chan
+   broadcasts of 116 B each ((c)'s storm split over tenants),
+   resubmitting after admission's
+   rejects until every job is answered; every nonce is re-checked with
+   hashlib, 4 proven lowest, none lost, and F's launch counters show
+   kernel 1 or 2 and kernel 3; jobs/s and p99 queue waits per lane,
+   per-tenant goodput and admissions are printed; (o) daemon E
+   delegates its PoW to F (``powfarmconnect``) and sends to its own
+   second identity until the inbox holds it: E launches no search
+   kernel and never falls back, F's counters rise, ``farmStatus`` names
+   E's tenant on F and a closed breaker on E; (p) a 1 KB job at
+   ntpb x 64, TTL 28 d: F is killed once its ``farmjournal.dat`` holds a
+   checkpoint, restarts, logs the job adopted from it, and the
+   resubmission's nonce equals an uninterrupted solve through
+   ``PowDispatcher`` in this process (``check_attribution``);
 4. times: each kernel at its main-path shape (CUDA events over warm
    launches) beside its plain version and its bound; the packed kernel
    on the storm's own targets and on targets that mostly miss, with the
@@ -86,20 +105,22 @@ Phases (any failure exits non-zero):
    (``ladder_field_ops``) printed beside it.
 
 Over phases 3, 3b, 5 and 6, the ones that go through the host drivers,
-each kernel's ``device_launches_total`` delta in the registry must equal
-its wrapper's ``LAUNCHES`` delta, and ``pow_verify`` (plain torch ops)
-the verifier's device batches (``check_attribution``); after them every
-program that launched has ``device_mfu_ratio`` in (0, 1.05]
-(``check_utilization``).  Phase 4 times the wrappers directly, with no
+and phase 8's in-process solve, each kernel's ``device_launches_total``
+delta in the registry must equal its wrapper's ``LAUNCHES`` delta, and
+``pow_verify`` (plain torch ops) the verifier's device batches
+(``check_attribution``); after phase 6 every program that launched has
+``device_mfu_ratio`` in (0, 1.05] (``check_utilization``).  Phase 4 times the wrappers directly, with no
 host driver, and is not attributed.
 
 The receive phases draw their data from a second generator seeded from
 ``--seed``, so phases 1-4 keep their inputs.
-Phases 5, 6 and 7 run before phase 4 and draw from a fourth, a fifth
-and a sixth generator; each kernel's entry in the kernels line carries
-its launches on the send or receive path (``launches``), in the node
-phase (``node_launches``), in the socket phase (``net_launches``) and
-in the daemons (``daemon_launches``).
+Phases 5, 6, 7 and 8 run before phase 4 and draw from a fourth, a
+fifth, a sixth and a seventh generator; each kernel's entry in the
+kernels line carries its launches on the send or receive path
+(``launches``), in the node phase (``node_launches``), in the socket
+phase (``net_launches``), in phase 7's daemons (``daemon_launches``)
+and in the farm's daemons (``farm_launches``: F before the crash of (p)
+and after its restart, and E).
 The second-to-last line of output is the ``{"kernels": [...]}`` record,
 the last ``{"ok": true, "device": {...}}``.  Exits non-zero without
 printing either when no CUDA device is present.
@@ -121,6 +142,7 @@ import sqlite3
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import xmlrpc.client
 
@@ -146,7 +168,7 @@ REPLACES = {
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms", "node_launches", "net_launches",
-               "daemon_launches")
+               "daemon_launches", "farm_launches")
 MASK64 = (1 << 64) - 1
 ALWAYS_HIT = MASK64
 
@@ -2587,6 +2609,474 @@ def phase_daemon(rng, *, device=None, test_mode: bool = False,
     return {"phases": report, "launches": launches}
 
 
+def _histogram_quantile(metrics: dict, name: str, labels: dict,
+                        q: float) -> list | None:
+    """The bucket ``[lower, upper]`` of a Prometheus histogram from a
+    daemon's ``metrics`` text that holds its ``q`` quantile (the latency
+    buckets grow by 4x, so this is all the histogram can say); None
+    when it is empty."""
+    rows = []
+    for (fam, lab), value in metrics.items():
+        lab = dict(lab)
+        if fam != name + "_bucket" or any(
+                lab.get(k) != v for k, v in labels.items()):
+            continue
+        le = lab["le"]
+        rows.append((float("inf") if le == "+Inf" else float(le), value))
+    rows.sort()
+    if not rows or rows[-1][1] == 0:
+        return None
+    lower = 0.0
+    for bound, count in rows:
+        if count >= q * rows[-1][1]:
+            return [lower, bound]
+        lower = bound
+    return [lower, rows[-1][0]]
+
+
+def _farm_submit(client, items, lane, out: dict, stats: dict,
+                 give_up: float, quota: int) -> None:
+    """Submit ``items`` through one ``FarmClient`` until every job has a
+    result in ``out`` (index -> (nonce, trials)).  The whole remainder
+    is offered at first; after a reject the client backs off by the
+    farm's ``retry_after`` (capped at 1 s) and offers at most the
+    farm's per-tenant quota at a time, the jobs it had accepted being
+    answered again on resubmission (still queued: attached; solved: the
+    recent-results cache, or solved anew once evicted)."""
+    from pybitmessage_tpu_torch.powfarm import FarmRejected
+
+    pending = list(range(len(items)))
+    offer = len(pending)
+    while pending:
+        require(time.perf_counter() < give_up,
+                "farm: %d %s job(s) of tenant %s unanswered"
+                % (len(pending), lane, client.tenant))
+        chunk = pending[:offer]
+        try:
+            results = client.solve_batch([items[i] for i in chunk],
+                                         lane=lane)
+        except FarmRejected as exc:
+            stats["rejected"][exc.reason] = \
+                stats["rejected"].get(exc.reason, 0) + 1
+            stats["retry_after_s"].append(exc.retry_after)
+            offer = min(offer, quota)
+            time.sleep(min(max(exc.retry_after, 0.02), 1.0))
+            continue
+        stats["calls"] += 1
+        for i, res in zip(chunk, results):
+            out[i] = res
+        pending = pending[len(chunk):]
+    stats["done_at"] = time.perf_counter()
+
+
+def _journal_checkpoint(path: str, ih: bytes) -> int:
+    """The checkpointed offset of ``ih``'s job in a farm journal file,
+    read beside the daemon that writes it (0: no row, or none yet)."""
+    try:
+        conn = sqlite3.connect("file:%s?mode=ro" % path, uri=True,
+                               timeout=1.0)
+    except sqlite3.OperationalError:
+        return 0
+    try:
+        row = conn.execute(
+            "SELECT start_nonce FROM powjobs WHERE initial_hash=?",
+            (ih,)).fetchone()
+    except sqlite3.OperationalError:
+        return 0
+    finally:
+        conn.close()
+    return int.from_bytes(bytes(row[0]), "big") if row else 0
+
+
+def phase_farm(rng, *, device=None, crypto_batch: bool = True,
+               tenants: int = 8, interactive: int = 4, bulk: int = 1250,
+               ntpb: int = 1000, resume_ntpb: int = 64 * 1000,
+               timeout: float = 120.0, e_flags: tuple = ()) -> dict:
+    """Phase 8: the PoW solver farm, ``python -m pybitmessage_tpu_torch``
+    daemons driven through the farm protocol and their API.
+
+    (n) Daemon F serves the farm (``powfarmlisten``, ``powfarmauth=true``,
+    a tenant table of ``tenants`` signed tenants plus E's, the other
+    ``powfarm*`` settings at their defaults).  One thread a tenant
+    submits ``interactive`` 1 KB messages (TTL 4 d, ntpb = extra =
+    ``ntpb``) on the interactive lane through a signed ``FarmClient``,
+    and another, 0.2 s later, ``bulk`` chan broadcasts (116 B, TTL 1 h,
+    ntpb = extra = 10) on the bulk lane; past the quota (256
+    queued jobs a tenant) admission rejects with ``retry_after`` and the
+    clients resubmit until every job is answered.  Every nonce is
+    re-checked with hashlib, the first tenant's interactive nonces are
+    proven lowest by the plain trial over [0, nonce), no job is lost,
+    and F's ``clientStatus`` launch counters show kernel 1 or 2 and
+    kernel 3.  (o) Daemon E delegates its PoW to F (``powfarmconnect``,
+    its own tenant and secret) and sends a message to its own second
+    identity through its API until the inbox holds it: E launches no
+    search kernel, counts no ``pow_fallback_total{from="farm"}``, F's
+    launch counters rise, and ``farmStatus`` names E's tenant on F and
+    shows a closed breaker on E.  (p) A 1 KB job at ntpb ``resume_ntpb``
+    (x64 the network's), TTL 28 d, is submitted to F; once F's
+    ``farmjournal.dat`` holds a checkpoint above 0, F gets SIGKILL and
+    restarts on its directory, logs the job adopted from its checkpoint,
+    and the client's resubmission returns a nonce that passes hashlib and
+    equals the nonce of an uninterrupted solve through ``PowDispatcher``
+    in this process.  A job solved before its first checkpoint is
+    replaced by the next one drawn.  (``device="cpu"`` with small sizes,
+    ``crypto_batch=False`` and ``e_flags`` raising E's
+    ``powfarmdeadline`` rehearses it without the launch checks.)
+    """
+    from pybitmessage_tpu_torch.ops import secp256k1_cuda as scc
+    from pybitmessage_tpu_torch.ops import sha512_cuda as sc
+    from pybitmessage_tpu_torch.pow.dispatcher import PowDispatcher
+    from pybitmessage_tpu_torch.powfarm import FarmClient, FarmError
+    from pybitmessage_tpu_torch.powfarm.protocol import (LANE_BULK,
+                                                         LANE_INTERACTIVE)
+
+    on_card = device != "cpu"
+    flags = ["--device", device] if device else []
+    if not crypto_batch:
+        flags += ["--set", "cryptobatch=false"]
+    day = 86400
+    quota = 256
+    names = ["t%d" % i for i in range(tenants)]
+    secrets = {name: rng.bytes(16).hex() for name in names + ["edge-e"]}
+    table = ",".join("%s:%s" % (n, s) for n, s in secrets.items())
+    farm_port = _free_port()
+    farm_flags = flags + [
+        "--set", "powfarmlisten=%s:%d" % (LOOPBACK, farm_port),
+        "--set", "powfarmauth=true", "--set", "powfarmtenants=" + table]
+    jobs = {name: {
+        LANE_INTERACTIVE: [_msg(rng, 1016, 4 * day, ntpb, ntpb)
+                           for _ in range(interactive)],
+        LANE_BULK: [_msg(rng, 116, 3600, 10, 10, clamp=False)
+                    for _ in range(bulk)]} for name in names}
+    report: dict = {}
+    daemons: list = []
+
+    def status(d) -> dict:
+        st = json.loads(d.rpc("clientStatus"))
+        programs = st["device"]["programs"]
+        return {"launches": {kernel: programs.get(program, {}).get(
+                    "launches", 0) for kernel, program in PROGRAM_OF.items()},
+                "farm": st["farm"], "resilience": st["resilience"],
+                "powBackends": st["powBackends"]}
+
+    def until(pred, what: str) -> float:
+        t0 = time.perf_counter()
+        while not pred():
+            require(time.perf_counter() - t0 < timeout,
+                    "timed out after %.0f s waiting for %s" % (timeout, what))
+            time.sleep(0.05)
+        return time.perf_counter() - t0
+
+    def b64(text: str) -> str:
+        return base64.b64encode(text.encode()).decode()
+
+    with tempfile.TemporaryDirectory(prefix="bm-farm-") as root:
+        f = _Daemon(root, "F", farm_flags, timeout)
+        e = _Daemon(root, "E", flags + [
+            "--set", "powfarmconnect=%s:%d" % (LOOPBACK, farm_port),
+            "--set", "powfarmtenant=edge-e",
+            "--set", "powfarmsecret=" + secrets["edge-e"], *e_flags],
+            timeout)
+        daemons += [f, e]
+        try:
+            report["f_start_s"] = f.start()
+
+            # (n) the tenants' storm and their interactive sends
+            results = {name: {LANE_INTERACTIVE: {}, LANE_BULK: {}}
+                       for name in names}
+            stats = {(name, lane): {"rejected": {}, "retry_after_s": [],
+                                    "calls": 0, "done_at": None}
+                     for name in names
+                     for lane in (LANE_INTERACTIVE, LANE_BULK)}
+            errors: list = []
+            t0 = time.perf_counter()
+            give_up = t0 + timeout
+
+            def drive(name: str, lane: str, delay: float) -> None:
+                client = FarmClient(LOOPBACK, farm_port, tenant=name,
+                                    secret=secrets[name].encode(),
+                                    timeout=timeout)
+                try:
+                    time.sleep(delay)
+                    stats[(name, lane)]["start"] = time.perf_counter()
+                    _farm_submit(client, jobs[name][lane], lane,
+                                 results[name][lane], stats[(name, lane)],
+                                 give_up, quota)
+                except BaseException as exc:  # surfaced by the main thread
+                    errors.append((name, lane, exc))
+                finally:
+                    client.close()
+
+            # the interactive jobs first and the storm 0.2 s behind them:
+            # their first batches are theirs alone (kernel 2, or kernel 1
+            # for a batch of one), where a batch that mixes them into the
+            # storm packs them with it (kernel 3)
+            threads = []
+            for name in names:
+                for lane, delay in ((LANE_INTERACTIVE, 0.0),
+                                    (LANE_BULK, 0.2)):
+                    thread = threading.Thread(
+                        target=drive, args=(name, lane, delay),
+                        name="bmtpu-smoke-farm-%s-%s" % (name, lane))
+                    thread.start()
+                    threads.append(thread)
+            for thread in threads:
+                thread.join(timeout=timeout + 30)
+                require(not thread.is_alive(), "a farm client hung")
+            wall = time.perf_counter() - t0
+            require(not errors, "farm clients failed: %r" % errors[:3])
+            checked = 0
+            for name in names:
+                for lane in (LANE_INTERACTIVE, LANE_BULK):
+                    items, got = jobs[name][lane], results[name][lane]
+                    require(len(got) == len(items),
+                            "farm: %s lost %d %s job(s)"
+                            % (name, len(items) - len(got), lane))
+                    for i, (ih, target) in enumerate(items):
+                        require(trial(got[i][0], ih) <= target,
+                                "farm: invalid nonce for %s %s job %d"
+                                % (name, lane, i))
+                        checked += 1
+            t1 = time.perf_counter()
+            for i, (ih, target) in enumerate(jobs[names[0]][LANE_INTERACTIVE]):
+                _no_lower_nonce(ih, target,
+                                results[names[0]][LANE_INTERACTIVE][i][0],
+                                device="cuda" if on_card else "cpu")
+            proof_s = time.perf_counter() - t1
+            f_status = status(f)
+            metrics = _prometheus(f.rpc("metrics"))
+            admissions = {dict(lab)["outcome"]: int(v)
+                          for (fam, lab), v in metrics.items()
+                          if fam == "farm_admission_total"}
+            lanes = {}
+            for lane, count in ((LANE_INTERACTIVE, interactive),
+                                (LANE_BULK, bulk)):
+                done = max(stats[(n, lane)]["done_at"] for n in names)
+                start = min(stats[(n, lane)]["start"] for n in names)
+                lanes[lane] = {
+                    "jobs": count * tenants, "wall_s": done - start,
+                    "jobs_per_s": count * tenants / (done - start),
+                    "p99_queue_wait_s": _histogram_quantile(
+                        metrics, "farm_queue_wait_seconds",
+                        {"lane": lane}, 0.99),
+                    "p50_queue_wait_s": _histogram_quantile(
+                        metrics, "farm_queue_wait_seconds",
+                        {"lane": lane}, 0.50)}
+            goodput = {n: (interactive + bulk) / (max(
+                stats[(n, lane)]["done_at"] for lane in
+                (LANE_INTERACTIVE, LANE_BULK)) - t0) for n in names}
+            # where F's storm time went: the dispatcher's calls, and the
+            # card's busy seconds (each program's union of launch spans)
+            sample = {fam: v for (fam, lab), v in metrics.items()
+                      if not lab}
+            busy = {dict(lab)["program"]: v
+                    for (fam, lab), v in metrics.items()
+                    if fam == "device_busy_seconds_total"}
+            f_time = {
+                "batches": int(sample.get("farm_batch_size_count", 0)),
+                "mean_batch": sample.get("farm_batch_size_sum", 0.0)
+                / max(sample.get("farm_batch_size_count", 0), 1),
+                "dispatcher_s": sample.get("farm_solve_seconds_sum", 0.0),
+                "card_busy_s": busy}
+            rejected = {}
+            for st in stats.values():
+                for reason, k in st["rejected"].items():
+                    rejected[reason] = rejected.get(reason, 0) + k
+            report["storm"] = {
+                "wall_s": wall, "checked": checked, "proof_s": proof_s,
+                "lanes": lanes, "goodput_jobs_per_s": goodput,
+                "goodput_max_over_min": max(goodput.values())
+                / min(goodput.values()),
+                "admissions": admissions, "client_rejects": rejected,
+                "f_time": f_time, "launches": f_status["launches"],
+                "farm": f_status["farm"]}
+            print("farm (n): %d jobs of %d tenants in %.3f s, %d nonces "
+                  "re-checked with hashlib, %d proven lowest (%.1f s)"
+                  % (checked, tenants, wall, checked, interactive, proof_s))
+            for lane, row in lanes.items():
+                print("farm (n) %s lane: %d jobs, %.3f s, %.1f jobs/s, "
+                      "queue wait p50 in %s s, p99 in %s s (the "
+                      "histogram's buckets)" % (
+                          lane, row["jobs"], row["wall_s"],
+                          row["jobs_per_s"], row["p50_queue_wait_s"],
+                          row["p99_queue_wait_s"]))
+            print("farm (n) per-tenant goodput max/min %.4f (%s); "
+                  "admissions %s; client rejects %s"
+                  % (report["storm"]["goodput_max_over_min"],
+                     {n: round(g, 1) for n, g in goodput.items()},
+                     admissions, rejected))
+            print("farm (n) F: %d batches of %.2f jobs on average, the "
+                  "dispatcher's calls %.3f s of the storm's %.3f s, the "
+                  "card busy %s s" % (f_time["batches"], f_time["mean_batch"],
+                                      f_time["dispatcher_s"], wall,
+                                      busy))
+            print("farm (n) F launches %s" % f_status["launches"])
+            if on_card:
+                require(f_status["launches"]["search"]
+                        + f_status["launches"]["batch_search"] > 0,
+                        "F launched neither kernel 1 nor kernel 2")
+                require(f_status["launches"]["packed_search"] > 0,
+                        "F launched no kernel 3 for the storm")
+
+            # (o) a daemon delegating its PoW to F
+            report["e_start_s"] = e.start()
+            f_before = status(f)["launches"]
+            t0 = time.perf_counter()
+            x = e.rpc("createRandomAddress", b64("X"))
+            y = e.rpc("createRandomAddress", b64("Y"))
+            subject, body = _text(rng, 40), _text(rng, 600)
+            e.rpc("sendMessage", y, x, b64(subject), b64(body))
+
+            def delivered() -> bool:
+                rows = [m for m in json.loads(e.rpc(
+                    "getAllInboxMessages"))["inboxMessages"]
+                    if m["toAddress"] == y]
+                return bool(rows) and base64.b64decode(
+                    rows[0]["message"]).decode() == body
+            until(delivered, "E's self-send through the farm")
+            delegated_s = time.perf_counter() - t0
+            e_status = status(e)
+            f_after = status(f)
+            e_metrics = _prometheus(e.rpc("metrics"))
+            e_fallbacks = sum(v for (fam, lab), v in e_metrics.items()
+                              if fam == "pow_fallback_total"
+                              and dict(lab).get("from") == "farm")
+            f_farm = json.loads(f.rpc("farmStatus"))
+            e_farm = json.loads(e.rpc("farmStatus"))
+            f_rise = {k: f_after["launches"][k] - f_before[k]
+                      for k in f_before}
+            report["delegation"] = {
+                "wall_s": delegated_s, "e_launches": e_status["launches"],
+                "e_fallbacks_from_farm": e_fallbacks, "f_rise": f_rise,
+                "e_backends": e_status["powBackends"],
+                "e_tenant_on_f": f_farm["server"]["scheduler"]["tenants"]
+                .get("edge-e"), "e_client": e_farm.get("client")}
+            print("farm (o): E's self-send through F in %.3f s; E launches "
+                  "%s, F's rise %s, E's farm fallbacks %d; F's tenant "
+                  "edge-e %s; E's client tier %s"
+                  % (delegated_s, e_status["launches"], f_rise, e_fallbacks,
+                     report["delegation"]["e_tenant_on_f"],
+                     e_farm.get("client")))
+            for kernel in ("search", "batch_search", "packed_search"):
+                require(e_status["launches"][kernel] == 0,
+                        "E launched %s itself" % kernel)
+            require(e_fallbacks == 0, "E fell back from the farm")
+            require(e_status["powBackends"][0] == "farm",
+                    "E's first PoW rung is not the farm")
+            require(report["delegation"]["e_tenant_on_f"] is not None
+                    and report["delegation"]["e_tenant_on_f"]["solved"] > 0,
+                    "farmStatus on F does not name E's tenant")
+            require(e_farm["delegating"] and e_farm["client"]["tenant"]
+                    == "edge-e" and e_farm["client"]["breaker"]["state"]
+                    == "closed", "E's client tier is not a closed breaker")
+            if on_card:
+                require(sum(f_rise[k] for k in ("search", "batch_search",
+                                                 "packed_search")) > 0,
+                        "F's search launches did not rise for E")
+            e_launches = e_status["launches"]
+            require(e.stop() == 0, "daemon E exited non-zero")
+
+            # (p) a crash of F mid-solve and the resumed search; F's
+            # launches for the interrupted job die with its process
+            journal = os.path.join(f.dir, "farmjournal.dat")
+            f_first_life = status(f)["launches"]
+            client = FarmClient(LOOPBACK, farm_port, tenant=names[0],
+                                secret=secrets[names[0]].encode(),
+                                timeout=timeout)
+            draws = 0
+            try:
+                while True:
+                    draws += 1
+                    require(draws <= 8, "no drawn job reached F's kill "
+                            "unsolved")
+                    ih, target = _msg(rng, 1016, 28 * day, resume_ntpb, 1000)
+                    box: dict = {}
+
+                    def first_try(_ih=ih, _target=target, _box=box):
+                        try:
+                            _box["result"] = client.solve_batch(
+                                [(_ih, _target)], lane=LANE_INTERACTIVE)
+                        except FarmError as exc:
+                            _box["error"] = exc
+                    thread = threading.Thread(target=first_try,
+                                              name="bmtpu-smoke-farm-resume")
+                    thread.start()
+                    checkpoint = 0
+                    while thread.is_alive() and not checkpoint:
+                        checkpoint = _journal_checkpoint(journal, ih)
+                        time.sleep(0.01)
+                    if not checkpoint:
+                        thread.join(timeout=timeout)
+                        print("farm (p): draw %d solved before its first "
+                              "checkpoint; drawing the next" % draws)
+                        continue
+                    t_kill = time.perf_counter()
+                    f.proc.kill()
+                    f.proc.wait(timeout=timeout)
+                    thread.join(timeout=timeout)
+                    require(not thread.is_alive(),
+                            "the client hung on F's kill")
+                    report["restart_s"] = f.start()
+                    if "result" in box:
+                        print("farm (p): draw %d answered just before the "
+                              "kill; drawing the next" % draws)
+                        continue
+                    break
+                adopted = [line for line in f.log().splitlines()
+                           if "adopted job" in line]
+                require(adopted, "F's log reports no adopted job")
+                offset = int(adopted[-1].rsplit("nonce offset", 1)[1])
+                require(offset >= checkpoint,
+                        "F adopted the job at %d below its checkpoint %d"
+                        % (offset, checkpoint))
+                (nonce, _), = client.solve_batch([(ih, target)],
+                                                 lane=LANE_INTERACTIVE)
+                resumed_s = time.perf_counter() - t_kill
+            finally:
+                client.close()
+            require(trial(nonce, ih) <= target,
+                    "the resumed nonce fails hashlib's check")
+            # the same job uninterrupted, on the card in this process
+            before = registry_counts()
+            t0 = time.perf_counter()
+            ref, ref_trials = PowDispatcher(device).solve(ih, target)
+            ref_s = time.perf_counter() - t0
+            attribution = check_attribution(
+                "farm resume reference", before, {}) if on_card else None
+            require(nonce == ref, "the resumed nonce %d differs from the "
+                    "uninterrupted solve's %d" % (nonce, ref))
+            f_resume = status(f)
+            report["resume"] = {
+                "draws": draws, "checkpoint": checkpoint, "offset": offset,
+                "nonce": nonce, "expected_trials": (1 << 64) / target,
+                "resumed_s": resumed_s, "reference_s": ref_s,
+                "reference_trials": ref_trials, "adopted_log": adopted[-1],
+                "attribution": attribution,
+                "f_launches_after_restart": f_resume["launches"]}
+            print("farm (p): draw %d, checkpoint %d when F was killed, "
+                  "adopted at %d after a %.2f s restart; resumed nonce %d "
+                  "in %.3f s from the kill = the uninterrupted solve's "
+                  "(%d trials, %.3f s)" % (draws, checkpoint, offset,
+                                           report["restart_s"], nonce,
+                                           resumed_s, ref_trials, ref_s))
+            require(f.stop() == 0, "daemon F exited non-zero")
+        except BaseException:
+            for d in daemons:
+                print("--- daemon %s output (last lines):\n%s"
+                      % (d.dir, d.tail()), file=sys.stderr)
+            raise
+        finally:
+            for d in daemons:
+                d.kill()
+
+    launches = {name: f_first_life.get(name, 0)
+                + f_resume["launches"].get(name, 0) + e_launches.get(name, 0)
+                for name in (*sc.LAUNCHES, *scc.LAUNCHES)}
+    print("farm launches (F before (p) and after its restart, and E): %s"
+          % launches)
+    return {"phases": report, "launches": launches}
+
+
 def phase_times_secp(prng, env: dict, launches: dict, errs: dict) -> list:
     """Each secp kernel at the main path's drain (4,096 lanes) and on a
     full card (65,536 lanes): CUDA-event times over warm launches, the
@@ -2715,12 +3205,15 @@ def main() -> int:
     utilization = check_utilization()
     # the daemon through its API: a sixth generator
     daemon = phase_daemon(np.random.default_rng([args.seed, 6]))
+    # the PoW farm's daemons: a seventh generator
+    farm = phase_farm(np.random.default_rng([args.seed, 7]))
     kernels = phase_times(rng, env, main_path["launches"], errs)
     kernels += phase_times_secp(prng, env, receive["launches"], errs)
     for entry in kernels:
         entry["node_launches"] = node["launches"][entry["name"]]
         entry["net_launches"] = sockets["launches"][entry["name"]]
         entry["daemon_launches"] = daemon["launches"][entry["name"]]
+        entry["farm_launches"] = farm["launches"][entry["name"]]
     wall = time.perf_counter() - t_start
     print("chip_smoke wall %.1f s" % wall)
     if args.report:
@@ -2728,7 +3221,7 @@ def main() -> int:
             json.dump({"env": env, "main_path": main_path,
                        "selftest": selftest, "receive": receive,
                        "node": node, "sockets": sockets, "daemon": daemon,
-                       "attribution": attribution,
+                       "farm": farm, "attribution": attribution,
                        "utilization": utilization, "kernels": kernels,
                        "wall_s": wall}, fh, indent=1)
     print(json.dumps({"kernels": [

@@ -9,9 +9,12 @@ configuration layered as defaults <- settings.dat <- CLI flags
 The node runs on the CUDA device unless ``--device cpu`` asks for the
 kernels' plain torch versions; without a card and without that flag the
 daemon exits 1.  A setting that turns on a subsystem this package does
-not have (``REFUSED``) stops the start with exit 1; the subsystems the
-JAX package runs by default and this one does not yet (``NOT_RUN``) are
-named in one warning line at startup.
+not have (``REFUSED``) stops the start with exit 1, as does a ``chaos``
+spec naming an injection site this package does not plant; the
+subsystems the JAX package runs by default and this one does not yet
+(``NOT_RUN``) are named in one warning line at startup.  The PoW farm
+(``powfarmlisten``, ``powfarmconnect`` and their knobs), ``powmaxretries``
+and ``powstalltimeout`` are applied as the JAX daemon applies them.
 """
 
 from __future__ import annotations
@@ -38,12 +41,9 @@ REFUSED = {
     "smtpdenabled": ("false", _on),
     "smtpdeliver": ("", bool),
     "upnp": ("false", _on),
-    "powfarmlisten": ("", bool),
-    "powfarmconnect": ("", bool),
     "clientplanelisten": ("", bool),
     "clientconnect": ("", bool),
     "federationpush": ("", bool),
-    "chaos": ("", bool),
     "inventorystorage": ("sqlite", lambda v: v != "sqlite"),
 }
 
@@ -151,7 +151,10 @@ async def run(args) -> int:
     from . import resolve_device
     from .api import APIServer
     from .core import Node
+    from .core.config import parse_tenant_table
     from .observability import FLIGHT_RECORDER, set_peer_buckets
+    from .powfarm import TenantConfig
+    from .resilience.chaos import CHAOS, unplanted
     from .storage.knownnodes import Peer
 
     settings = load_settings(args)
@@ -160,6 +163,16 @@ async def run(args) -> int:
         logging.error("refusing to start: %s turns on a subsystem this "
                       "package does not have", ", ".join(refused))
         return 1
+    # fault injection is opt-in per node; a site this package does not
+    # plant would arm nothing, which is not what the spec asked for
+    if settings.get("chaos"):
+        missing = unplanted(settings.get("chaos"))
+        if missing:
+            logging.error("refusing to start: chaos names %s, a site this "
+                          "package does not plant", ", ".join(missing))
+            return 1
+        CHAOS.configure(settings.get("chaos"),
+                        seed=settings.getint("chaosseed"))
     try:
         device = resolve_device(args.device)
     except RuntimeError as exc:
@@ -176,8 +189,44 @@ async def run(args) -> int:
                 dandelion_enabled=settings.getint("dandelion") > 0,
                 pow_window=settings.getfloat("powbatchwindow"),
                 device=device,
-                crypto_batch=settings.getbool("cryptobatch"))
+                crypto_batch=settings.getbool("cryptobatch"),
+                farm_listen=settings.get("powfarmlisten") or None,
+                farm_connect=settings.get("powfarmconnect") or None,
+                farm_tenant=settings.get("powfarmtenant"),
+                farm_secret=settings.get("powfarmsecret"))
     node.settings = settings
+    # the PoW solver farm's server and client knobs
+    if node.farm_server is not None:
+        srv = node.farm_server
+        srv.auth_required = settings.getbool("powfarmauth")
+        srv.batch_max = settings.getint("powfarmbatch")
+        srv.window = settings.getfloat("powfarmwindow")
+        srv.max_attempts = settings.getint("powmaxretries")
+        srv.scheduler.max_wait = settings.getfloat("powfarmmaxwait")
+        srv.scheduler.max_tenants = settings.getint("powfarmmaxtenants")
+        srv.scheduler.default_config = TenantConfig(
+            quota=settings.getint("powfarmquota"),
+            rate=settings.getfloat("powfarmrate"),
+            burst=settings.getfloat("powfarmburst"))
+        # the operator's tenant table; with powfarmauth=true this is the
+        # whole admission roster
+        for name, secret, weight in parse_tenant_table(
+                settings.get("powfarmtenants")):
+            srv.register_tenant(name, TenantConfig(
+                weight=weight,
+                quota=settings.getint("powfarmquota"),
+                rate=settings.getfloat("powfarmrate"),
+                burst=settings.getfloat("powfarmburst"),
+                secret=secret.encode("utf-8")))
+    if node.farm_client is not None:
+        node.farm_client.deadline = settings.getfloat("powfarmdeadline")
+        node.farm_client.client.timeout = \
+            settings.getfloat("powfarmdeadline")
+        node.farm_client.bulk_threshold = \
+            settings.getint("powfarmbulkthreshold")
+    # the PoW retry budget and the pipeline's stall deadline
+    node.solver.stall_timeout = settings.getfloat("powstalltimeout")
+    node.pow_service.max_attempts = settings.getint("powmaxretries")
     node.dandelion.stem_probability = settings.getint("dandelion")
     # observability knobs
     FLIGHT_RECORDER.resize(settings.getint("flightrecsize"))

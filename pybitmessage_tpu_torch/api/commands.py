@@ -12,15 +12,19 @@ handler lacks: the email gateway and mailing lists
 (``setEmailGateway``, ``emailGatewayRegister``,
 ``emailGatewayUnregister``, ``emailGatewayStatus``,
 ``emailGatewaySettings``, ``sendEmail``, ``setMailingList``), roles
-(``roleStatus``, ``shardStatus``, ``shardShed``), the PoW farm
-(``farmStatus``), federation (``federatedStatus``) and the sampling
-profiler (``costStatus``, ``profileDump``).
+(``roleStatus``, ``shardStatus``, ``shardShed``), federation
+(``federatedStatus``) and the sampling profiler (``costStatus``,
+``profileDump``).
 
 The telemetry commands (``metrics``, ``dumpFlightRecorder``,
 ``deviceStatus``, ``profileDevice``, ``objectTimeline``) answer as the
 JAX ones do, over the port's ``observability`` package; ``clientStatus``
-carries the JAX ``device`` (per-program launches from the registry) and
-``health`` blocks.
+carries the JAX ``device`` (per-program launches from the registry),
+``health`` and ``farm`` blocks, and of the JAX ``resilience`` block the
+PoW journal's part (pending jobs, checkpoints, jobs recovered at open)
+and the armed chaos sites.  ``farmStatus`` answers the JAX command's
+text: the farm daemon's scheduler, tenants and job outcomes, and the
+client tier's endpoint and breaker.
 """
 
 from __future__ import annotations
@@ -35,9 +39,10 @@ from ..models.constants import OBJECT_MSG, OBJECT_PUBKEY
 from ..models.objects import ObjectHeader
 from ..core.config import DEFAULTS, Settings, SettingsError
 from ..crypto.keys import grind_deterministic_keys
-from ..observability import (FLIGHT_RECORDER, LIFECYCLE, HealthMonitor,
-                             capture_device_trace, device_status,
-                             render_prometheus)
+from ..observability import (FLIGHT_RECORDER, LIFECYCLE, REGISTRY,
+                             HealthMonitor, capture_device_trace,
+                             device_status, render_prometheus)
+from ..resilience.chaos import CHAOS
 from ..utils.addresses import AddressError, decode_address, encode_address
 from ..utils.hashes import inventory_hash
 
@@ -787,6 +792,48 @@ class CommandHandler:
             health = HealthMonitor(self.node)
         return health.health_block()
 
+    def _resilience_stats(self) -> dict:
+        """The PoW journal's part of the JAX ``resilience`` block, and
+        the armed chaos sites."""
+        journal = getattr(self.node, "pow_journal", None)
+        return {
+            "journal": {
+                "pending": (journal.pending_count()
+                            if journal is not None else None),
+                "checkpoints": int(REGISTRY.sample(
+                    "pow_journal_checkpoints_total")),
+                "recovered": int(REGISTRY.sample(
+                    "pow_journal_recovered_total")),
+            },
+            "chaos": CHAOS.active(),
+        }
+
+    def _farm_stats(self) -> dict:
+        """PoW solver-farm block: the farm daemon's scheduler and tenant
+        state when this node serves PoW-as-a-service, and the client
+        tier's endpoint and breaker when it delegates its own PoW."""
+        server = getattr(self.node, "farm_server", None)
+        client = getattr(self.node, "farm_client", None)
+        out: dict = {"serving": server is not None,
+                     "delegating": client is not None}
+        if server is not None:
+            out["server"] = server.status()
+            jobs = {}
+            fam = REGISTRY.get("farm_jobs_total")
+            if fam is not None:
+                for values, child in fam.children():
+                    jobs["/".join(values)] = int(child.value)
+            out["server"]["jobs"] = jobs
+        if client is not None:
+            out["client"] = client.snapshot()
+        return out
+
+    def cmd_farmStatus(self):
+        """Full PoW solver-farm status: scheduler snapshot (per-lane
+        depths, projected waits, per-tenant queued/solved/weights),
+        job outcomes and the client tier's breaker state."""
+        return json.dumps(self._farm_stats(), indent=4)
+
     def cmd_clientStatus(self):
         pool = self.node.pool
         established = len(pool.established())
@@ -832,7 +879,9 @@ class CommandHandler:
             "powSolveRate": round(solver.last_solve_rate, 1),
             "powQueueDepth": self.node.pow_service.queue.qsize(),
             "powStats": self._pow_stats(),
+            "resilience": self._resilience_stats(),
             "crypto": self._crypto_stats(),
+            "farm": self._farm_stats(),
             "device": self._device_stats(),
             "health": self._health_stats(),
             "powVerify": {

@@ -1,7 +1,8 @@
 """Layered persisted settings with defaults, validators and migrations
 (copy of ``pybitmessage_tpu.core.config``: ``Settings``, ``SECTION``,
-``SETTINGS_VERSION`` and the migration chain, with ``DEFAULTS`` and
-``VALIDATORS`` trimmed to the options the port applies).
+``SETTINGS_VERSION``, the migration chain and ``parse_tenant_table``,
+with ``DEFAULTS`` and ``VALIDATORS`` trimmed to the options the port
+applies).
 
 Role model: the reference's ``BMConfigParser`` layered over
 ``default.ini`` with per-option validators, a non-persisted ``setTemp``
@@ -70,6 +71,51 @@ DEFAULTS: dict[str, str] = {
     # helper_startup sanity cap: ridiculousDifficulty x network default)
     "maxacceptablenoncetrialsperbyte": "20000000000",
     "maxacceptablepayloadlengthextrabytes": "20000000000",
+    # -- PoW solver farm --
+    "powfarmlisten": "",             # serve PoW-as-a-service on this
+                                     # "port" or "host:port" (empty =
+                                     # no farm daemon)
+    "powfarmconnect": "",            # delegate this node's PoW to a
+                                     # farm at "host:port" (empty =
+                                     # solve on the card)
+    "powfarmtenant": "default",      # tenant id for farm submissions
+    "powfarmsecret": "",             # shared HMAC secret for signed
+                                     # submissions (empty = unsigned)
+    "powfarmauth": "false",          # farm side: require signed
+                                     # submissions from pre-registered
+                                     # tenants only
+    "powfarmtenants": "",            # farm-side tenant table:
+                                     # "name:secret[:weight]" comma
+                                     # list (empty secret = unsigned;
+                                     # quota/rate/burst come from the
+                                     # powfarm* defaults)
+    "powfarmdeadline": "60",         # client per-job wall ceiling,
+                                     # seconds (a tighter propagated
+                                     # Deadline wins)
+    "powfarmbulkthreshold": "2",     # batches above this size ride
+                                     # the bulk lane
+    "powfarmbatch": "32",            # max jobs per farm dispatch
+    "powfarmwindow": "0.01",         # farm drain coalescing window, s
+    "powfarmmaxwait": "30",          # admission ceiling on projected
+                                     # queue wait, seconds (reject
+                                     # with retry-after beyond it)
+    "powfarmquota": "256",           # default per-tenant queued-job
+                                     # quota
+    "powfarmrate": "0",              # default per-tenant token-bucket
+                                     # jobs/s (0 = unlimited)
+    "powfarmburst": "32",            # token-bucket burst capacity
+    "powfarmmaxtenants": "64",       # open-mode tenant auto-
+                                     # registration cap (tenant ids
+                                     # are metric label values)
+    # -- resilience --
+    "powstalltimeout": "120",        # per-harvest slab stall deadline,
+                                     # seconds (0 = watchdog off)
+    "powmaxretries": "3",            # solve attempts before a queued
+                                     # object surfaces its error
+    "chaos": "",                     # fault-injection spec, e.g.
+                                     # "pow.device_launch:0.5,db.write:1x3"
+                                     # (sites this package plants only)
+    "chaosseed": "0",                # deterministic chaos seed
 }
 
 
@@ -93,6 +139,40 @@ def _validate_float_range(lo: float, hi: float) -> Callable[[str], bool]:
         except ValueError:
             return False
     return check
+
+
+def parse_tenant_table(spec: str) -> list[tuple[str, str, float]]:
+    """Parse the ``powfarmtenants`` value: a comma list of
+    ``name:secret[:weight]`` entries -> ``[(name, secret, weight)]``.
+    Raises ``ValueError`` on a malformed entry."""
+    out = []
+    for entry in spec.split(","):
+        entry = entry.strip()
+        if not entry:
+            continue
+        parts = entry.split(":")
+        if len(parts) not in (2, 3):
+            raise ValueError("tenant entry %r is not "
+                             "name:secret[:weight]" % entry)
+        name, secret = parts[0], parts[1]
+        if not 1 <= len(name) <= 64:
+            raise ValueError("tenant name %r out of range" % name)
+        weight = 1.0
+        if len(parts) == 3:
+            weight = float(parts[2])    # ValueError on junk
+            if not 0.0 < weight <= 1000.0:
+                raise ValueError("tenant weight %r out of range"
+                                 % parts[2])
+        out.append((name, secret, weight))
+    return out
+
+
+def _validate_tenant_table(value: str) -> bool:
+    try:
+        parse_tenant_table(value)
+        return True
+    except ValueError:
+        return False
 
 
 #: per-option validators (reference validate_<section>_<option>,
@@ -119,6 +199,27 @@ VALIDATORS: dict[str, Callable[[str], bool]] = {
     "healthinterval": _validate_float_range(0.1, 3600.0),
     "looplaginterval": _validate_float_range(0.01, 60.0),
     "peerlabelbuckets": _validate_int_range(1, 512),
+    "powfarmlisten": lambda v: v == "" or (
+        v.rpartition(":")[2].isdigit()
+        and 0 <= int(v.rpartition(":")[2]) <= 65535),
+    "powfarmconnect": lambda v: v == "" or (
+        v.rpartition(":")[2].isdigit()
+        and 1 <= int(v.rpartition(":")[2]) <= 65535),
+    "powfarmtenant": lambda v: 1 <= len(v) <= 64,
+    "powfarmauth": _validate_bool,
+    "powfarmtenants": _validate_tenant_table,
+    "powfarmdeadline": _validate_float_range(0.1, 86400.0),
+    "powfarmbulkthreshold": _validate_int_range(1, 4096),
+    "powfarmbatch": _validate_int_range(1, 4096),
+    "powfarmwindow": _validate_float_range(0.0, 10.0),
+    "powfarmmaxwait": _validate_float_range(0.1, 86400.0),
+    "powfarmquota": _validate_int_range(1, 1 << 20),
+    "powfarmrate": _validate_float_range(0.0, 1e9),
+    "powfarmburst": _validate_float_range(1.0, 1e9),
+    "powfarmmaxtenants": _validate_int_range(1, 512),
+    "powstalltimeout": _validate_float_range(0.0, 86400.0),
+    "powmaxretries": _validate_int_range(1, 100),
+    "chaosseed": _validate_int_range(0, 2**63 - 1),
 }
 
 

@@ -24,9 +24,17 @@ a caller without a socket.  UI events go out on ``node.ui`` (a
 the API over it.  The node runs the health probes (``self.health``:
 loop lag, saturation gauges, the ``clientStatus`` health block), names
 itself in the flight recorder and logs a metrics snapshot a minute.
-Sync, TLS, SOCKS, UDP discovery, UPnP, the PoW farm, federation, the
-sampling profiler, the PoW journal, the email gateway and the roles
-other than ``all`` are not part of this package yet.
+
+Every solve goes through the crash-safe PoW journal (``pow_journal``:
+``powjournal.dat`` in the data directory, in memory without one), so a
+node killed mid-solve resumes from the checkpoint.  ``farm_connect``
+("host:port") puts a ``FarmSolverTier`` in front of the card in the
+dispatcher (this node's PoW is delegated to a shared farm);
+``farm_listen`` serves PoW-as-a-service to other nodes (``FarmServer``
+over the node's dispatcher, its journal ``farmjournal.dat``).
+Sync, TLS, SOCKS, UDP discovery, UPnP, federation, the sampling
+profiler, the email gateway and the roles other than ``all`` are not
+part of this package yet.
 """
 
 from __future__ import annotations
@@ -46,6 +54,8 @@ from ..observability import (FLIGHT_RECORDER, HealthMonitor,
 from ..pow.dispatcher import PowDispatcher
 from ..pow.service import PowService
 from ..pow.verify_service import BatchVerifier
+from ..powfarm import FarmJournal, FarmServer, FarmSolverTier
+from ..resilience.journal import PowJournal
 from ..storage.db import Database
 from ..storage.inventory import Inventory
 from ..storage.knownnodes import KnownNodes
@@ -71,7 +81,10 @@ class Node:
     ``allow_private_peers`` lets addr gossip add loopback and private
     hosts to the known nodes.  ``test_mode`` divides the consensus
     difficulty by 100 and shrinks the announce jitter to 2 s;
-    ``pow_window`` is the PowService coalescing window.
+    ``pow_window`` is the PowService coalescing window.  ``farm_listen``
+    and ``farm_connect`` ("host:port", port 0 for any free one when
+    listening) serve a PoW farm and delegate to one, under
+    ``farm_tenant`` signed with ``farm_secret``.
     """
 
     def __init__(self, data_dir: str | None = None, *,
@@ -80,7 +93,9 @@ class Node:
                  allow_private_peers: bool = False,
                  stream: int = 1, test_mode: bool = False,
                  pow_window: float | None = None, device=None,
-                 crypto_batch: bool = True):
+                 crypto_batch: bool = True, farm_listen: str | None = None,
+                 farm_connect: str | None = None,
+                 farm_tenant: str = "default", farm_secret: str = ""):
         self.device = resolve_device(device)
         self.data_dir = Path(data_dir) if data_dir else None
         if self.data_dir:
@@ -121,8 +136,37 @@ class Node:
         self.pool = ConnectionPool(self.ctx)
         self.listen = listen
         self.solver = PowDispatcher(self.device)
+        #: crash-safe PoW job journal: queued and in-flight solves
+        #: survive a restart and resume from their checkpointed offset
+        self.pow_journal = PowJournal(
+            str(self.data_dir / "powjournal.dat") if self.data_dir
+            else ":memory:")
+        pending = self.pow_journal.pending_count()
+        if pending:
+            logger.info("PoW journal: %d job(s) survived restart and "
+                        "will resume from their checkpoints", pending)
         self.pow_service = PowService(self.solver, shutdown=self.shutdown,
-                                      window=pow_window)
+                                      window=pow_window,
+                                      journal=self.pow_journal)
+        #: the PoW solver farm: delegate this node's PoW to a shared
+        #: farm (the dispatcher's top rung) and/or serve other nodes
+        self.farm_client = None
+        if farm_connect:
+            fhost, _, fport = str(farm_connect).rpartition(":")
+            self.farm_client = FarmSolverTier(
+                fhost or "127.0.0.1", int(fport), tenant=farm_tenant,
+                secret=farm_secret.encode("utf-8") if farm_secret else b"")
+            self.solver.attach_farm(self.farm_client)
+        self.farm_server = None
+        self.farm_journal = None
+        if farm_listen:
+            fhost, _, fport = str(farm_listen).rpartition(":")
+            self.farm_journal = FarmJournal(
+                str(self.data_dir / "farmjournal.dat") if self.data_dir
+                else ":memory:")
+            self.farm_server = FarmServer(
+                self.solver, journal=self.farm_journal,
+                host=fhost or "127.0.0.1", port=int(fport))
         #: the ingest path's crypto route, shared by the sender's pubkey
         #: lookups and the processor
         self.crypto = CryptoPool()
@@ -169,6 +213,8 @@ class Node:
         # one structured log line a minute with the metrics that changed
         self._metrics_task = asyncio.create_task(log_snapshot_task(60.0))
         self.health.start()
+        if self.farm_server is not None:
+            await self.farm_server.start()
         logger.info("node started on %s (port %s)", self.device,
                     self.pool.listen_port if self.listen else "-")
 
@@ -200,10 +246,17 @@ class Node:
         await self.sender.stop()
         await self.processor.stop()
         await self.cleaner.stop()
+        if self.farm_server is not None:
+            await self.farm_server.stop()
+        if self.farm_client is not None:
+            self.farm_client.close()
         await self.pow_service.stop()
         await self.pow_verifier.stop()
         self.inventory.flush()
         self.knownnodes.save()
+        if self.farm_journal is not None:
+            self.farm_journal.close()
+        self.pow_journal.close()
         self.db.close()
         logger.info("node stopped")
 

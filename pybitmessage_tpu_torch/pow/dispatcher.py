@@ -1,14 +1,27 @@
-"""PoW solver of the port (twin of ``pow/dispatcher.py``, one-card tiers only).
+"""PoW solver of the port (twin of ``pow/dispatcher.py``): the farm rung
+over the one-card tier.
 
 A single object runs :func:`ops.sha512_cuda.solve` (the single-object
 kernel) and a batch runs the dispatch-ahead pipeline (packed or batch
 kernel).  With ``device="cpu"`` the same host loops run the kernels'
-plain torch versions.  There is no fallback: without a card
-``PowDispatcher()`` raises, and a kernel that fails to build or launch
-raises out of :meth:`solve` / :meth:`solve_batch`, where ``PowService``
-requeues the batch and finally surfaces the error.  The farm, native
-C++, multi-device and breaker tiers of the reference are not part of
-this dispatcher.
+plain torch versions.
+
+An attached :class:`~pybitmessage_tpu_torch.powfarm.FarmSolverTier`
+(``attach_farm``, the daemon's ``powfarmconnect``) leads: jobs are
+delegated to a shared solver farm, and ANY farm failure (dial, admission
+reject, expired deadline, a nonce failing the host check) opens the
+farm's breaker, counts ``pow_fallback_total{from="farm",to="cuda"}``
+(``"torch"`` on the CPU) and re-solves the batch on the card: an
+unreachable farm degrades to exactly the node without one.
+
+The card tier has no rung under it: without a card ``PowDispatcher()``
+raises, and a kernel that fails to build or launch raises out of
+:meth:`solve` / :meth:`solve_batch`, where ``PowService`` requeues the
+batch and finally surfaces the error.  The native C++, multi-device
+and breaker tiers of the reference are not part of this dispatcher.
+``pow.device_launch`` is a chaos site at the entry of the card tier;
+``stall_timeout`` (the daemon's ``powstalltimeout``) is the pipeline's
+per-harvest stall deadline.
 
 Timing attributes:
 
@@ -31,14 +44,22 @@ import hashlib
 import time
 from typing import Callable
 
+import logging
+
 from .. import resolve_device
 from ..observability import REGISTRY, trace
+from ..observability.flightrec import record as _flight
 from ..ops import sha512_cuda
 from ..ops.pow_search import PowInterrupted
+from ..resilience.chaos import inject
+from ..resilience.policy import ERRORS
 from .pipeline import AUTOTUNER, plan_batch, solve_batch_pipelined
 
-#: slab-stall deadline handed to the pipeline, seconds per harvest
-STALL_TIMEOUT = 120.0
+logger = logging.getLogger("pybitmessage_tpu_torch.pow")
+
+#: default slab-stall deadline handed to the pipeline, seconds per
+#: harvest; 0 disables the guard
+DEFAULT_STALL_TIMEOUT = 120.0
 
 SOLVE_SECONDS = REGISTRY.histogram(
     "pow_solve_seconds",
@@ -51,6 +72,10 @@ HOST_VERIFY_SECONDS = REGISTRY.histogram(
 ATTEMPTS = REGISTRY.counter(
     "pow_attempts_total", "Solve attempts entering each ladder tier",
     ("backend",))
+FALLBACKS = REGISTRY.counter(
+    "pow_fallback_total",
+    "Ladder fallthrough events (a tier failed and a slower one took "
+    "over)", ("from", "to"))
 TRIALS = REGISTRY.counter(
     "pow_trials_total", "Double-SHA512 trial hashes executed",
     ("backend",))
@@ -88,11 +113,22 @@ def python_solve(initial_hash: bytes, target: int, *,
         nonce += 1
 
 
+def _note_fallback(frm: str, to: str) -> None:
+    """One fallthrough: counted and flight-recorded."""
+    FALLBACKS.labels(**{"from": frm, "to": to}).inc()
+    _flight("pow_fallback", frm=frm, to=to)
+
+
 class PowDispatcher:
     """Callable solver for one device (``None`` = the CUDA device)."""
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, *,
+                 stall_timeout: float = DEFAULT_STALL_TIMEOUT, farm=None):
         self.device = resolve_device(device)
+        #: per-harvest slab stall deadline for the pipelined path
+        self.stall_timeout = stall_timeout
+        #: optional FarmSolverTier leading the card tier (attach_farm)
+        self.farm = farm
         self.last_backend = ""
         self.last_rate = 0.0
         self.last_solve_seconds = 0.0
@@ -103,17 +139,58 @@ class PowDispatcher:
     def _backend(self) -> str:
         return "cuda" if self.device.type == "cuda" else "torch"
 
+    def attach_farm(self, farm) -> None:
+        """Register a FarmSolverTier as the top rung."""
+        self.farm = farm
+
+    def _try_farm(self, items, should_stop, starts):
+        """The farm rung; ``None`` means the card solves the batch (the
+        jobs the farm accepted are re-solved here, and the farm's
+        dedupe makes any overlap benign)."""
+        farm = self.farm
+        if farm is None or not farm.breaker.allow():
+            return None
+        try:
+            self.last_backend = "farm"
+            ATTEMPTS.labels(backend="farm").inc()
+            results = farm.solve_batch(items, should_stop=should_stop,
+                                       start_nonces=starts)
+            farm.breaker.record_success()
+            return results
+        except PowInterrupted:
+            farm.breaker.release_probe()
+            raise
+        except Exception as exc:
+            farm.breaker.record_failure()
+            ERRORS.labels(site="pow.tier.farm").inc()
+            logger.warning(
+                "farm tier failed (%r); solving %d job(s) on the %s "
+                "tier (breaker: %s)", exc, len(items), self._backend,
+                farm.breaker.state)
+            _note_fallback("farm", self._backend)
+            return None
+
     def backends(self) -> list[str]:
-        """The tiers this solver runs (clientStatus powBackends)."""
-        return [self._backend]
+        """The tiers this solver runs (clientStatus powBackends): the
+        farm while its breaker lets jobs through, then the card."""
+        out = []
+        if self.farm is not None and self.farm.breaker.available():
+            out.append("farm")
+        out.append(self._backend)
+        return out
 
     def __call__(self, initial_hash: bytes, target: int, *,
                  start_nonce: int = 0,
                  should_stop: Callable[[], bool] | None = None):
         with trace("pow.solve") as span:
             t0 = time.monotonic()
-            nonce, trials = self._solve(initial_hash, target, start_nonce,
-                                        should_stop)
+            farmed = self._try_farm([(initial_hash, target)], should_stop,
+                                    [start_nonce])
+            if farmed is not None:
+                nonce, trials = farmed[0]
+            else:
+                nonce, trials = self._solve(initial_hash, target,
+                                            start_nonce, should_stop)
             solve_dt = max(time.monotonic() - t0, 1e-9)
             v0 = time.monotonic()
             value = host_trial(nonce, initial_hash)
@@ -152,20 +229,12 @@ class PowDispatcher:
         starts = list(start_nonces) if start_nonces else [0] * len(items)
         t0 = time.monotonic()
         with trace("pow.solve_batch", objects=len(items)) as span:
-            if len(items) > 1 or plan_batch(items).mode == "single-sync":
-                self.last_backend = self._backend + "-batch"
-                ATTEMPTS.labels(backend=self.last_backend).inc()
-                results = solve_batch_pipelined(
-                    items, device=self.device, should_stop=should_stop,
-                    start_nonces=starts, progress=progress,
-                    stall_timeout=STALL_TIMEOUT)
-            else:
-                prog = None
-                if progress is not None:
-                    prog = lambda n: progress(0, n)  # noqa: E731
-                (ih, t), = items
-                results = [self._solve(ih, t, starts[0], should_stop,
-                                       progress=prog)]
+            # the farm rung leads; a farm failure falls through to the
+            # card with nothing lost
+            results = self._try_farm(items, should_stop, starts)
+            if results is None:
+                results = self._card_batch(items, should_stop, starts,
+                                           progress)
             span.attrs["backend"] = self.last_backend
         dt = max(time.monotonic() - t0, 1e-9)
         trials = sum(r[1] for r in results)
@@ -176,8 +245,24 @@ class PowDispatcher:
         TRIALS.labels(backend=self.last_backend).inc(trials)
         return results
 
+    def _card_batch(self, items, should_stop, starts, progress):
+        if len(items) > 1 or plan_batch(items).mode == "single-sync":
+            inject("pow.device_launch")
+            self.last_backend = self._backend + "-batch"
+            ATTEMPTS.labels(backend=self.last_backend).inc()
+            return solve_batch_pipelined(
+                items, device=self.device, should_stop=should_stop,
+                start_nonces=starts, progress=progress,
+                stall_timeout=self.stall_timeout)
+        prog = None
+        if progress is not None:
+            prog = lambda n: progress(0, n)  # noqa: E731
+        (ih, t), = items
+        return [self._solve(ih, t, starts[0], should_stop, progress=prog)]
+
     def _solve(self, initial_hash, target, start_nonce, should_stop,
                progress=None):
+        inject("pow.device_launch")
         self.last_backend = self._backend
         ATTEMPTS.labels(backend=self.last_backend).inc()
         return sha512_cuda.solve(

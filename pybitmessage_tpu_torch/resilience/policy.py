@@ -277,3 +277,32 @@ class CircuitBreaker:
                 if self._first_opened_at is None:
                     self._first_opened_at = now
                 self._transition(OPEN)
+
+    def release_probe(self) -> None:
+        """Give back a consumed half-open probe slot without recording
+        an outcome: an interrupted attempt (shutdown) is not evidence
+        of health."""
+        with self._lock:
+            self._probe_in_flight = False
+
+    def reset(self) -> None:
+        with self._lock:
+            self._failures = 0
+            self._probe_in_flight = False
+            self._first_opened_at = None
+            self._transition(CLOSED)
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            self._maybe_half_open()
+            return {
+                "state": self._state,
+                "consecutiveFailures": self._failures,
+                "threshold": self.threshold,
+                "cooldownSeconds": self.cooldown,
+            }
+
+
+def breaker_snapshot() -> dict:
+    """State of every registered breaker (clientStatus block)."""
+    return {name: br.snapshot() for name, br in sorted(BREAKERS.items())}

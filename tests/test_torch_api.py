@@ -10,7 +10,7 @@ clock reading in either package: msgids, ackdata, ``receivedTime`` and
 ``lastActionTime``; ``getSettings`` is compared on the options both
 packages know (``powBackends`` names each package's own solver).
 
-Also here: the port's command table is the JAX table less the 19
+Also here: the port's command table is the JAX table less the 13
 commands it has not ported, each of which answers ``APIError 20``; the
 ``clientStatus`` keys are a subset of the JAX keys; XML-RPC and JSON-RPC
 share one port; a data directory written behind one package's API is
@@ -45,7 +45,6 @@ UNPORTED = (
     "emailGatewayStatus", "emailGatewaySettings", "sendEmail",
     "setMailingList",
     "roleStatus", "shardStatus", "shardShed",
-    "farmStatus",
     "federatedStatus", "costStatus", "profileDump",
 )
 
@@ -207,14 +206,14 @@ def _commands(handler_cls) -> set[str]:
 def test_command_table_is_the_jax_table_less_the_unported():
     JaxHandler = _jax()[2]
     jax_names, port_names = _commands(JaxHandler), _commands(CommandHandler)
-    assert len(UNPORTED) == 14
+    assert len(UNPORTED) == 13
     assert port_names == jax_names - set(UNPORTED)
     assert set(UNPORTED) <= jax_names
-    # 63 commands, plus the five aliases both register
+    # 64 commands, plus the five aliases both register
     aliases = {"getAllInboxMessageIDs", "getAllSentMessageIDs",
                "getInboxMessageByID", "getSentMessageByID",
                "getSentMessagesBySender"}
-    assert len(port_names - aliases) == 63
+    assert len(port_names - aliases) == 64
 
 
 @pytest.mark.parametrize("method", UNPORTED)
@@ -514,8 +513,18 @@ async def test_client_status_keys_are_the_jax_keys_the_port_fills():
                     "bytesReceived", "powBackend", "powVerify", "device",
                     "health"):
             assert key in pst
-        for key in ("resilience", "farm", "clients", "lifecycle"):
+        for key in ("clients", "lifecycle"):
             assert key not in pst
+        # the farm block, and the journal and chaos parts of the
+        # resilience block
+        assert pst["farm"] == jst["farm"] == {"serving": False,
+                                              "delegating": False}
+        assert set(pst["resilience"]) == {"journal", "chaos"}
+        assert set(pst["resilience"]["journal"]) == \
+            set(jst["resilience"]["journal"])
+        assert pst["resilience"]["journal"]["pending"] == \
+            jst["resilience"]["journal"]["pending"] == 0
+        assert pst["resilience"]["chaos"] == jst["resilience"]["chaos"]
         assert pst["networkStatus"] == jst["networkStatus"]
         assert set(pst["powVerify"]) == set(jst["powVerify"])
         assert pst["powBackends"] == ["torch"]

@@ -122,12 +122,12 @@ TWINS = [
     "storage.inventory", "storage.writebehind", "utils.queues",
     "resilience.policy", "network.connection", "network.pool",
     "network.bufpool", "network.ratelimit", "api.server",
+    "resilience.chaos", "resilience.journal", "powfarm.scheduler",
+    "powfarm.server", "powfarm.client",
 ]
 
 #: families a JAX twin defines that the port leaves out or words apart
 CATALOG_EXCEPTIONS = {
-    "pow_fallback_total": "the port's dispatcher has one tier: no "
-                          "ladder to fall through",
     "pow_mesh_compiles_total": "no device mesh until multi-GPU is ported",
     "crypto_native_fallback_total": "the port's engine has one rung "
                                     "(the card): no native rung",

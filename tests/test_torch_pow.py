@@ -51,22 +51,51 @@ def _trial(nonce: int, ih: bytes) -> int:
 
 
 def _imported_modules(path: Path):
+    """Every module a file imports: import statements, and the constant
+    names handed to ``importlib.import_module`` or ``__import__``."""
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
         if isinstance(node, ast.Import):
             yield from (alias.name for alias in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             yield node.module
+        elif isinstance(node, ast.Call) and node.args and \
+                isinstance(node.args[0], ast.Constant) and \
+                isinstance(node.args[0].value, str) and (
+                    getattr(node.func, "attr", None) == "import_module"
+                    or getattr(node.func, "id", None) == "__import__"):
+            yield node.args[0].value
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
-                         + [ROOT / "chip_smoke.py"]
-                         + sorted((ROOT / "torch_tools").glob("*.py")),
+#: what the scan reads: the package (``powfarm/``, ``resilience/`` and
+#: every other subpackage), ``chip_smoke.py`` and ``torch_tools/``
+SCANNED = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+           + sorted((ROOT / "torch_tools").glob("*.py")))
+
+
+@pytest.mark.parametrize("path", SCANNED,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_neither_jax_nor_the_reference(path):
     for name in _imported_modules(path):
         top = name.split(".")[0]
         assert top not in ("jax", "jaxlib", "pybitmessage_tpu"), (
             "%s imports %s" % (path.relative_to(ROOT), name))
+
+
+def test_the_import_scan_covers_the_farm_and_the_journal(tmp_path):
+    scanned = {str(p.relative_to(PORT)) for p in SCANNED
+               if p.is_relative_to(PORT)}
+    farm = {"powfarm/%s.py" % m for m in
+            ("__init__", "client", "journal", "protocol", "scheduler",
+             "server")}
+    assert farm | {"resilience/journal.py", "resilience/chaos.py"} \
+        <= scanned
+    # the scan sees a dynamic import of the reference
+    probe = tmp_path / "probe.py"
+    probe.write_text('import importlib\n'
+                     'importlib.import_module("pybitmessage_tpu.powfarm")\n'
+                     '__import__("jax")\n')
+    assert list(_imported_modules(probe)) == [
+        "importlib", "pybitmessage_tpu.powfarm", "jax"]
 
 
 # ---------------------------------------------------------------------------
