@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's send and receive paths, its node, daemon and PoW farm on a card.
+"""Drive the PyTorch/CUDA port's send and receive paths, its node, daemon, PoW farm and role split on a card.
 
     python3 chip_smoke.py [--seed N] [--report PATH]
 
@@ -94,6 +94,23 @@ Phases (any failure exits non-zero):
    checkpoint, restarts, logs the job adopted from it, and the
    resubmission's nonce equals an uninterrupted solve through
    ``PowDispatcher`` in this process (``check_attribution``);
+9. the role split (``phase_roles``), ``python -m pybitmessage_tpu_torch``
+   daemons on the card at network difficulty: relays R1 (streams 1, 2)
+   and R2 (stream 3), edges E1 and E2 sharing one P2P port
+   (``SO_REUSEPORT``) and linked to both relays over role IPC, a fused
+   daemon A dialing the shared port and a fused daemon F0 alone.  (q) A
+   sends one ~1 KB message to an identity R1 made, until
+   ``ackreceived``: R1's inbox holds it, R1 launched kernels 4 and 5 and
+   kernel 1 or 2, the edges' verifier checked on the card only; (r)
+   2,000 objects (1,800 storm-shaped 116 B ones solved here by kernel 3,
+   100 ~1 KB msgs to R1's identities and 100 to nobody by kernel 2,
+   streams 1 and 2) offered by 8 wire clients to the edges, then to F0:
+   objects/s of each, the edges' split, none lost, R1's engine drains
+   and no host check, R1's card idle share over a ``profileDevice``
+   window; (s) a second wave of 500 stream-2 objects while R1 sheds
+   stream 2 to R2 (``shardShed``): R2 holds every stream-2 object of
+   both waves; SIGTERM stops all six with rc 0; each daemon's launch
+   record at its stop holds wrappers = registry;
 4. times: each kernel at its main-path shape (CUDA events over warm
    launches) beside its plain version and its bound; the packed kernel
    on the storm's own targets and on targets that mostly miss, with the
@@ -114,13 +131,14 @@ host driver, and is not attributed.
 
 The receive phases draw their data from a second generator seeded from
 ``--seed``, so phases 1-4 keep their inputs.
-Phases 5, 6, 7 and 8 run before phase 4 and draw from a fourth, a
-fifth, a sixth and a seventh generator; each kernel's entry in the
-kernels line carries its launches on the send or receive path
+Phases 5, 6, 7, 8 and 9 run before phase 4 and draw from a fourth, a
+fifth, a sixth, a seventh and an eighth generator; each kernel's entry
+in the kernels line carries its launches on the send or receive path
 (``launches``), in the node phase (``node_launches``), in the socket
-phase (``net_launches``), in phase 7's daemons (``daemon_launches``)
-and in the farm's daemons (``farm_launches``: F before the crash of (p)
-and after its restart, and E).
+phase (``net_launches``), in phase 7's daemons (``daemon_launches``),
+in the farm's daemons (``farm_launches``: F before the crash of (p)
+and after its restart, and E) and in phase 9's six daemons
+(``roles_launches``, from their launch records at stop).
 The second-to-last line of output is the ``{"kernels": [...]}`` record,
 the last ``{"ok": true, "device": {...}}``.  Exits non-zero without
 printing either when no CUDA device is present.
@@ -168,7 +186,7 @@ REPLACES = {
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms", "node_launches", "net_launches",
-               "daemon_launches", "farm_launches")
+               "daemon_launches", "farm_launches", "roles_launches")
 MASK64 = (1 << 64) - 1
 ALWAYS_HIT = MASK64
 
@@ -2199,10 +2217,17 @@ class _Daemon:
 
     def start(self, *extra) -> float:
         """Start and wait for the hook's ``apiEnabled``; the seconds."""
+        self.spawn(*extra)
+        return self.ready()
+
+    def spawn(self, *extra, p2p_port: int | None = None) -> None:
+        """Start the process (``p2p_port``: a P2P port shared with
+        other daemons; a free one of its own by default)."""
         if os.path.exists(self.events):
             os.remove(self.events)
-        self.p2p_port, self.api_port = _free_port(), _free_port()
-        t0 = time.perf_counter()
+        self.p2p_port = p2p_port or _free_port()
+        self.api_port = _free_port()
+        self._t0 = time.perf_counter()
         with open(self.out, "ab") as out:
             self.proc = subprocess.Popen(
                 self.argv("-p", str(self.p2p_port),
@@ -2211,14 +2236,18 @@ class _Daemon:
                           "--api-password", self.PASSWORD,
                           "--set", "apinotifypath=" + self.hook, *extra),
                 cwd=_ROOT, stdout=out, stderr=subprocess.STDOUT)
+
+    def ready(self) -> float:
+        """Wait for the hook's ``apiEnabled``; the seconds since the
+        spawn."""
         while "apiEnabled" not in self.hook_events():
             require(self.proc.poll() is None,
                     "daemon %s exited at start (rc %s)"
                     % (self.dir, self.proc.returncode))
-            require(time.perf_counter() - t0 < self.timeout,
+            require(time.perf_counter() - self._t0 < self.timeout,
                     "daemon %s never signalled apiEnabled" % self.dir)
             time.sleep(0.05)
-        return time.perf_counter() - t0
+        return time.perf_counter() - self._t0
 
     def hook_events(self) -> list:
         try:
@@ -3077,6 +3106,595 @@ def phase_farm(rng, *, device=None, crypto_batch: bool = True,
     return {"phases": report, "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the role split, port daemons sharing one card
+# ---------------------------------------------------------------------------
+
+
+class _Wire:
+    """A raw Bitmessage peer: version/verack, then object frames; what
+    the node sends back is read and dropped."""
+
+    async def connect(self, port: int, streams=(1, 2)):
+        from pybitmessage_tpu_torch.models.packet import (HEADER_LEN,
+                                                          pack_packet,
+                                                          unpack_header)
+        from pybitmessage_tpu_torch.network.messages import VersionPayload
+        self._pack = pack_packet
+        self.reader, self.writer = await asyncio.open_connection(
+            LOOPBACK, port)
+        self.writer.write(pack_packet("version", VersionPayload(
+            remote_port=port, my_port=0, nonce=os.urandom(8), services=1,
+            streams=tuple(streams)).encode()))
+        await self.writer.drain()
+        seen = set()
+        while not {"version", "verack"} <= seen:
+            command, length, _ = unpack_header(
+                await self.reader.readexactly(HEADER_LEN))
+            await self.reader.readexactly(length)
+            seen.add(command)
+            if command == "version":
+                self.writer.write(pack_packet("verack"))
+                await self.writer.drain()
+        self._drain = asyncio.ensure_future(self._discard())
+        return self
+
+    async def _discard(self) -> None:
+        try:
+            while await self.reader.read(1 << 16):
+                pass
+        except (ConnectionError, OSError):
+            pass
+
+    async def send(self, payloads) -> None:
+        for payload in payloads:
+            self.writer.write(self._pack("object", payload))
+        await self.writer.drain()
+
+    async def close(self) -> None:
+        self._drain.cancel()
+        self.writer.close()
+
+
+class _Flood:
+    """``clients`` wire clients offering ``payloads`` (dealt round
+    robin) to one P2P port, from a thread with its own event loop; the
+    connections stay open until :meth:`close`."""
+
+    def __init__(self, port: int, payloads, clients: int, timeout: float):
+        self.error = None
+        self._stop = threading.Event()
+        self._sent = threading.Event()
+        self._thread = threading.Thread(
+            target=lambda: asyncio.run(self._run(port, payloads, clients)),
+            name="bmtpu-smoke-flood")
+        self._thread.start()
+        require(self._sent.wait(timeout) and self.error is None,
+                "the flood was not offered: %r" % (self.error,))
+
+    async def _run(self, port, payloads, clients) -> None:
+        wires = []
+        try:
+            wires = [await _Wire().connect(port) for _ in range(clients)]
+            await asyncio.gather(*(w.send(payloads[i::clients])
+                                   for i, w in enumerate(wires)))
+        except BaseException as exc:  # surfaced by the main thread
+            self.error = exc
+        self._sent.set()
+        while not self._stop.is_set():
+            await asyncio.sleep(0.05)
+        for w in wires:
+            await w.close()
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join(30)
+        require(not self._thread.is_alive(), "a flood client hung")
+
+
+def _object_shell(expires: int, object_type: int, stream: int) -> bytes:
+    return (expires.to_bytes(8, "big") + object_type.to_bytes(4, "big")
+            + b"\x01" + bytes([stream]))
+
+
+def _solve_objects(sans, ttl: int, ntpb: int, device, packed: bool) -> list:
+    """Nonce-prefixed objects from their bodies: the search on the card,
+    kernel 3 at pack 16 (``packed``) or kernel 2 through the planner."""
+    from pybitmessage_tpu_torch.models.pow_math import (pow_initial_hash,
+                                                        pow_target)
+    from pybitmessage_tpu_torch.pow.pipeline import (BatchPlan,
+                                                     solve_batch_pipelined)
+    items = [(pow_initial_hash(b), pow_target(len(b) + 8, ttl, ntpb, ntpb,
+                                              clamp=False)) for b in sans]
+    plan = BatchPlan("packed", 16, 64, list(range(len(items)))) \
+        if packed and len(items) > 1 else None
+    out = solve_batch_pipelined(items, device=device, plan=plan)
+    for (ih, target), (nonce, _) in zip(items, out):
+        require(trial(nonce, ih) <= target,
+                "a flood object's nonce fails hashlib")
+    return [nonce.to_bytes(8, "big") + b for (nonce, _), b in zip(out, sans)]
+
+
+def _relay_objects(rng, n: int, stream: int, ttl: int) -> list:
+    """Storm-shaped objects before their nonce: 116 bytes, an object
+    type no node parses (stored and forwarded only), ``stream``."""
+    expires = int(time.time()) + ttl
+    return [_object_shell(expires, 42, stream) + rng.bytes(94)
+            for _ in range(n)]
+
+
+def _deterministic_keys(passphrase: bytes, n: int) -> list:
+    """The keys ``createDeterministicAddresses(passphrase, n)`` makes:
+    (address, ripe, signing and encryption public keys) each."""
+    from pybitmessage_tpu_torch.crypto.keys import (grind_deterministic_keys,
+                                                    host_priv_to_pub_many)
+    from pybitmessage_tpu_torch.utils.addresses import encode_address
+    out, nonce = [], 0
+    for _ in range(n):
+        sk, ek, ripe, nonce = grind_deterministic_keys(
+            passphrase, start_nonce=nonce, derive=host_priv_to_pub_many)
+        out.append((encode_address(4, 1, ripe), ripe,
+                    *host_priv_to_pub_many([sk, ek])))
+        nonce += 2
+    return out
+
+
+def _flood_msgs(rng, recipients, n: int, stream: int, ttl: int,
+                ntpb: int) -> list:
+    """``n`` msg objects of ~1 KB before their nonce, from one seeded
+    sender, each encrypted to the next of ``recipients`` ((ripe,
+    encryption public key) pairs; a random key for a msg to nobody) and
+    signed; no ack asked."""
+    from pybitmessage_tpu_torch.crypto.ecies import encrypt
+    from pybitmessage_tpu_torch.crypto.keys import host_priv_to_pub_many
+    from pybitmessage_tpu_torch.crypto.signing import sign
+    from pybitmessage_tpu_torch.models.msgcoding import encode_message
+    from pybitmessage_tpu_torch.models.payloads import (MsgPlaintext,
+                                                        get_bitfield)
+    sender_sk, sender_ek = rng.bytes(32), rng.bytes(32)
+    pub_sk, pub_ek = host_priv_to_pub_many([sender_sk, sender_ek])
+    expires = int(time.time()) + ttl
+    shell = _object_shell(expires, 2, stream)
+    out = []
+    for i in range(n):
+        ripe, pub = recipients[i % len(recipients)]
+        plain = MsgPlaintext(
+            sender_version=4, sender_stream=1,
+            bitfield=get_bitfield(False), pub_signing_key=pub_sk,
+            pub_encryption_key=pub_ek, nonce_trials_per_byte=ntpb,
+            extra_bytes=ntpb, dest_ripe=ripe, encoding=2,
+            message=encode_message("flood %d" % i, _text(rng, 640)),
+            ack_data=b"")
+        plain.signature = sign(shell + plain.encode_unsigned(), sender_sk)
+        out.append(shell + encrypt(plain.encode(), pub))
+    return out
+
+
+def _held_hashes(db_path: str) -> set:
+    """The inventory hashes of a stopped daemon's ``messages.dat``."""
+    conn = sqlite3.connect(db_path)
+    try:
+        return {bytes(h) for h, in conn.execute(
+            "SELECT hash FROM inventory")}
+    finally:
+        conn.close()
+
+
+def _launch_line(d) -> dict:
+    """The ``kernel launches at stop`` record of a stopped daemon."""
+    lines = [line for line in d.log().splitlines()
+             if "kernel launches at stop: " in line]
+    require(lines, "no launch record in %s/debug.log" % d.dir)
+    return json.loads(lines[-1].split("kernel launches at stop: ", 1)[1])
+
+
+def _trace_idle(doc: dict) -> dict:
+    """The card's busy and idle share over a ``profileDevice`` window:
+    the union of its kernel, copy and set intervals against the held
+    seconds."""
+    with open(os.path.join(doc["traceDir"], "trace.json")) as fh:
+        events = json.load(fh).get("traceEvents", [])
+    spans, kernels = [], {}
+    for ev in events:
+        if ev.get("ph") == "X" and ev.get("cat") in ("kernel", "gpu_memcpy",
+                                                     "gpu_memset"):
+            spans.append((float(ev["ts"]), float(ev["ts"]) + float(ev["dur"])))
+            if ev["cat"] == "kernel":
+                name = ev.get("name", "")
+                key = next((k for k in KERNEL_OF.values() if k in name),
+                           "other")
+                kernels[key] = kernels.get(key, 0) + 1
+    busy_us = sum(b - a for a, b in _union(spans))
+    window_us = doc["seconds"] * 1e6
+    return {"window_s": doc["seconds"], "busy_s": busy_us / 1e6,
+            "idle_share": 1.0 - busy_us / window_us if window_us else None,
+            "device_events": len(spans), "kernels": kernels}
+
+
+def phase_roles(rng, *, device=None, test_mode: bool = False,
+                crypto_batch: bool = True, storm: int = 1800,
+                msgs: int = 100, wave: int = 500, clients: int = 8,
+                msg_ttl: int = 4 * 86400, q_ttl: int = 4 * 86400,
+                timeout: float = 120.0) -> dict:
+    """Phase 9: the role split, ``python -m pybitmessage_tpu_torch``
+    daemons sharing the card, driven only through their APIs.
+
+    Relay R1 (``role=relay``, streams 1, 2) and relay R2 (stream 3)
+    serve role IPC; edges E1 and E2 (``role=edge``, ``edgeprocs=2``, one
+    shared ``-p``, streams 1-3) connect to both; daemon A (fused) dials
+    the shared port; daemon F0 (fused, streams 1, 2) stands alone.  All
+    start in parallel.  (q) R1 makes 8 deterministic identities; A sends
+    one ~1 KB message (TTL ``q_ttl``) to the first until A reads
+    ``ackreceived``: R1's inbox must hold it, R1's kernels 4 and 5 and
+    its kernel 1 or 2 (its pubkey) must have launched, the edges'
+    ``BatchVerifier`` checked what they received.  (r) The
+    same 2,000 objects (``storm`` storm-shaped 116 B objects of a type no
+    node parses, TTL 1 h, solved here by kernel 3; ``msgs`` ~1 KB msgs to
+    R1's identities on stream 1 and ``msgs`` to nobody on stream 2,
+    solved by kernel 2; the storm split evenly over streams 1 and 2) are
+    offered by ``clients`` wire clients to the edges' shared port, then
+    to F0: objects/s of each until R1's and F0's inventories hold them
+    all, the edges' split, R1's engine drains and host checks (0), a
+    ``profileDevice`` window on R1 over the split's flood; the edges'
+    and F0's verifiers must run device batches on it (a drain of fewer
+    than ``MIN_DEVICE_BATCH`` objects is checked with hashlib, as in the
+    JAX package), and no daemon may check crypto on host threads.  (s) While a
+    second wave of ``wave`` stream-2 objects is offered to the edges,
+    ``shardShed 2 <R2's IPC endpoint>`` on R1; the edges' shard maps
+    reach the new epoch, R2 holds every stream-2 object of both waves,
+    R1 reports what it drained and forwarded.  SIGTERM stops all six
+    with rc 0 and "node stopped"; each daemon's launch record at its
+    stop holds its wrappers' counts equal to its registry's, and every
+    object of R1's, R2's, F0's and A's inventories passes hashlib's PoW
+    check; no stream-1 or stream-2 object is lost anywhere.
+    (``device="cpu"``, ``test_mode=True``, ``crypto_batch=False`` and
+    small sizes rehearse it without the launch and host-check gates.)
+    """
+    from pybitmessage_tpu_torch.utils.hashes import inventory_hash
+
+    on_card = device != "cpu"
+    flags = ["--device", device or "cuda"]
+    if test_mode:
+        flags.append("-t")
+    if not crypto_batch:
+        flags += ["--set", "cryptobatch=false"]
+    ntpb = 10 if test_mode else 1000
+    report: dict = {}
+    daemons: list = []
+
+    def b64(text) -> str:
+        raw = text if isinstance(text, bytes) else text.encode()
+        return base64.b64encode(raw).decode()
+
+    def until(pred, what: str, limit: float = timeout) -> float:
+        t0 = time.perf_counter()
+        while not pred():
+            require(time.perf_counter() - t0 < limit,
+                    "timed out after %.0f s waiting for %s" % (limit, what))
+            time.sleep(0.05)
+        return time.perf_counter() - t0
+
+    def status(d) -> dict:
+        st = json.loads(d.rpc("clientStatus"))
+        programs = st["device"]["programs"]
+        return {"launches": {kernel: programs.get(program, {}).get(
+                    "launches", 0) for kernel, program in PROGRAM_OF.items()},
+                "pow_verify": programs.get("pow_verify", {}).get(
+                    "launches", 0),
+                "crypto": st["crypto"], "powVerify": st["powVerify"]}
+
+    def role(d) -> dict:
+        return json.loads(d.rpc("roleStatus"))
+
+    def inbox(d, to: str) -> list:
+        return [m for m in json.loads(d.rpc("getAllInboxMessages"))[
+            "inboxMessages"] if m["toAddress"] == to]
+
+    with tempfile.TemporaryDirectory(prefix="bm-roles-") as root:
+        ipc1, ipc2, shared = _free_port(), _free_port(), _free_port()
+        r1 = _Daemon(root, "R1", flags + [
+            "--set", "role=relay", "--set", "rolestreams=1,2",
+            "--set", "roleipclisten=%s:%d" % (LOOPBACK, ipc1)], timeout)
+        r2 = _Daemon(root, "R2", flags + [
+            "--set", "role=relay", "--set", "rolestreams=3",
+            "--set", "roleipclisten=%s:%d" % (LOOPBACK, ipc2)], timeout)
+        edge_flags = flags + [
+            "--set", "role=edge", "--set", "edgeprocs=2",
+            "--set", "rolestreams=1,2,3", "--set",
+            "roleipcconnect=%s:%d,%s:%d" % (LOOPBACK, ipc1, LOOPBACK, ipc2)]
+        e1 = _Daemon(root, "E1", edge_flags, timeout)
+        e2 = _Daemon(root, "E2", edge_flags, timeout)
+        a = _Daemon(root, "A", flags + ["--set", "breakercooldown=1"],
+                    timeout)
+        f0 = _Daemon(root, "F0", flags + ["--set", "rolestreams=1,2"],
+                     timeout)
+        daemons += [r1, r2, e1, e2, a, f0]
+        edges = (e1, e2)
+        try:
+            t_start = time.perf_counter()
+            for d in (r1, r2, f0):
+                d.spawn()
+            for d in edges:
+                d.spawn(p2p_port=shared)
+            a.spawn("--trusted-peer", "%s:%d" % (LOOPBACK, shared))
+
+            # the flood, built while the daemons start: the storm by
+            # kernel 3, the msgs by kernel 2, in this process
+            t0 = time.perf_counter()
+            before_build = registry_counts()
+            passphrase = rng.bytes(16).hex().encode()
+            keys = _deterministic_keys(passphrase, 8)
+            half = storm // 2
+            storm_sans = {s: _relay_objects(rng, half, s, 3600)
+                          for s in (1, 2)}
+            # the msgs at the difficulty R1's identities demand (the
+            # network's, also when rehearsing in test mode)
+            msg_sans = {
+                1: _flood_msgs(rng, [(k[1], k[3]) for k in keys], msgs, 1,
+                               msg_ttl, 1000),
+                2: _flood_msgs(rng, [(rng.bytes(20), pub) for pub in
+                                     _random_pubs(rng, 8)], msgs, 2,
+                               msg_ttl, 1000)}
+            wave2_sans = _relay_objects(rng, wave, 2, 3600)
+            built_storm = _solve_objects(
+                storm_sans[1] + storm_sans[2] + wave2_sans, 3600, ntpb,
+                device, packed=True)
+            built_msgs = _solve_objects(msg_sans[1] + msg_sans[2],
+                                        msg_ttl, 1000, device, packed=False)
+            storm_objs = built_storm[:storm]
+            wave2 = built_storm[storm:]
+            flood = [p for pair in zip(storm_objs[:half], storm_objs[half:])
+                     for p in pair] + built_msgs
+            flood_hashes = [inventory_hash(p) for p in flood]
+            wave2_hashes = [inventory_hash(p) for p in wave2]
+            stream_of = {inventory_hash(p): p[21] for p in flood + wave2}
+            report["build"] = {
+                "s": time.perf_counter() - t0, "objects": len(flood)
+                + len(wave2), "attribution": check_attribution(
+                    "roles flood build", before_build, {})
+                if on_card else None}
+
+            starts = {d.dir.rsplit(os.sep, 1)[1]: d.ready()
+                      for d in daemons}
+            linked = until(lambda: all(
+                all(lk["connected"] for lk in role(e)["ipc"]["links"])
+                for e in edges), "the edges' links to R1 and R2")
+            until(lambda: json.loads(a.rpc("clientStatus"))[
+                "networkConnections"] >= 1, "A's connection to an edge")
+            report["start"] = {"s": time.perf_counter() - t_start,
+                               "ready_s": starts, "linked_s": linked}
+            print("roles: six daemons ready in %.2f s (%s), the edges "
+                  "linked %.2f s later; the flood built in %.2f s"
+                  % (report["start"]["s"], {k: round(v, 2) for k, v in
+                                            starts.items()}, linked,
+                     report["build"]["s"]))
+            s0 = {n: status(d) for n, d in zip(
+                ("R1", "R2", "E1", "E2", "A", "F0"), daemons)}
+
+            # (q) one message through the split
+            t0 = time.perf_counter()
+            addresses = json.loads(r1.rpc(
+                "createDeterministicAddresses", b64(passphrase), 8))[
+                "addresses"]
+            require(addresses == [k[0] for k in keys],
+                    "R1's deterministic addresses differ from this "
+                    "process's")
+            x = a.rpc("createRandomAddress", b64("roles A"))
+            subject, body = _text(rng, 40), _text(rng, 960)
+            ack = a.rpc("sendMessage", addresses[0], x, b64(subject),
+                        b64(body), 2, q_ttl)
+            until(lambda: a.rpc("getStatus", ack) == "ackreceived",
+                  "A's ack through the split")
+            q_wall = time.perf_counter() - t0
+            [row] = inbox(r1, addresses[0])
+            require(row["fromAddress"] == x
+                    and base64.b64decode(row["subject"]).decode() == subject
+                    and base64.b64decode(row["message"]).decode() == body,
+                    "R1's inbox row differs from what A sent")
+            s1 = {n: status(d) for n, d in zip(s0, daemons)}
+            rise = {n: {k: s1[n]["launches"][k] - s0[n]["launches"][k]
+                        for k in PROGRAM_OF} for n in s0}
+            edge_verify = {n: s1[n]["powVerify"] for n in ("E1", "E2")}
+            report["q"] = {"wall_s": q_wall, "launch_rise": rise,
+                           "edge_verify": edge_verify}
+            print("roles (q): A -> R1 through the edges until ackreceived "
+                  "%.3f s; launches risen %s; edges' verifier %s"
+                  % (q_wall, rise, edge_verify))
+            if on_card:
+                require(rise["R1"]["secp_verify"] > 0
+                        and rise["R1"]["secp_ecdh"] > 0,
+                        "R1 launched no kernel 4 or 5 for A's message")
+                require(rise["R1"]["search"] + rise["R1"]["batch_search"]
+                        > 0, "R1 launched no kernel 1 or 2 for its pubkey")
+                require(sum(v["device"] + v["host"]
+                            for v in edge_verify.values()) > 0,
+                        "the edges' verifier checked nothing: %s"
+                        % edge_verify)
+                for name in s1:
+                    host = s1[name]["crypto"]["hostChecks"]
+                    require(host["verifies"] == host["decrypts"] == 0,
+                            "%s checked crypto on host threads" % name)
+
+            # a warm-up capture on R1: CUPTI's first start is slow
+            warm = json.loads(r1.rpc("profileDevice", 0.2))
+            require(warm.get("ok") is True, "R1's warm-up capture failed")
+
+            # (r) the flood through the split, then into F0 alone
+            def held(d) -> int:
+                return role(d)["inventoryObjects"]
+            r1_before, f0_before = held(r1), held(f0)
+            acked_before = {n: sum(lk["acked"] for lk in role(d)["ipc"][
+                "links"]) for n, d in zip(("E1", "E2"), edges)}
+            box: dict = {}
+
+            def capture(seconds=5.0):
+                box["doc"] = json.loads(r1.rpc("profileDevice", seconds))
+            tracer = threading.Thread(target=capture,
+                                      name="bmtpu-smoke-roles-trace")
+            t0 = t_r = time.perf_counter()
+            tracer.start()
+            offer = _Flood(shared, flood, clients, timeout)
+            until(lambda: held(r1) - r1_before >= len(flood),
+                  "R1 to hold the flood")
+            split_wall = time.perf_counter() - t0
+            offer.close()
+            tracer.join(timeout)
+            split_r1 = role(r1)
+            acked = {n: sum(lk["acked"] for lk in role(d)["ipc"]["links"])
+                     - acked_before[n] for n, d in zip(("E1", "E2"), edges)}
+            idle = _trace_idle(box["doc"]) if box.get("doc", {}).get("ok") \
+                else {"error": box.get("doc")}
+            t0 = time.perf_counter()
+            offer = _Flood(f0.p2p_port, flood, clients, timeout)
+            until(lambda: held(f0) - f0_before >= len(flood),
+                  "F0 to hold the flood")
+            f0_wall = time.perf_counter() - t0
+            offer.close()
+            lost_split = len(flood) - (held(r1) - r1_before)
+            lost_f0 = len(flood) - (held(f0) - f0_before)
+            until(lambda: len(json.loads(r1.rpc("getAllInboxMessages"))[
+                "inboxMessages"]) == 1 + msgs, "R1's inbox to hold the "
+                "flood's msgs")
+            inbox_wall = time.perf_counter() - t_r
+            s2 = {n: status(d) for n, d in zip(s0, daemons)}
+            r1_crypto = s2["R1"]["crypto"]
+            report["r"] = {
+                "objects": len(flood), "split_wall_s": split_wall,
+                "split_objects_per_s": len(flood) / split_wall,
+                "f0_wall_s": f0_wall,
+                "f0_objects_per_s": len(flood) / f0_wall,
+                "edge_acked": acked, "lost_split": lost_split,
+                "lost_f0": lost_f0, "r1_crypto": r1_crypto,
+                "r1_ipc": {k: split_r1["ipc"][k] for k in
+                           ("accepted", "duplicates", "rejected")},
+                "edge_verify": {n: s2[n]["powVerify"] for n in ("E1", "E2")},
+                "f0_verify": s2["F0"]["powVerify"],
+                "r1_trace": idle, "r1_inbox_after_s": inbox_wall}
+            print("roles (r): %d objects through 2 edges into R1 in %.3f s "
+                  "(%.1f objects/s), into F0 alone in %.3f s (%.1f "
+                  "objects/s); edges acked %s; lost %d and %d; R1 %s; "
+                  "R1's crypto %s; R1's trace %s"
+                  % (len(flood), split_wall, len(flood) / split_wall,
+                     f0_wall, len(flood) / f0_wall, acked, lost_split,
+                     lost_f0, report["r"]["r1_ipc"], r1_crypto, idle))
+            require(lost_split == 0 and lost_f0 == 0,
+                    "the flood lost objects: split %d, F0 %d"
+                    % (lost_split, lost_f0))
+            if on_card:
+                for name in s2:
+                    host = s2[name]["crypto"]["hostChecks"]
+                    require(host["verifies"] == host["decrypts"] == 0,
+                            "%s checked crypto on host threads" % name)
+                require(r1_crypto["drains"]["count"] > 0
+                        and r1_crypto["drains"]["failed"] == 0,
+                        "R1's engine drained nothing or failed")
+                for name in ("E1", "E2", "F0"):
+                    require(s2[name]["powVerify"]["deviceBatches"]
+                            > s1[name]["powVerify"]["deviceBatches"],
+                            "%s's verifier ran no device batch on the "
+                            "flood" % name)
+
+            # (s) a live shed of stream 2 under load
+            r2_before = held(r2)
+            offer = _Flood(shared, wave2, clients, timeout)
+            t0 = time.perf_counter()
+            shed = json.loads(r1.rpc("shardShed", 2,
+                                     "%s:%d" % (LOOPBACK, ipc2)))
+            shed_wall = time.perf_counter() - t0
+            epochs = until(lambda: all(
+                all(lk["epoch"] >= 1 for lk in json.loads(e.rpc(
+                    "shardStatus"))["ipc"]["links"]) for e in edges),
+                "the edges' shard maps at the new epoch")
+            stream2 = sum(1 for h in flood_hashes if stream_of[h] == 2)
+            until(lambda: held(r2) - r2_before >= stream2 + len(wave2),
+                  "R2 to hold both waves' stream-2 objects")
+            offer.close()
+            s_r1 = role(r1)
+            report["s"] = {"shed": shed, "shed_wall_s": shed_wall,
+                           "epochs_s": epochs,
+                           "r1_forwarded": s_r1["ipc"]["forwarded"],
+                           "r1_forwarding": s_r1["ipc"]["forwarding"],
+                           "r1_streams": s_r1["streams"],
+                           "r2_held": held(r2) - r2_before}
+            print("roles (s): shardShed 2 -> R2 in %.3f s: %s; the edges "
+                  "at the new epoch %.3f s later; R1 forwarded %d; R2 "
+                  "holds %d stream-2 objects"
+                  % (shed_wall, shed, epochs, s_r1["ipc"]["forwarded"],
+                     report["s"]["r2_held"]))
+            require(shed["objectsDrained"] > 0 and shed["epoch"] >= 1,
+                    "R1's shed drained nothing")
+            require(s_r1["streams"] == [1], "R1 still owns %s"
+                    % s_r1["streams"])
+
+            # the end
+            final = {n: status(d) for n, d in zip(s0, daemons)}
+            codes = {}
+            for name, d in zip(s0, daemons):
+                t0 = time.perf_counter()
+                d.proc.send_signal(signal.SIGTERM)
+                codes[name] = d.proc.wait(timeout=30)
+                require(codes[name] == 0, "daemon %s exited %d on SIGTERM"
+                        % (name, codes[name]))
+                require(time.perf_counter() - t0 < 30,
+                        "daemon %s took 30 s to stop" % name)
+                require("node stopped" in d.log(),
+                        "no 'node stopped' in %s/debug.log" % d.dir)
+        except BaseException:
+            for d in daemons:
+                print("--- daemon %s output (last lines):\n%s"
+                      % (d.dir, d.tail()), file=sys.stderr)
+            raise
+        finally:
+            for d in daemons:
+                d.kill()
+        records = {n: _launch_line(d) for n, d in zip(s0, daemons)}
+        # the wrappers count only launches on the card
+        for name, rec in records.items() if on_card else ():
+            for kernel, program in PROGRAM_OF.items():
+                require(rec["wrappers"][kernel] == rec["registry"][program],
+                        "%s: the registry counts %d %s launches, the "
+                        "wrappers %d" % (name, rec["registry"][program],
+                                         program, rec["wrappers"][kernel]))
+            require(rec["registry"]["pow_verify"] == rec["verifyBatches"],
+                    "%s: %d pow_verify launches for %d verifier device "
+                    "batches" % (name, rec["registry"]["pow_verify"],
+                                 rec["verifyBatches"]))
+        held_db = {n: _held_hashes(os.path.join(d.dir, "messages.dat"))
+                   for n, d in zip(s0, daemons) if n in ("R1", "R2", "F0")}
+        missing = {
+            "R1": sum(h not in held_db["R1"] for h in flood_hashes),
+            "R2": sum(h not in held_db["R2"] for h in
+                      [h for h in flood_hashes if stream_of[h] == 2]
+                      + wave2_hashes),
+            "F0": sum(h not in held_db["F0"] for h in flood_hashes)}
+        require(not any(missing.values()),
+                "objects missing from the stores: %s" % missing)
+        checked = sum(_inventory_pow_checks(
+            os.path.join(d.dir, "messages.dat"), ntpb)
+            for n, d in zip(s0, daemons) if n in ("R1", "R2", "F0", "A"))
+    launches = {k: sum(rec["wrappers"][k] for rec in records.values())
+                for k in PROGRAM_OF}
+    report.update(final=final, records=records, codes=codes,
+                  objects_checked=checked, missing=missing)
+    print("roles: every daemon stopped with rc 0; launch records "
+          "(wrappers = registry) %s; %d objects of R1, R2, F0 and A pass "
+          "hashlib's check; none missing %s"
+          % ({n: r["wrappers"] for n, r in records.items()}, checked,
+             missing))
+    print("roles launches: %s" % launches)
+    if on_card:
+        for kernel in ("secp_verify", "secp_ecdh"):
+            require(launches[kernel] > 0,
+                    "kernel %s not launched in the role daemons" % kernel)
+    return {"phases": report, "launches": launches}
+
+
+def _random_pubs(rng, n: int) -> list:
+    from pybitmessage_tpu_torch.crypto.keys import host_priv_to_pub_many
+    return host_priv_to_pub_many([rng.bytes(32) for _ in range(n)])
+
+
+
 def phase_times_secp(prng, env: dict, launches: dict, errs: dict) -> list:
     """Each secp kernel at the main path's drain (4,096 lanes) and on a
     full card (65,536 lanes): CUDA-event times over warm launches, the
@@ -3207,6 +3825,8 @@ def main() -> int:
     daemon = phase_daemon(np.random.default_rng([args.seed, 6]))
     # the PoW farm's daemons: a seventh generator
     farm = phase_farm(np.random.default_rng([args.seed, 7]))
+    # the role split's daemons: an eighth generator
+    roles = phase_roles(np.random.default_rng([args.seed, 9]))
     kernels = phase_times(rng, env, main_path["launches"], errs)
     kernels += phase_times_secp(prng, env, receive["launches"], errs)
     for entry in kernels:
@@ -3214,6 +3834,7 @@ def main() -> int:
         entry["net_launches"] = sockets["launches"][entry["name"]]
         entry["daemon_launches"] = daemon["launches"][entry["name"]]
         entry["farm_launches"] = farm["launches"][entry["name"]]
+        entry["roles_launches"] = roles["launches"][entry["name"]]
     wall = time.perf_counter() - t_start
     print("chip_smoke wall %.1f s" % wall)
     if args.report:
@@ -3221,7 +3842,8 @@ def main() -> int:
             json.dump({"env": env, "main_path": main_path,
                        "selftest": selftest, "receive": receive,
                        "node": node, "sockets": sockets, "daemon": daemon,
-                       "farm": farm, "attribution": attribution,
+                       "farm": farm, "roles": roles,
+                       "attribution": attribution,
                        "utilization": utilization, "kernels": kernels,
                        "wall_s": wall}, fh, indent=1)
     print(json.dumps({"kernels": [

@@ -1,5 +1,6 @@
 """Daemon entry point: ``python -m pybitmessage_tpu_torch`` (copy of
-``pybitmessage_tpu.__main__``, the fused ``all``-role node).
+``pybitmessage_tpu.__main__``: the fused ``all`` node, an ``edge`` or a
+``relay``).
 
 Reference: src/bitmessagemain.py Main.start() — single process, clean
 shutdown on SIGINT/SIGTERM, optional test mode (-t) and trusted peer;
@@ -14,13 +15,28 @@ spec naming an injection site this package does not plant; the
 subsystems the JAX package runs by default and this one does not yet
 (``NOT_RUN``) are named in one warning line at startup.  The PoW farm
 (``powfarmlisten``, ``powfarmconnect`` and their knobs), ``powmaxretries``
-and ``powstalltimeout`` are applied as the JAX daemon applies them.
+and ``powstalltimeout`` are applied as the JAX daemon applies them, and
+so are the roles (``role=edge|relay``, ``rolestreams``,
+``roleipclisten``, ``roleipcconnect``; ``edgeprocs`` above 1 shares the
+P2P port through ``SO_REUSEPORT``).  A split deployment on one host::
+
+    python -m pybitmessage_tpu_torch -d R1 --set role=relay \
+        --set rolestreams=1,2 --set roleipclisten=127.0.0.1:8460 ...
+    python -m pybitmessage_tpu_torch -d E1 -p 8444 --set role=edge \
+        --set edgeprocs=2 --set rolestreams=1,2 \
+        --set roleipcconnect=127.0.0.1:8460 ...   (E2 the same)
+
+At its stop the daemon logs one ``kernel launches at stop:`` line, a
+JSON object with its kernel wrappers' launch counts beside the device
+telemetry's ``device_launches_total`` of each program, so a caller can
+hold the two to each other for the whole life of the process.
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
+import json
 import logging
 import signal
 import sys
@@ -36,7 +52,7 @@ def _on(value: str) -> bool:
 #: without the subsystem would not be what the setting asked for
 #: (proxied traffic must never go out unproxied)
 REFUSED = {
-    "role": ("all", lambda v: v != "all"),
+    "role": ("all", lambda v: v == "client"),
     "sockstype": ("none", lambda v: v != "none"),
     "smtpdenabled": ("false", _on),
     "smtpdeliver": ("", bool),
@@ -147,6 +163,29 @@ def not_run_options(settings) -> list[str]:
             if on(settings.get(key, default))]
 
 
+def launch_record() -> dict:
+    """The kernel wrappers' ``LAUNCHES`` (zeros for a wrapper never
+    imported) beside the registry's ``device_launches_total`` of each
+    program and the PoW verifier's device batches."""
+    from .observability import REGISTRY
+    wrappers = {}
+    for module, names in (
+            ("pybitmessage_tpu_torch.ops.sha512_cuda",
+             ("search", "batch_search", "packed_search")),
+            ("pybitmessage_tpu_torch.ops.secp256k1_cuda",
+             ("secp_verify", "secp_ecdh"))):
+        mod = sys.modules.get(module)
+        for name in names:
+            wrappers[name] = mod.LAUNCHES[name] if mod is not None else 0
+    registry = {p: int(REGISTRY.sample("device_launches_total",
+                                       {"program": p}))
+                for p in ("pallas_slab", "batch_search", "packed_search",
+                          "secp_verify", "secp_ecdh", "pow_verify")}
+    return {"wrappers": wrappers, "registry": registry,
+            "verifyBatches": int(REGISTRY.sample(
+                "pow_verify_batches_total"))}
+
+
 async def run(args) -> int:
     from . import resolve_device
     from .api import APIServer
@@ -182,6 +221,7 @@ async def run(args) -> int:
     if not_run:
         logging.warning("not run by this package yet, on in the JAX "
                         "package's defaults: %s", ", ".join(not_run))
+    from .roles import parse_role_streams
     node = Node(args.data_dir,
                 port=settings.getint("port"),
                 listen=not args.no_listen,
@@ -193,8 +233,17 @@ async def run(args) -> int:
                 farm_listen=settings.get("powfarmlisten") or None,
                 farm_connect=settings.get("powfarmconnect") or None,
                 farm_tenant=settings.get("powfarmtenant"),
-                farm_secret=settings.get("powfarmsecret"))
+                farm_secret=settings.get("powfarmsecret"),
+                role=settings.get("role"),
+                role_streams=parse_role_streams(
+                    settings.get("rolestreams")) or None,
+                role_ipc_listen=settings.get("roleipclisten") or None,
+                role_ipc_connect=settings.get("roleipcconnect") or None)
     node.settings = settings
+    # edgeprocs > 1: the listener shares its port via SO_REUSEPORT so
+    # sibling edge processes can bind beside it
+    if settings.getint("edgeprocs") > 1:
+        node.pool.reuse_port = True
     # the PoW solver farm's server and client knobs
     if node.farm_server is not None:
         srv = node.farm_server
@@ -303,6 +352,8 @@ async def run(args) -> int:
     if api is not None:
         await api.stop()
     await node.stop()
+    logging.info("kernel launches at stop: %s",
+                 json.dumps(launch_record(), sort_keys=True))
     settings.save()
     return 0
 

@@ -11,10 +11,11 @@ Not here yet, so a call answers ``APIError 20`` as for any method the
 handler lacks: the email gateway and mailing lists
 (``setEmailGateway``, ``emailGatewayRegister``,
 ``emailGatewayUnregister``, ``emailGatewayStatus``,
-``emailGatewaySettings``, ``sendEmail``, ``setMailingList``), roles
-(``roleStatus``, ``shardStatus``, ``shardShed``), federation
+``emailGatewaySettings``, ``sendEmail``, ``setMailingList``), federation
 (``federatedStatus``) and the sampling profiler (``costStatus``,
-``profileDump``).
+``profileDump``).  ``roleStatus``, ``shardStatus`` and ``shardShed``
+answer as the JAX ones do over the port's ``roles`` runtimes (an edge's
+relay links, a relay's edges and its live shard handoff).
 
 The telemetry commands (``metrics``, ``dumpFlightRecorder``,
 ``deviceStatus``, ``profileDevice``, ``objectTimeline``) answer as the
@@ -827,6 +828,64 @@ class CommandHandler:
         if client is not None:
             out["client"] = client.snapshot()
         return out
+
+    def cmd_roleStatus(self):
+        """Role-split deployment status: this node's role, subscribed
+        streams, per-stream peer overlay, inventory size and the role
+        IPC runtime's snapshot (an edge's relay links, a relay's edges
+        and ingest counts)."""
+        node = self.node
+        out = {
+            "role": getattr(node, "role", "all"),
+            "streams": list(node.ctx.streams),
+            "p2pListen": bool(node.listen),
+            "streamPeers": {str(s): n for s, n
+                            in node.pool.stream_overlay().items()},
+            "inventoryObjects": len(node.inventory),
+        }
+        runtime = getattr(node, "role_runtime", None)
+        if runtime is not None:
+            out["ipc"] = runtime.snapshot()
+        return json.dumps(out, indent=4)
+
+    def cmd_shardStatus(self):
+        """Elastic shard status: this node's shard-map epoch, owned
+        streams, and the role runtime's view (an edge's replica sets
+        and per-link epochs, a relay's forwarding table and edges)."""
+        node = self.node
+        runtime = getattr(node, "role_runtime", None)
+        out = {
+            "role": getattr(node, "role", "all"),
+            "streams": list(node.ctx.streams),
+            "epoch": getattr(runtime, "epoch", 0),
+            "inventoryObjects": len(node.inventory),
+        }
+        if runtime is not None:
+            out["ipc"] = runtime.snapshot()
+        return json.dumps(out, indent=4)
+
+    async def cmd_shardShed(self, stream, target):
+        """Relay only: hand ``stream`` off live to the relay at
+        ``target`` (``host:port`` of its role-IPC listener): drain the
+        stream over acked OBJECTS frames, shed it, SHARD_UPDATE every
+        edge and forward late records.  Safe to re-invoke after an
+        interruption; returns drain counts and the new epoch."""
+        runtime = getattr(self.node, "role_runtime", None)
+        shed = getattr(runtime, "shed_stream", None)
+        if shed is None:
+            raise APIError(0, "shardShed requires the relay role")
+        try:
+            stream = int(stream)
+        except (TypeError, ValueError):
+            raise APIError(0, "stream must be an integer")
+        try:
+            result = await shed(stream, str(target))
+        except ValueError as exc:
+            raise APIError(0, str(exc))
+        except (OSError, ConnectionError, asyncio.TimeoutError) as exc:
+            raise APIError(0, "handoff to %s failed (re-invoke to "
+                           "resume): %r" % (target, exc))
+        return json.dumps(result)
 
     def cmd_farmStatus(self):
         """Full PoW solver-farm status: scheduler snapshot (per-lane

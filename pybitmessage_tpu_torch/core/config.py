@@ -107,6 +107,25 @@ DEFAULTS: dict[str, str] = {
     "powfarmmaxtenants": "64",       # open-mode tenant auto-
                                      # registration cap (tenant ids
                                      # are metric label values)
+    # -- node roles --
+    "role": "all",                   # all (fused single process) |
+                                     # edge (sockets/framing/PoW
+                                     # verify, hand-off over role IPC)
+                                     # | relay (storage/processing
+                                     # authority for a stream shard)
+    "rolestreams": "",               # comma list of stream numbers
+                                     # this process subscribes to
+                                     # (empty = stream 1)
+    "edgeprocs": "1",                # edge processes sharing the P2P
+                                     # listen port via SO_REUSEPORT
+                                     # (>1 also arms reuse_port on a
+                                     # fused node for rolling splits)
+    "roleipclisten": "",             # relay: serve role IPC on this
+                                     # "port" or "host:port"
+    "roleipcconnect": "",            # edge: relay endpoints, comma
+                                     # list of "host:port" (shard
+                                     # ownership learned from
+                                     # HELLO_ACK)
     # -- resilience --
     "powstalltimeout": "120",        # per-harvest slab stall deadline,
                                      # seconds (0 = watchdog off)
@@ -175,6 +194,27 @@ def _validate_tenant_table(value: str) -> bool:
         return False
 
 
+def _validate_role_streams(value: str) -> bool:
+    from ..roles.registry import parse_role_streams
+    try:
+        parse_role_streams(value)
+        return True
+    except ValueError:
+        return False
+
+
+def _validate_endpoint_list(value: str) -> bool:
+    """Comma list of ``host:port`` (or bare ``port``) endpoints."""
+    for entry in value.split(","):
+        entry = entry.strip()
+        if not entry:
+            continue
+        port = entry.rpartition(":")[2]
+        if not port.isdigit() or not 1 <= int(port) <= 65535:
+            return False
+    return True
+
+
 #: per-option validators (reference validate_<section>_<option>,
 #: bmconfigparser.py:142-158 — notably maxoutbound <= 8)
 VALIDATORS: dict[str, Callable[[str], bool]] = {
@@ -217,6 +257,13 @@ VALIDATORS: dict[str, Callable[[str], bool]] = {
     "powfarmrate": _validate_float_range(0.0, 1e9),
     "powfarmburst": _validate_float_range(1.0, 1e9),
     "powfarmmaxtenants": _validate_int_range(1, 512),
+    "role": lambda v: v in ("all", "edge", "relay", "client"),
+    "rolestreams": _validate_role_streams,
+    "edgeprocs": _validate_int_range(1, 64),
+    "roleipclisten": lambda v: v == "" or (
+        v.rpartition(":")[2].isdigit()
+        and 0 <= int(v.rpartition(":")[2]) <= 65535),
+    "roleipcconnect": _validate_endpoint_list,
     "powstalltimeout": _validate_float_range(0.0, 86400.0),
     "powmaxretries": _validate_int_range(1, 100),
     "chaosseed": _validate_int_range(0, 2**63 - 1),

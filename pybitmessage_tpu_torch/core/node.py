@@ -1,6 +1,6 @@
 """The Node application object: storage + network + workers, wired to
-the card (copy of ``pybitmessage_tpu.core.node``, the ``all`` role in
-one process with an SQLite inventory).
+the card (copy of ``pybitmessage_tpu.core.node``, with an SQLite
+inventory and the ``all``, ``edge`` and ``relay`` roles).
 
 Startup order mirrors the reference (bitmessagemain.py:85-287): storage
 first, key caches, workers, then networking; shutdown unwinds in
@@ -32,9 +32,16 @@ node killed mid-solve resumes from the checkpoint.  ``farm_connect``
 dispatcher (this node's PoW is delegated to a shared farm);
 ``farm_listen`` serves PoW-as-a-service to other nodes (``FarmServer``
 over the node's dispatcher, its journal ``farmjournal.dat``).
+``role`` splits the node (``roles/``): an ``edge`` keeps an
+``EdgeCache`` in place of the inventory, checks every received object's
+PoW on its ``BatchVerifier`` and hands it over role IPC
+(``role_ipc_connect``: "host:port,...") to the relay owning its stream;
+a ``relay`` serves role IPC on ``role_ipc_listen``, does not listen for
+P2P, and stores, processes and sends for its streams
+(``role_streams``, the fused node's too; default ``(stream,)``).
 Sync, TLS, SOCKS, UDP discovery, UPnP, federation, the sampling
-profiler, the email gateway and the roles other than ``all`` are not
-part of this package yet.
+profiler, the email gateway and the ``client`` role are not part of this
+package yet.
 """
 
 from __future__ import annotations
@@ -56,6 +63,7 @@ from ..pow.service import PowService
 from ..pow.verify_service import BatchVerifier
 from ..powfarm import FarmJournal, FarmServer, FarmSolverTier
 from ..resilience.journal import PowJournal
+from ..roles import get_role
 from ..storage.db import Database
 from ..storage.inventory import Inventory
 from ..storage.knownnodes import KnownNodes
@@ -84,7 +92,9 @@ class Node:
     ``pow_window`` is the PowService coalescing window.  ``farm_listen``
     and ``farm_connect`` ("host:port", port 0 for any free one when
     listening) serve a PoW farm and delegate to one, under
-    ``farm_tenant`` signed with ``farm_secret``.
+    ``farm_tenant`` signed with ``farm_secret``.  ``role``,
+    ``role_streams``, ``role_ipc_listen`` and ``role_ipc_connect`` make
+    it an edge or a relay; ``role="client"`` raises (not ported yet).
     """
 
     def __init__(self, data_dir: str | None = None, *,
@@ -95,7 +105,16 @@ class Node:
                  pow_window: float | None = None, device=None,
                  crypto_batch: bool = True, farm_listen: str | None = None,
                  farm_connect: str | None = None,
-                 farm_tenant: str = "default", farm_secret: str = ""):
+                 farm_tenant: str = "default", farm_secret: str = "",
+                 role: str = "all",
+                 role_streams: tuple[int, ...] | None = None,
+                 role_ipc_listen: str | None = None,
+                 role_ipc_connect: str | None = None):
+        self.role = role
+        self.role_spec = spec = get_role(role)
+        if role == "client":
+            raise ValueError("the client role is not part of this "
+                             "package yet")
         self.device = resolve_device(device)
         self.data_dir = Path(data_dir) if data_dir else None
         if self.data_dir:
@@ -114,7 +133,13 @@ class Node:
         self.shutdown = asyncio.Event()
         self.db = Database(db_path)
         self.store = MessageStore(self.db)
-        self.inventory = Inventory(self.db)
+        if spec.owns_storage:
+            self.inventory = Inventory(self.db)
+        else:
+            # edge: a bounded dedupe/serve cache; the shard's relay owns
+            # the inventory
+            from ..roles.edge import EdgeCache
+            self.inventory = EdgeCache()
         derive = None
         if crypto_batch:
             def derive(privkeys, _device=self.device):
@@ -128,13 +153,15 @@ class Node:
         self.ctx = NodeContext(
             inventory=self.inventory, pow_verifier=self.pow_verifier,
             knownnodes=self.knownnodes, dandelion=self.dandelion,
-            streams=(stream,), port=port,
+            streams=tuple(role_streams) if role_streams else (stream,),
+            port=port,
             allow_private_peers=allow_private_peers,
             # test mode keeps the announce jitter but shrinks it so
             # multi-hop flows stay inside test timeouts
             announce_buckets=2 if test_mode else None)
         self.pool = ConnectionPool(self.ctx)
-        self.listen = listen
+        self.pool.reuse_port = spec.reuse_port
+        self.listen = listen and spec.listens_p2p
         self.solver = PowDispatcher(self.device)
         #: crash-safe PoW job journal: queued and in-flight solves
         #: survive a restart and resume from their checkpointed offset
@@ -196,9 +223,25 @@ class Node:
         #: always-on runtime health probes: event-loop lag sampler,
         #: saturation gauges and the clientStatus health block
         self.health = HealthMonitor(self)
-        #: this node's identity in flight-recorder dumps
+        #: this node's identity in flight-recorder dumps and role IPC
         self.node_id = self.ctx.nonce.hex()
         FLIGHT_RECORDER.node_id = self.node_id
+        #: an edge's relay links or a relay's IPC server; None fused
+        self.role_runtime = None
+        if spec.forwards_ingest:
+            from ..roles.edge import EdgeRuntime
+            self.role_runtime = EdgeRuntime(self, role_ipc_connect or "")
+        elif spec.serves_ipc:
+            if not role_ipc_listen:
+                raise ValueError(
+                    "relay role needs roleipclisten (port or host:port)")
+            from ..roles.relay import RelayRuntime
+            self.role_runtime = RelayRuntime(self, role_ipc_listen)
+
+    def set_streams(self, streams) -> None:
+        """Adopt a new shard map mid-session (a relay's live acquire or
+        shed): the streams this node accepts, stores and announces."""
+        self.ctx.streams = tuple(sorted(set(streams)))
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -209,6 +252,8 @@ class Node:
         self.processor.start()
         self.cleaner.start()
         await self.pool.start(listen=self.listen)
+        if self.role_runtime is not None:
+            await self.role_runtime.start()
         self._pump_task = asyncio.create_task(self._pump_objects())
         # one structured log line a minute with the metrics that changed
         self._metrics_task = asyncio.create_task(log_snapshot_task(60.0))
@@ -219,16 +264,25 @@ class Node:
                     self.pool.listen_port if self.listen else "-")
 
     async def _pump_objects(self) -> None:
-        """Forward validated objects to the processor."""
+        """Forward validated objects to the processor, or on an edge
+        over role IPC to the stream's relay (the hand-off awaits outbox
+        headroom, so a relay's backpressure reaches the watermarked
+        object queue and pauses connection reads)."""
+        forwards = self.role_spec.forwards_ingest
         while not self.shutdown.is_set():
-            _, _, payload = await self.ctx.object_queue.get()
-            await self.processor.queue.put(payload)
+            h, header, payload = await self.ctx.object_queue.get()
+            if forwards:
+                await self.role_runtime.handoff(h, header, payload)
+            else:
+                await self.processor.queue.put(payload)
 
     async def stop(self) -> None:
         """Orderly shutdown (reference shutdown.py:19-91).  The
         connections close first; the processor persists what it has
         not processed, for the next node on this ``data_dir``; objects
-        still between acceptance and the processor go with them."""
+        still between acceptance and the processor go with them.  An
+        edge flushes its outbox to its relays (bounded); a relay stops
+        serving role IPC before the processor drains."""
         self.shutdown.set()
         await self.health.stop()
         for task in (self._pump_task, self._metrics_task):
@@ -240,6 +294,8 @@ class Node:
                     pass
         self._pump_task = self._metrics_task = None
         await self.pool.stop()
+        if self.role_runtime is not None:
+            await self.role_runtime.stop()
         while not self.ctx.object_queue.empty():
             _, _, payload = self.ctx.object_queue.get_nowait()
             self.processor.queue.put_nowait(payload)

@@ -518,6 +518,12 @@ class BMConnection:
             try:
                 item = self.ctx.inventory[h]
             except KeyError:
+                # edge role: a hash known to exist relay-side but not
+                # held here is fetched over role IPC and served when the
+                # payload lands, not treated as unknown
+                fetcher = getattr(self.ctx, "payload_fetcher", None)
+                if fetcher is not None and fetcher(h, self):
+                    continue
                 self._anti_intersection_delay()
                 continue
             await self.send_packet("object", item.payload)

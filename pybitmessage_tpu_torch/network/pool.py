@@ -1,7 +1,11 @@
 """Shared node state and the connection pool: dialer, listener, gossip
 cadences (copy of ``pybitmessage_tpu.network.pool``, without TLS,
-SOCKS, UDP discovery, the set-reconciliation sync, the roles' hooks and
-chaos sites).  Connections, dials, received objects and requeued
+SOCKS, UDP discovery, the set-reconciliation sync and chaos sites).
+The roles' hooks are here: ``on_object`` and ``on_announce`` (a relay's
+INV deltas and pushes), ``reuse_port`` (edges sharing one P2P port),
+``ctx.payload_fetcher`` (an edge's getdata service of a hash its relay
+holds) and the per-stream overlay (``established(stream)``,
+``stream_overlay``).  Connections, dials, received objects and requeued
 announcements go to the JAX pool's metric families; an object's
 lifecycle gains ``received`` and ``announced`` here.
 
@@ -97,6 +101,9 @@ class NodeContext:
         #: Crossing HIGH pauses every connection's read loop until the
         #: processor drains it back under LOW
         self.object_queue = WatermarkQueue()
+        #: edge role: payload fetch for getdata hashes known relay-side
+        #: but not cached here, ``(hash, conn) -> bool``, or None
+        self.payload_fetcher = None
 
 
 class ConnectionPool:
@@ -123,8 +130,13 @@ class ConnectionPool:
         self.outbound: dict[BMConnection, None] = {}
         self._server: asyncio.AbstractServer | None = None
         self._tasks: list[asyncio.Task] = []
+        #: ``(h, header, payload, source)`` for every accepted object
+        self.on_object: Callable | None = None
         #: ``(h, stream, local)`` for every announced object
         self.on_announce: Callable | None = None
+        #: share the listen socket across processes (edge processes
+        #: accepting on one port, balanced by the kernel)
+        self.reuse_port = False
         #: (AddrEntry, due_time) queue for ongoing addr relay
         self._addr_gossip: list = []
         #: peers that asked us to verify their reachability
@@ -147,8 +159,17 @@ class ConnectionPool:
         streams = getattr(conn, "streams", None)
         return not streams or stream in streams
 
-    def established(self) -> list[BMConnection]:
-        return [c for c in self.connections() if c.fully_established]
+    def established(self, stream: int | None = None) -> list[BMConnection]:
+        """Fully-established connections, optionally only those whose
+        negotiated streams overlay ``stream``."""
+        conns = [c for c in self.connections() if c.fully_established]
+        if stream is None:
+            return conns
+        return [c for c in conns if self._subscribes(c, stream)]
+
+    def stream_overlay(self) -> dict[int, int]:
+        """Established-peer count per subscribed stream (roleStatus)."""
+        return {s: len(self.established(s)) for s in self.ctx.streams}
 
     def _used_groups(self) -> set[bytes]:
         return {network_group(c.host) for c in self.outbound}
@@ -159,7 +180,8 @@ class ConnectionPool:
         self._count_connections()
         if listen:
             self._server = await asyncio.start_server(
-                self._accept, self.listen_host, self.ctx.port)
+                self._accept, self.listen_host, self.ctx.port,
+                reuse_port=True if self.reuse_port else None)
         self._tasks = [
             asyncio.create_task(self._dial_loop()),
             asyncio.create_task(self._inv_loop()),
@@ -310,6 +332,8 @@ class ConnectionPool:
         self._route_announcement(h, peers,
                                  stream=getattr(header, "stream", None))
         self.ctx.object_queue.put_nowait((h, header, payload))
+        if self.on_object is not None:
+            self.on_object(h, header, payload, source)
 
     def announce_object(self, h: bytes, stream: int = 1,
                         local: bool = True) -> None:

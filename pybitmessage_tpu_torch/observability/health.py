@@ -16,9 +16,10 @@ One difference from the JAX package: its probe asks the sampling
 profiler which callback held the loop during a late tick; that profiler
 is not ported yet, so the port records the lag without a culprit and
 ``recent_culprit`` answers ``None`` (``lastSlowCallback`` stays "").
-The port's node has no role runtime, sync reconciler or client tier, so
-the block carries ``loop``, ``role``, ``pow``, ``ingest`` and
-``storage``, as the JAX block does for such a node.
+The port's node has no sync reconciler or client tier, so the block
+carries ``loop``, ``role``, ``pow``, ``ingest`` and ``storage``, as the
+JAX block does for such a node; ``role`` judges an edge's replica-set
+coverage and reports a relay's edges, epoch and forwarded streams.
 """
 
 from __future__ import annotations
@@ -189,12 +190,39 @@ class HealthMonitor:
         if node is None:
             return out
 
-        # role identity: the port runs the fused ``all`` role only, so
-        # there is no IPC hand-off to judge
+        # role identity + IPC hand-off health
+        runtime = getattr(node, "role_runtime", None)
+        ipc_ok, ipc_detail = True, {}
+        if runtime is not None:
+            snap = runtime.snapshot()
+            links = snap.get("links")
+            if links is not None:      # edge: replica-set coverage
+                # a down link is not degraded by itself: its replica
+                # siblings absorb the traffic; the edge is degraded when
+                # some stream has no member above the "down" rung left
+                rsets = snap.get("replicaSets", {})
+                uncovered = [s for s, members in rsets.items()
+                             if not any(m["health"] > 0
+                                        for m in members)]
+                ipc_ok = not uncovered if rsets else \
+                    all(lk["connected"] and not lk["breakerOpen"]
+                        for lk in links)
+                ipc_detail = {"links": len(links),
+                              "outbox": sum(lk["outbox"] + lk["unacked"]
+                                            for lk in links),
+                              "uncoveredStreams": uncovered,
+                              "shardEpochs": {lk["relay"]: lk["epoch"]
+                                              for lk in links}}
+            else:                      # relay: connected edge count
+                ipc_detail = {"edges": len(snap.get("edges", ())),
+                              "shardEpoch": snap.get("epoch", 0),
+                              "forwardingStreams":
+                                  sorted(snap.get("forwarding", ()))}
         out["role"] = _verdict(
-            True, name=getattr(node, "role", "all"),
+            ipc_ok, name=getattr(node, "role", "all"),
             streams=list(getattr(getattr(node, "ctx", None),
-                                 "streams", ())))
+                                 "streams", ())),
+            **ipc_detail)
 
         # pow: queue depth + any open breaker
         from ..resilience.policy import BREAKERS

@@ -14,11 +14,16 @@ The sites this package plants (:data:`SITES`):
 ``farm.accept``        a farm job submission accept (``powfarm/server.py``)
 ``farm.dispatch``      a farm batch launch through the dispatcher
 ``farm.result``        a farm result frame send back to a client
+``role.ipc``           an edge's frame send and a relay's ack and push
+                       sends on the role IPC channel (``roles/``)
+``role.handoff``       a relay's handoff control, drain and forward sends
+``role.replica``       an edge's replica health probe
 =====================  ==================================================
 
 The JAX package's other sites (``pow.readback``, ``net.*``, ``api.*``,
-``sync.*``, ``crypto.*``, ``storage.*``, ``role.*``) are not planted
-here; :func:`unplanted` names them in a spec so the daemon can refuse it.
+``sync.*``, ``crypto.*``, ``storage.*``, ``role.client``) are not
+planted here; :func:`unplanted` names them in a spec so the daemon can
+refuse it.
 
 Arming, one of:
 
@@ -51,7 +56,7 @@ FAULTS = REGISTRY.counter(
 
 #: the injection sites planted in this package
 SITES = ("pow.device_launch", "db.write", "farm.accept", "farm.dispatch",
-         "farm.result")
+         "farm.result", "role.ipc", "role.handoff", "role.replica")
 
 
 class ChaosError(RuntimeError):

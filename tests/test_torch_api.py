@@ -44,7 +44,6 @@ UNPORTED = (
     "setEmailGateway", "emailGatewayRegister", "emailGatewayUnregister",
     "emailGatewayStatus", "emailGatewaySettings", "sendEmail",
     "setMailingList",
-    "roleStatus", "shardStatus", "shardShed",
     "federatedStatus", "costStatus", "profileDump",
 )
 
@@ -206,14 +205,14 @@ def _commands(handler_cls) -> set[str]:
 def test_command_table_is_the_jax_table_less_the_unported():
     JaxHandler = _jax()[2]
     jax_names, port_names = _commands(JaxHandler), _commands(CommandHandler)
-    assert len(UNPORTED) == 13
+    assert len(UNPORTED) == 10
     assert port_names == jax_names - set(UNPORTED)
     assert set(UNPORTED) <= jax_names
-    # 64 commands, plus the five aliases both register
+    # 67 commands, plus the five aliases both register
     aliases = {"getAllInboxMessageIDs", "getAllSentMessageIDs",
                "getInboxMessageByID", "getSentMessageByID",
                "getSentMessagesBySender"}
-    assert len(port_names - aliases) == 64
+    assert len(port_names - aliases) == 67
 
 
 @pytest.mark.parametrize("method", UNPORTED)
@@ -228,6 +227,17 @@ async def test_unported_command_answers_invalid_method(method):
     assert port_err.value.code == jax_err.value.code == 20
     assert str(port_err.value) == \
         str(jax_err.value).replace(method + "Missing", method)
+
+
+@pytest.mark.parametrize("method,params", [
+    ("roleStatus", ()), ("shardStatus", ()), ("shardShed", (2, "x:1"))])
+async def test_role_command_answers_as_jax_on_a_fused_node(method, params):
+    """The role commands on the fused ``all`` node: the same status
+    documents, and ``shardShed``'s refusal (a relay's command)."""
+    async with pair() as p:
+        await p.same(method, *params)
+        if method == "shardShed":
+            assert await p.error_code(method, *params) == 0
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,9 @@ by the JAX package's own ``cli.RPCClient``; the lock shared with the JAX
 daemon both ways; ``settings.dat`` written by either package read by
 the other, unknown options kept, the v1 -> v2 migration equal; a setting
 that turns on a subsystem the port lacks, and a start with no card and
-no ``--device``, both exit 1.
+no ``--device``, both exit 1.  A split deployment of two daemons, a
+relay and an edge, carries one message from a raw wire client into the
+relay's inbox (the twin of the JAX ``tests/test_roles_smoke.py``).
 
 Every daemon is spawned with ``--device cpu`` (but the one that must
 find no card) and ``cryptobatch=false`` (host crypto: the plain torch
@@ -127,7 +129,7 @@ def test_port_daemon_lifecycle_driven_by_the_jax_cli(tmp_path):
         _wait_for(lambda: "newMessage" in marker.read_text(), 15,
                   "newMessage hook")
         with pytest.raises(cli.CommandError, match="API Error 0020"):
-            rpc.call("roleStatus")
+            rpc.call("federatedStatus")
 
         assert (home / "settings.dat").exists()
         assert (home / "keys.dat").exists()
@@ -176,10 +178,10 @@ def test_the_port_lock_refuses_a_jax_instance(tmp_path):
 def test_a_refused_setting_exits_1_naming_it(tmp_path):
     run = subprocess.run(
         _port_daemon(tmp_path / "home", "--device", "cpu", "-t",
-                     "--no-api", "-p", "0", "--set", "role=edge"),
+                     "--no-api", "-p", "0", "--set", "role=client"),
         env=_env(), cwd=ROOT, capture_output=True, timeout=START_TIMEOUT)
     assert run.returncode == 1
-    assert b"refusing to start: role=edge" in run.stderr
+    assert b"refusing to start: role=client" in run.stderr
 
 
 def test_no_card_and_no_device_exits_1(tmp_path):
@@ -205,7 +207,7 @@ def test_each_refused_setting_is_off_by_the_jax_default(key):
     assert not turns_on(default)
     settings = port_config.Settings()
     assert daemon.refused_options(settings) == []
-    on = {"role": "edge", "sockstype": "SOCKS5", "inventorystorage": "slab",
+    on = {"role": "client", "sockstype": "SOCKS5", "inventorystorage": "slab",
           "smtpdenabled": "true", "upnp": "true"}.get(key, "127.0.0.1:9")
     settings.set(key, on)
     assert daemon.refused_options(settings) == ["%s=%s" % (key, on)]
@@ -279,3 +281,93 @@ def test_settings_migration_v1_to_v2_is_the_jax_one(tmp_path, stamped):
                         settings_cls(path).get("dandelion")))
     assert results[0] == results[1]
     assert results[1][0] == ("0" if stamped else "90")
+
+
+# ---------------------------------------------------------------------------
+# a split deployment: a relay daemon and an edge daemon
+# ---------------------------------------------------------------------------
+
+
+def test_relay_and_edge_daemons_deliver_one_message(tmp_path):
+    """A relay (``role=relay``, SQLite) and an edge (``role=edge``) as
+    two ``python -m pybitmessage_tpu_torch`` processes: a wire client
+    sends the edge one msg to an identity created on the relay's API;
+    it crosses the edge's framing and PoW check and the role IPC hop
+    into the relay's inbox.  Both stop on SIGTERM with rc 0."""
+    import asyncio
+    cli, _, _ = _jax()
+    sys.path.insert(0, str(ROOT / "tests"))
+    from test_roles import WireClient, build_msg_objects
+    from pybitmessage_tpu.pow.native import NativeSolver
+    from pybitmessage_tpu.workers.keystore import KeyStore
+
+    api_port, ipc_port, p2p_port = _free_port(), _free_port(), _free_port()
+    common = ["--device", "cpu", "-t", "--set", "cryptobatch=false"]
+    relay = edge = None
+    try:
+        relay = subprocess.Popen(
+            _port_daemon(tmp_path / "relay", *common, "-p", "0",
+                         "--api-port", str(api_port), "--api-user", USER,
+                         "--api-password", PASS, "--set", "role=relay",
+                         "--set", "roleipclisten=127.0.0.1:%d" % ipc_port),
+            env=_env(), cwd=ROOT, stdout=subprocess.DEVNULL,
+            stderr=subprocess.DEVNULL)
+        rpc = cli.RPCClient("127.0.0.1", api_port, USER, PASS)
+
+        def role_status():
+            try:
+                return json.loads(rpc.call("roleStatus"))
+            except (OSError, cli.CommandError):
+                return None
+        _wait_for(lambda: role_status() is not None, START_TIMEOUT,
+                  "the relay's API", relay)
+        edge = subprocess.Popen(
+            _port_daemon(tmp_path / "edge", *common, "-p", str(p2p_port),
+                         "--no-api", "--set", "role=edge",
+                         "--set", "roleipcconnect=127.0.0.1:%d" % ipc_port),
+            env=_env(), cwd=ROOT, stdout=subprocess.DEVNULL,
+            stderr=subprocess.DEVNULL)
+        _wait_for(lambda: len(role_status()["ipc"]["edges"]) == 1,
+                  START_TIMEOUT, "the edge linked over role IPC", edge)
+        status = role_status()
+        assert status["role"] == "relay" and status["p2pListen"] is False
+
+        passphrase = b"port roles smoke identity"
+        created = json.loads(rpc.call(
+            "createDeterministicAddresses",
+            base64.b64encode(passphrase).decode()))
+        recipient = KeyStore().create_deterministic(passphrase)
+        assert created["addresses"] == [recipient.address]
+        native = NativeSolver()
+        payload = build_msg_objects(
+            1, recipient=recipient, ntpb=1000, extra=1000, ttl=600,
+            solver=native.solve if native.available else None)[0]
+
+        async def send():
+            client = await WireClient().connect(p2p_port)
+            await client.send_objects([payload])
+            await asyncio.sleep(0.5)
+            await client.close()
+        asyncio.run(asyncio.wait_for(send(), START_TIMEOUT))
+
+        def inbox():
+            return json.loads(rpc.call("getAllInboxMessages"))[
+                "inboxMessages"]
+        _wait_for(inbox, DELIVERY_TIMEOUT, "the message in the relay's "
+                  "inbox", relay)
+        [row] = inbox()
+        assert row["toAddress"] == recipient.address
+        assert base64.b64decode(row["message"]) == b"body 0"
+        status = role_status()
+        assert status["ipc"]["accepted"] == 1
+        assert status["ipc"]["rejected"] == 0
+        for proc, name in ((edge, "edge"), (relay, "relay")):
+            proc.send_signal(signal.SIGTERM)
+            assert proc.wait(timeout=STOP_TIMEOUT) == 0, name
+            log = (tmp_path / name / "debug.log").read_text()
+            assert "node stopped" in log and "kernel launches at stop" in log
+    finally:
+        for proc in (edge, relay):
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=STOP_TIMEOUT)
