@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's send and receive paths, its node, daemon, PoW farm and role split on a card.
+"""Drive the PyTorch/CUDA port's send and receive paths, its node, daemon, PoW farm, role split and light-client tier on a card.
 
     python3 chip_smoke.py [--seed N] [--report PATH]
 
@@ -74,7 +74,12 @@ Phases (any failure exits non-zero):
    ``delivered``; A's ``GET /metrics`` needs auth, parses as Prometheus
    text and its ``device_launches_total`` equals ``clientStatus``;
    ``deviceStatus`` names the H100 and ``dumpFlightRecorder`` holds
-   events;
+   events; ``profileDump 5`` on A right after that busy window holds
+   samples, and A's ``costStatus`` (read during (m)) shows its sampling
+   profiler running with samples, its overhead, CPU shares by subsystem
+   and thread class and its event loop's by subsystem, every profiled
+   site a file of the port and none of ``pybitmessage_tpu/``; B's
+   sampler runs too;
 8. the PoW solver farm (``phase_farm``), ``python -m
    pybitmessage_tpu_torch`` daemons on the card at network difficulty:
    (n) daemon F serves the farm (``powfarmlisten``, ``powfarmauth``, a
@@ -89,7 +94,9 @@ Phases (any failure exits non-zero):
    delegates its PoW to F (``powfarmconnect``) and sends to its own
    second identity until the inbox holds it: E launches no search
    kernel and never falls back, F's counters rise, ``farmStatus`` names
-   E's tenant on F and a closed breaker on E; (p) a 1 KB job at
+   E's tenant on F and a closed breaker on E; F's ``costStatus`` after
+   (n) gives its event loop's shares by subsystem, and E's sampler runs;
+   (p) a 1 KB job at
    ntpb x 64, TTL 28 d: F is killed once its ``farmjournal.dat`` holds a
    checkpoint, restarts, logs the job adopted from it, and the
    resubmission's nonce equals an uninterrupted solve through
@@ -109,8 +116,24 @@ Phases (any failure exits non-zero):
    and no host check, R1's card idle share over a ``profileDevice``
    window; (s) a second wave of 500 stream-2 objects while R1 sheds
    stream 2 to R2 (``shardShed``): R2 holds every stream-2 object of
-   both waves; SIGTERM stops all six with rc 0; each daemon's launch
-   record at its stop holds wrappers = registry;
+   both waves; R1's ``costStatus`` is read after (r) and every daemon's
+   sampler runs with port-only sites; SIGTERM stops all six with rc 0;
+   each daemon's launch record at its stop holds wrappers = registry;
+10. the light-client tier: (u), inside phase 9's deployment (each edge
+   also serving the light-client plane and delegating PoW to F0, which
+   serves the farm), a client daemon C (``role=client``) on the plane
+   of A's edge: a light client in this process delegates 8 1 KB jobs at
+   network difficulty through that edge to F0 (each nonce
+   hashlib-checked and proven lowest, no search kernel launched on the
+   edge), C subscribes to A's address through its API, A broadcasts,
+   and C decrypts the broadcast with kernel 5 (the in-process client's
+   plaintext equal to what A sent); (t) in this process, a relay and an
+   edge ``Node()`` with a 64-bucket plane whose index holds 1,000, then
+   10,000, then 100,000 simulated clients, 8 real ``LightClient``s on
+   the 4 flood tags, 400 tagged v5 broadcasts and 100 relay objects
+   (ntpb = extra = 10, TTL 900 s, solved by kernel 3) offered over the
+   wire: objects/s accepted at each scale and no subscribed object lost
+   at any;
 4. times: each kernel at its main-path shape (CUDA events over warm
    launches) beside its plain version and its bound; the packed kernel
    on the storm's own targets and on targets that mostly miss, with the
@@ -121,8 +144,8 @@ Phases (any failure exits non-zero):
    own two-thread design and of the first port's double-and-add ladder
    (``ladder_field_ops``) printed beside it.
 
-Over phases 3, 3b, 5 and 6, the ones that go through the host drivers,
-and phase 8's in-process solve, each kernel's ``device_launches_total``
+Over phases 3, 3b, 5, 6 and 10 (t), the ones that go through the host
+drivers, and phase 8's in-process solve, each kernel's ``device_launches_total``
 delta in the registry must equal its wrapper's ``LAUNCHES`` delta, and
 ``pow_verify`` (plain torch ops) the verifier's device batches
 (``check_attribution``); after phase 6 every program that launched has
@@ -131,14 +154,17 @@ host driver, and is not attributed.
 
 The receive phases draw their data from a second generator seeded from
 ``--seed``, so phases 1-4 keep their inputs.
-Phases 5, 6, 7, 8 and 9 run before phase 4 and draw from a fourth, a
-fifth, a sixth, a seventh and an eighth generator; each kernel's entry
+Phases 5, 6, 7, 8, 9 and 10 run before phase 4 and draw from a fourth,
+a fifth, a sixth, a seventh, an eighth, a ninth ((t)) and a tenth ((u))
+generator; each kernel's entry
 in the kernels line carries its launches on the send or receive path
 (``launches``), in the node phase (``node_launches``), in the socket
 phase (``net_launches``), in phase 7's daemons (``daemon_launches``),
 in the farm's daemons (``farm_launches``: F before the crash of (p)
-and after its restart, and E) and in phase 9's six daemons
-(``roles_launches``, from their launch records at stop).
+and after its restart, and E), in phase 9's six daemons
+(``roles_launches``, from their launch records at stop) and in phase 10
+(``clients_launches``: (t) in this process, C's launch record and this
+process's light client in (u)).
 The second-to-last line of output is the ``{"kernels": [...]}`` record,
 the last ``{"ok": true, "device": {...}}``.  Exits non-zero without
 printing either when no CUDA device is present.
@@ -186,7 +212,8 @@ REPLACES = {
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms", "node_launches", "net_launches",
-               "daemon_launches", "farm_launches", "roles_launches")
+               "daemon_launches", "farm_launches", "roles_launches",
+               "clients_launches")
 MASK64 = (1 << 64) - 1
 ALWAYS_HIT = MASK64
 
@@ -2228,6 +2255,7 @@ class _Daemon:
         self.p2p_port = p2p_port or _free_port()
         self.api_port = _free_port()
         self._t0 = time.perf_counter()
+        self.wall0 = time.time()
         with open(self.out, "ab") as out:
             self.proc = subprocess.Popen(
                 self.argv("-p", str(self.p2p_port),
@@ -2440,6 +2468,127 @@ def daemon_telemetry(d, device) -> dict:
             "flightrec_events": len(events), "flightrec_kinds": kinds}
 
 
+def sampler_check(d, name: str) -> dict:
+    """Daemon ``d``'s ``costStatus``: its sampling profiler runs (the
+    daemons' default, 19 Hz) and has samples, and its CPU shares name
+    only the port's subsystems (``idle`` is left out of the shares)."""
+    from pybitmessage_tpu_torch.observability.profiling import SUBSYSTEMS
+    cost = json.loads(d.rpc("costStatus"))
+    sampler = cost["sampler"]
+    require(sampler["running"] is True and sampler["samples"] > 0,
+            "%s's sampling profiler is not running or has no sample: %s"
+            % (name, sampler))
+    subsystems = set(cost["cpu"]["subsystems"])
+    require(subsystems <= set(SUBSYSTEMS) | {"other"},
+            "%s's CPU shares name %s" % (name, sorted(subsystems)))
+    return cost
+
+
+def _share_table(shares: dict) -> dict:
+    return {k: v["share"] for k, v in sorted(
+        shares.items(), key=lambda kv: -kv[1]["value"])}
+
+
+def profiler_read(d, name: str) -> dict:
+    """``costStatus``, the whole-run ``profileDump`` and the
+    ``cpu_samples_total`` series of daemon ``d`` (see
+    :func:`sampler_check`): every stack site of the dump that the port's
+    profiler counted as its own names a file of
+    ``pybitmessage_tpu_torch/`` in this checkout, and no site names a
+    ``pybitmessage_tpu/`` path; prints the sampler's overhead, the CPU
+    shares by subsystem and thread class, and the event loop's shares by
+    subsystem."""
+    cost = sampler_check(d, name)
+    dump = json.loads(d.rpc("profileDump", 0, "collapsed"))
+    sites = set()
+    for line in dump["collapsed"]:
+        stack, _, _ = line.rpartition(" ")
+        sites.update(stack.split(";")[1:])
+    require(not any("pybitmessage_tpu/" in s for s in sites),
+            "%s's profile names a site of the JAX package" % name)
+    own = {s.rsplit(":", 1)[0] for s in sites if "/" in s.split(":")[0]}
+    missing = sorted(f for f in own if not os.path.exists(
+        os.path.join(_ROOT, "pybitmessage_tpu_torch", f)))
+    require(not missing, "%s's profile counts %s as the port's"
+            % (name, missing[:5]))
+    # the event loop's busiest sites: the innermost frame of the port
+    # in each of its stacks, by samples
+    loop_sites: dict = {}
+    for line in dump["collapsed"]:
+        stack, _, count = line.rpartition(" ")
+        parts = stack.split(";")
+        own_parts = [p for p in parts[1:] if "/" in p.split(":")[0]]
+        if parts[0] == "event_loop" and own_parts:
+            loop_sites[own_parts[-1]] = loop_sites.get(own_parts[-1], 0) \
+                + float(count)
+    top_sites = sorted(loop_sites.items(), key=lambda kv: -kv[1])[:6]
+    metrics = _prometheus(d.rpc("metrics"))
+    loop = {}
+    for (fam, lab), v in metrics.items():
+        labels = dict(lab)
+        if fam == "cpu_samples_total" and \
+                labels.get("thread_class") == "event_loop":
+            loop[labels["subsystem"]] = loop.get(labels["subsystem"], 0) + v
+    busy = {k: v for k, v in loop.items() if k != "idle"}
+    total = sum(loop.values())
+    out = {"sampler": cost["sampler"],
+           "subsystems": _share_table(cost["cpu"]["subsystems"]),
+           "thread_classes": _share_table(cost["cpu"]["thread_classes"]),
+           "loop_samples": total,
+           "loop_busy_share": sum(busy.values()) / total if total else None,
+           "loop_by_subsystem": {k: v / total for k, v in sorted(
+               loop.items(), key=lambda kv: -kv[1])} if total else {},
+           "loop_top_sites": top_sites,
+           "device": cost["device"], "sites": len(sites),
+           "own_files": len(own)}
+    print("profiler %s: %d samples at %s Hz, overhead %s; CPU by "
+          "subsystem %s; by thread class %s; the event loop (%d samples, "
+          "busy %s) by subsystem %s"
+          % (name, cost["sampler"]["samples"], cost["sampler"]["hz"],
+             cost["sampler"]["overheadFrac"], out["subsystems"],
+             out["thread_classes"], total, out["loop_busy_share"],
+             {k: round(v, 4) for k, v in out["loop_by_subsystem"].items()}))
+    print("profiler %s: the event loop's busiest sites of the port "
+          "(samples) %s" % (name, top_sites))
+    return out
+
+
+def start_split(d, name: str) -> dict:
+    """Daemon ``d``'s last start, split by its ``debug.log`` (one line
+    after the imports and the device's set-up, ``node started``, ``API
+    listening``): the seconds from the spawn to each (lines of an
+    earlier life of the directory are skipped)."""
+    import datetime
+
+    marks = {"imports and device": "not run by this package yet",
+             "node built and started": "node started",
+             "API listening": "API listening"}
+    out = {}
+    for line in d.log().splitlines():
+        for mark, text in marks.items():
+            if text in line and mark not in out:
+                stamp = datetime.datetime.strptime(
+                    line[:23], "%Y-%m-%d %H:%M:%S,%f").timestamp()
+                if stamp >= d.wall0 - 1.0:
+                    out[mark] = stamp - d.wall0
+    print("start of %s (seconds from its spawn): %s"
+          % (name, {k: round(v, 3) for k, v in out.items()}))
+    return out
+
+
+def profile_window(d, name: str, seconds: float = 5.0) -> dict:
+    """``profileDump seconds``: the rolling window of daemon ``d``'s
+    last seconds must hold samples from a running sampler."""
+    doc = json.loads(d.rpc("profileDump", seconds, "collapsed"))
+    require(doc["running"] is True and doc["samples"] > 0,
+            "%s's profileDump %s holds no sample" % (name, seconds))
+    print("profiler %s, the last %.0f s: %d samples, by subsystem %s, by "
+          "thread class %s" % (name, seconds, doc["samples"],
+                               doc["by_subsystem"], doc["by_thread_class"]))
+    return {k: doc[k] for k in ("samples", "by_subsystem",
+                                "by_thread_class", "overhead_frac")}
+
+
 #: the checkout the daemons of phase 7 run from
 _ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -2575,6 +2724,8 @@ def phase_daemon(rng, *, device=None, test_mode: bool = False,
             # a device trace on A while it sends to B, with pubkey PoWs
             # (createRandomAddress) launched inside the window
             report["profile"] = profile_while_busy(a, device)
+            # the sampling profiler's window over the same busy seconds
+            report["a_window"] = profile_window(a, "A")
             until(lambda: a.rpc("getStatus", ack2) == "ackreceived",
                   "the ack of the message to B")
             report["two_daemon_s"] = time.perf_counter() - t0
@@ -2583,6 +2734,9 @@ def phase_daemon(rng, *, device=None, test_mode: bool = False,
             report["timeline"] = object_timeline(b, row["msgid"])
 
             report["a"], report["b"] = status(a), status(b)
+            report["a_start"] = start_split(a, "A")
+            report["a_cost"] = profiler_read(a, "A during (m)")
+            sampler_check(b, "B")
             report["telemetry"] = daemon_telemetry(a, device)
             for name, code in (("A", a.stop()), ("B", b.stop())):
                 require(code == 0, "daemon %s exited %d on SIGTERM"
@@ -2940,6 +3094,8 @@ def phase_farm(rng, *, device=None, crypto_batch: bool = True,
                                       f_time["dispatcher_s"], wall,
                                       busy))
             print("farm (n) F launches %s" % f_status["launches"])
+            # where F's host time went: its event loop by subsystem
+            report["f_cost"] = profiler_read(f, "F after (n)")
             if on_card:
                 require(f_status["launches"]["search"]
                         + f_status["launches"]["batch_search"] > 0,
@@ -3003,6 +3159,7 @@ def phase_farm(rng, *, device=None, crypto_batch: bool = True,
                                                  "packed_search")) > 0,
                         "F's search launches did not rise for E")
             e_launches = e_status["launches"]
+            sampler_check(e, "E")
             require(e.stop() == 0, "daemon E exited non-zero")
 
             # (p) a crash of F mid-solve and the resumed search; F's
@@ -3046,6 +3203,7 @@ def phase_farm(rng, *, device=None, crypto_batch: bool = True,
                     require(not thread.is_alive(),
                             "the client hung on F's kill")
                     report["restart_s"] = f.start()
+                    report["restart_split"] = start_split(f, "F's restart")
                     if "result" in box:
                         print("farm (p): draw %d answered just before the "
                               "kill; drawing the next" % draws)
@@ -3311,11 +3469,210 @@ def _trace_idle(doc: dict) -> dict:
             "device_events": len(spans), "kernels": kernels}
 
 
+class _LightWatcher:
+    """An in-process ``LightClient`` on one plane, subscribed to
+    ``address`` and trial-decrypting on its own ``BatchCryptoEngine`` on
+    ``device``, run from a thread with its own event loop until
+    :meth:`close`; ``delegate`` runs PoW jobs through the plane."""
+
+    def __init__(self, plane: str, address: str, device, timeout: float):
+        from pybitmessage_tpu_torch.workers.keystore import KeyStore
+        self.sub = KeyStore().subscribe(address, "watched")
+        self.plane, self.device, self.timeout = plane, device, timeout
+        self.error = None
+        self.client = None
+        self._loop = None
+        self._ready = threading.Event()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(
+            target=lambda: asyncio.run(self._run()),
+            name="bmtpu-smoke-watcher")
+        self._thread.start()
+        require(self._ready.wait(timeout) and self.error is None,
+                "the light watcher did not sync: %r" % (self.error,))
+
+    async def _run(self) -> None:
+        from pybitmessage_tpu_torch.crypto.batch import BatchCryptoEngine
+        from pybitmessage_tpu_torch.roles.client import LightClient
+        self._loop = asyncio.get_running_loop()
+        engine = BatchCryptoEngine(self.device)
+        engine.start()
+        self.client = LightClient(self.plane, client_id="smoke-watcher",
+                                  tenant="smoke-light", crypto=engine,
+                                  subscriptions=[self.sub],
+                                  tags=[self.sub.tag])
+        try:
+            await self.client.start()
+            await self.client.wait_synced(self.timeout)
+        except BaseException as exc:  # surfaced by the main thread
+            self.error = exc
+        self._ready.set()
+        while not self._stop.is_set():
+            await asyncio.sleep(0.05)
+        await self.client.stop()
+        await engine.stop()
+
+    def delegate(self, jobs) -> list:
+        """``[(initial_hash, target)]`` -> ``[(nonce, trials)]``, one
+        ``POW_DELEGATE`` after the other."""
+        async def run():
+            return [await self.client.delegate_pow(ih, target,
+                                                   timeout=self.timeout)
+                    for ih, target in jobs]
+        return asyncio.run_coroutine_threadsafe(
+            run(), self._loop).result(self.timeout * len(jobs))
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join(30)
+        require(not self._thread.is_alive(), "the light watcher hung")
+
+
+def _broadcast_text(plain: bytes) -> tuple:
+    """(subject, body) of a decrypted broadcast's plaintext."""
+    from pybitmessage_tpu_torch.models.msgcoding import decode_message
+    from pybitmessage_tpu_torch.models.payloads import BroadcastPlaintext
+    bp = BroadcastPlaintext.decode(plain)
+    body = decode_message(bp.message, bp.encoding)
+    return body.subject, body.body
+
+
+def _phase_u(rng, *, root, flags, a, x, edges, planes, f0, status, until,
+             daemons, delegated, ntpb, device, on_card, timeout) -> dict:
+    """Phase 10 (u), inside phase 9's deployment (see
+    :func:`phase_roles`): client daemon C on the plane of A's edge, jobs
+    delegated through that edge to F0, A's broadcast decrypted by C."""
+    def b64(text: str) -> str:
+        return base64.b64encode(text.encode()).decode()
+
+    # after the floods A is the edges' only P2P peer, and it announces
+    # its broadcast to every connection it holds: any edge it is
+    # connected to (either way round) sees the broadcast
+    conns: dict = {}
+
+    def connected() -> bool:
+        conns.update({e: json.loads(e.rpc("clientStatus"))[
+            "networkConnections"] for e in edges})
+        return any(conns.values())
+    until(connected, "A's connection to an edge")
+    ex = next(e for e in edges if conns[e])
+    ex_name = ex.dir.rsplit(os.sep, 1)[1]
+    c = _Daemon(root, "C", flags + [
+        "--set", "role=client", "--set", "clientconnect=" + planes[ex_name]],
+        timeout)
+    daemons.append(c)
+    t_u = time.perf_counter()
+    c.spawn()
+    out: dict = {"edge": ex_name}
+    script_before = _NodeKit.launches()
+
+    # jobs delegated by a light client in this process while C starts
+    watcher = _LightWatcher(planes[ex_name], x, device or "cuda", timeout)
+    try:
+        jobs = [_msg(rng, 1016, 4 * 86400, ntpb, ntpb, clamp=False)
+                for _ in range(delegated)]
+        ex_before, f0_before = status(ex)["launches"], status(f0)["launches"]
+        t0 = time.perf_counter()
+        results = watcher.delegate(jobs)
+        out["delegate_s"] = time.perf_counter() - t0
+        for (ih, target), (nonce, _) in zip(jobs, results):
+            require(trial(nonce, ih) <= target,
+                    "a delegated nonce fails hashlib")
+            _no_lower_nonce(ih, target, nonce,
+                            device="cuda" if on_card else "cpu")
+        ex_rise = {k: v - ex_before[k]
+                   for k, v in status(ex)["launches"].items()}
+        f0_rise = {k: v - f0_before[k]
+                   for k, v in status(f0)["launches"].items()}
+        plane = json.loads(ex.rpc("clientStatus"))["clients"]["plane"]
+        out.update(ex_rise=ex_rise, f0_rise=f0_rise,
+                   farm_delegation=plane["farmDelegation"])
+        print("clients (u): %d jobs delegated through %s's plane to F0 in "
+              "%.3f s, each the lowest valid nonce; %s launches risen %s, "
+              "F0's %s; delegation %s"
+              % (delegated, ex_name, out["delegate_s"], ex_name, ex_rise,
+                 f0_rise, plane["farmDelegation"]))
+        for kernel in ("search", "batch_search", "packed_search"):
+            require(ex_rise[kernel] == 0, "%s launched %s for a delegated "
+                    "job" % (ex_name, kernel))
+        require(plane["farmDelegation"]["ok"] >= delegated
+                and plane["farmDelegation"]["errors"] == 0,
+                "the plane's delegations failed: %s"
+                % plane["farmDelegation"])
+        if on_card:
+            require(sum(f0_rise[k] for k in ("search", "batch_search",
+                                              "packed_search")) > 0,
+                    "F0 launched no search kernel for the delegated jobs")
+
+        # C subscribes to A's address through its API; A broadcasts
+        out["c_start_s"] = c.ready()
+
+        def session() -> dict:
+            return json.loads(c.rpc("clientStatus"))["clients"]["session"]
+        until(lambda: session()["connected"], "C's link to the plane")
+        c.rpc("addSubscription", x, b64("A"))
+        until(lambda: session()["subscribedBuckets"] == 1,
+              "C's subscription to A's bucket")
+        c_before = status(c)["launches"]
+        subject, body = _text(rng, 40), _text(rng, 400)
+        t0 = time.perf_counter()
+        a.rpc("sendBroadcast", x, b64(subject), b64(body))
+        until(lambda: session()["decrypted"] >= 1,
+              "C's decrypt of A's broadcast", 4 * timeout)
+        out["broadcast_s"] = time.perf_counter() - t0
+        until(lambda: len(watcher.client.decrypted) >= 1,
+              "the in-process client's decrypt of A's broadcast")
+        [(h, _, plain)] = watcher.client.decrypted
+        require(_broadcast_text(plain) == (subject, body),
+                "the broadcast's plaintext differs from what A sent")
+        c_final = json.loads(c.rpc("clientStatus"))
+        c_rise = {k: v - c_before[k] for k, v in status(c)["launches"].items()}
+        out.update(session=c_final["clients"]["session"],
+                   c_health=c_final["health"].get("lightClient"),
+                   c_rise=c_rise, wall_s=time.perf_counter() - t_u)
+        c_cost = sampler_check(c, "C")
+        print("clients (u): C ready in %.2f s, A's broadcast decrypted by C "
+              "%.3f s after sendBroadcast (plaintext equal to what A sent); "
+              "C's session %s; C's launches risen %s; C's sampler %s"
+              % (out["c_start_s"], out["broadcast_s"], out["session"],
+                 c_rise, c_cost["sampler"]))
+        require(out["session"]["decrypted"] == 1,
+                "C decrypted %d objects" % out["session"]["decrypted"])
+        if on_card:
+            require(c_rise["secp_ecdh"] >= 1,
+                    "C launched no kernel 5 for its trial decrypt")
+            host = json.loads(c.rpc("clientStatus"))["crypto"]["hostChecks"]
+            require(host["verifies"] == host["decrypts"] == 0,
+                    "C checked crypto on host threads")
+    finally:
+        watcher.close()
+    script = {k: v - script_before[k]
+              for k, v in _NodeKit.launches().items()}
+    require(c.stop() == 0, "daemon C exited non-zero")
+    require("node stopped" in c.log(), "no 'node stopped' in %s/debug.log"
+            % c.dir)
+    out["c_record"] = record = _launch_line(c)
+    if on_card:
+        for kernel, program in PROGRAM_OF.items():
+            require(record["wrappers"][kernel] == record["registry"][program],
+                    "C: the registry counts %d %s launches, the wrappers %d"
+                    % (record["registry"][program], program,
+                       record["wrappers"][kernel]))
+    # C's launches (its record at stop) and this process's light client
+    out["launches"] = {k: record["wrappers"][k] + script[k]
+                       for k in PROGRAM_OF}
+    print("clients (u): C's launch record %s; this process's light client "
+          "%s; (u) took %.2f s" % (record["wrappers"], script,
+                                   time.perf_counter() - t_u))
+    return out
+
+
 def phase_roles(rng, *, device=None, test_mode: bool = False,
                 crypto_batch: bool = True, storm: int = 1800,
                 msgs: int = 100, wave: int = 500, clients: int = 8,
                 msg_ttl: int = 4 * 86400, q_ttl: int = 4 * 86400,
-                timeout: float = 120.0) -> dict:
+                timeout: float = 120.0, u_rng, delegated: int = 8
+                ) -> dict:
     """Phase 9: the role split, ``python -m pybitmessage_tpu_torch``
     daemons sharing the card, driven only through their APIs.
 
@@ -3346,7 +3703,22 @@ def phase_roles(rng, *, device=None, test_mode: bool = False,
     with rc 0 and "node stopped"; each daemon's launch record at its
     stop holds its wrappers' counts equal to its registry's, and every
     object of R1's, R2's, F0's and A's inventories passes hashlib's PoW
-    check; no stream-1 or stream-2 object is lost anywhere.
+    check; no stream-1 or stream-2 object is lost anywhere.  Every
+    daemon's sampling profiler runs with port-only sites; R1's
+    ``costStatus`` and profile are read after (r).
+
+    Phase 10 (u), drawing from ``u_rng``: each edge also serves the
+    light-client plane (``clientplanelisten``) and delegates PoW to F0,
+    which serves the farm (``powfarmlisten``).  A client daemon C (``role=client``)
+    connects to the plane of the edge that holds A's connection; a
+    light client in this process delegates ``delegated`` 1 KB jobs at
+    network difficulty through that edge (each nonce hashlib-checked
+    and proven lowest, the edge launching no search kernel, F0's
+    launches printed), and subscribes to A's address beside C.  C
+    subscribes to A's address through its API, A broadcasts: C's
+    ``clientStatus`` session must count 1 decrypt, C must have launched
+    kernel 5, and the in-process client's plaintext must be what A
+    sent.  C stops on SIGTERM with rc 0 and its launch record.
     (``device="cpu"``, ``test_mode=True``, ``crypto_batch=False`` and
     small sizes rehearse it without the launch and host-check gates.)
     """
@@ -3402,12 +3774,20 @@ def phase_roles(rng, *, device=None, test_mode: bool = False,
             "--set", "role=edge", "--set", "edgeprocs=2",
             "--set", "rolestreams=1,2,3", "--set",
             "roleipcconnect=%s:%d,%s:%d" % (LOOPBACK, ipc1, LOOPBACK, ipc2)]
-        e1 = _Daemon(root, "E1", edge_flags, timeout)
-        e2 = _Daemon(root, "E2", edge_flags, timeout)
+        # phase 10 (u): the edges serve the light-client plane and
+        # delegate PoW to F0's farm
+        farm = "%s:%d" % (LOOPBACK, _free_port())
+        f0_flags = flags + ["--set", "rolestreams=1,2",
+                            "--set", "powfarmlisten=" + farm]
+        planes = {name: "%s:%d" % (LOOPBACK, _free_port())
+                  for name in ("E1", "E2")}
+        e1, e2 = (_Daemon(root, name, edge_flags + [
+            "--set", "clientplanelisten=" + planes[name],
+            "--set", "powfarmconnect=" + farm], timeout)
+            for name in ("E1", "E2"))
         a = _Daemon(root, "A", flags + ["--set", "breakercooldown=1"],
                     timeout)
-        f0 = _Daemon(root, "F0", flags + ["--set", "rolestreams=1,2"],
-                     timeout)
+        f0 = _Daemon(root, "F0", f0_flags, timeout)
         daemons += [r1, r2, e1, e2, a, f0]
         edges = (e1, e2)
         try:
@@ -3593,6 +3973,7 @@ def phase_roles(rng, *, device=None, test_mode: bool = False,
                             > s1[name]["powVerify"]["deviceBatches"],
                             "%s's verifier ran no device batch on the "
                             "flood" % name)
+            report["r1_cost"] = profiler_read(r1, "R1 after (r)")
 
             # (s) a live shed of stream 2 under load
             r2_before = held(r2)
@@ -3626,8 +4007,16 @@ def phase_roles(rng, *, device=None, test_mode: bool = False,
             require(s_r1["streams"] == [1], "R1 still owns %s"
                     % s_r1["streams"])
 
+            report["u"] = _phase_u(
+                u_rng, root=root, flags=flags, a=a, x=x, edges=edges,
+                planes=planes, f0=f0, status=status, until=until,
+                daemons=daemons, delegated=delegated, ntpb=ntpb,
+                device=device, on_card=on_card, timeout=timeout)
+
             # the end
             final = {n: status(d) for n, d in zip(s0, daemons)}
+            for n, d in zip(s0, daemons):
+                sampler_check(d, n)
             codes = {}
             for name, d in zip(s0, daemons):
                 t0 = time.perf_counter()
@@ -3687,6 +4076,135 @@ def phase_roles(rng, *, device=None, test_mode: bool = False,
             require(launches[kernel] > 0,
                     "kernel %s not launched in the role daemons" % kernel)
     return {"phases": report, "launches": launches}
+
+
+def phase_light_clients(rng, *, device=None,
+                        scales=(1000, 10000, 100000), matched: int = 400,
+                        bulk: int = 100, real: int = 8, buckets: int = 64,
+                        timeout: float = 120.0) -> dict:
+    """Phase 10 (t): the subscription plane under a growing index, in
+    this process (cut from the JAX ``bench.py`` ``_bench_light_clients``
+    at its full widths).  A port relay (SQLite) and an edge
+    (``client_listen``, ``buckets`` buckets), both ``Node()``s in test
+    mode on ``device``, per scale; the plane's index holds ``scales``
+    simulated clients, each with the buckets its own random address
+    hashes into (as ``plane.index.replace`` puts a SUBSCRIBE there);
+    ``real`` ``LightClient``s subscribe to the 4 flood tags.  The flood:
+    ``matched`` v5 broadcasts carrying the flood tags and ``bulk``
+    objects of a type no node parses, ntpb = extra = 10, TTL 900 s,
+    solved by kernel 3 in this process; one wire client offers them to
+    the edge.  Objects/s accepted at each scale, the ratio of the
+    slowest scale to the smallest, and 0 subscribed objects lost at
+    every scale: every matched hash in every real client, by push or by
+    DIGEST_DELTA + FETCH repair."""
+    from pybitmessage_tpu_torch.core import Node
+    from pybitmessage_tpu_torch.models.payloads import object_shell
+    from pybitmessage_tpu_torch.roles.client import (LightClient,
+                                                     buckets_for_tags)
+    from pybitmessage_tpu_torch.utils.hashes import inventory_hash
+
+    t0 = time.perf_counter()
+    before = _NodeKit.launches()
+    flood_tags = [rng.bytes(32) for _ in range(4)]
+    client_tags = [rng.bytes(32) for _ in range(max(scales))]
+    expires = int(time.time()) + 900
+    sans = [object_shell(expires, 3, 5, 1) + flood_tags[i % 4]
+            + rng.bytes(160) + i.to_bytes(8, "big") for i in range(matched)]
+    sans += [object_shell(expires, 42, 1, 1) + rng.bytes(24)
+             + i.to_bytes(8, "big") for i in range(bulk)]
+    payloads = _solve_objects(sans, 900, 10, device, packed=True)
+    matched_hashes = {inventory_hash(p) for p in payloads[:matched]}
+    build_s = time.perf_counter() - t0
+
+    async def run_point(n_clients: int) -> dict:
+        relay = Node(device=device, test_mode=True, listen=False,
+                     role="relay", role_ipc_listen="%s:0" % LOOPBACK)
+        await relay.start()
+        edge = Node(device=device, test_mode=True, role="edge",
+                    role_ipc_connect="%s:%d" % (
+                        LOOPBACK, relay.role_runtime.listen_port),
+                    client_listen="%s:0" % LOOPBACK, client_buckets=buckets)
+        await edge.start()
+        clients, wire = [], None
+        try:
+            plane = edge.client_plane
+            t1 = time.perf_counter()
+            for i in range(n_clients):
+                plane.index.replace(
+                    "sim-%d" % i,
+                    [(1, buckets_for_tags([client_tags[i]], buckets))])
+            fill_s = time.perf_counter() - t1
+            for i in range(real):
+                cli = LightClient("%s:%d" % (LOOPBACK, plane.listen_port),
+                                  client_id="real-%d" % i, tags=flood_tags,
+                                  streams=(1,))
+                await cli.start()
+                await cli.wait_synced(timeout)
+                clients.append(cli)
+            wire = await _Wire().connect(edge.pool.listen_port, streams=(1,))
+            t1 = time.perf_counter()
+            await wire.send(payloads)
+            await _until(lambda: len(edge.inventory) >= len(payloads),
+                         "the edge to accept the flood at %d clients"
+                         % n_clients, timeout)
+            accept_s = time.perf_counter() - t1
+            converge_s = await _until(
+                lambda: all(matched_hashes <= set(c.objects)
+                            for c in clients),
+                "every real client to hold every matched object",
+                timeout)
+            lost = sum(len(matched_hashes.difference(c.objects))
+                       for c in clients)
+            snap = plane.snapshot()
+            return {"clients": n_clients, "objects": len(payloads),
+                    "fill_s": fill_s, "accept_s": accept_s,
+                    "accepted_objects_per_s": len(payloads) / accept_s,
+                    "converge_s": converge_s, "subscribed_lost": lost,
+                    "pushed": snap["pushed"],
+                    "overflowed": snap["overflowed"],
+                    "fetch_repairs": sum(c.fetch_repairs for c in clients),
+                    "index": snap["index"],
+                    "verify": {"device_batches":
+                               edge.pow_verifier.device_batches,
+                               "host": edge.pow_verifier.host_checked}}
+        finally:
+            for cli in clients:
+                await cli.stop()
+            if wire is not None:
+                await wire.close()
+            await edge.stop()
+            await relay.stop()
+
+    points = []
+    for n_clients in scales:
+        point = asyncio.run(run_point(n_clients))
+        points.append(point)
+        print("clients (t): %d simulated clients (index filled in %.3f s), "
+              "%d real: %d objects accepted by the edge in %.3f s (%.1f "
+              "objects/s), every matched object in every real client "
+              "%.3f s later; lost %d; pushed %d, overflowed %d, fetch "
+              "repairs %d; the edge's verifier %s"
+              % (n_clients, point["fill_s"], real, point["objects"],
+                 point["accept_s"], point["accepted_objects_per_s"],
+                 point["converge_s"], point["subscribed_lost"],
+                 point["pushed"], point["overflowed"],
+                 point["fetch_repairs"], point["verify"]))
+        require(point["subscribed_lost"] == 0,
+                "%d subscribed objects lost at %d clients"
+                % (point["subscribed_lost"], n_clients))
+    launches = {k: v - before[k] for k, v in _NodeKit.launches().items()}
+    if device != "cpu":
+        require(launches["packed_search"] > 0,
+                "the light clients' flood launched no kernel 3")
+    rates = [p["accepted_objects_per_s"] for p in points]
+    ratio = min(rates) / rates[0]
+    print("clients (t): the flood built in %.2f s; objects/s by scale %s; "
+          "the slowest over the smallest %.4f"
+          % (build_s, {p["clients"]: round(p["accepted_objects_per_s"], 1)
+                       for p in points}, ratio))
+    print("clients (t) launches: %s" % launches)
+    return {"build_s": build_s, "points": points, "flat_rate_ratio": ratio,
+            "launches": launches}
 
 
 def _random_pubs(rng, n: int) -> list:
@@ -3825,8 +4343,15 @@ def main() -> int:
     daemon = phase_daemon(np.random.default_rng([args.seed, 6]))
     # the PoW farm's daemons: a seventh generator
     farm = phase_farm(np.random.default_rng([args.seed, 7]))
-    # the role split's daemons: an eighth generator
-    roles = phase_roles(np.random.default_rng([args.seed, 9]))
+    # the role split's daemons: an eighth generator; phase 10 (u) inside
+    # it draws from a tenth
+    roles = phase_roles(np.random.default_rng([args.seed, 9]),
+                        u_rng=np.random.default_rng([args.seed, 11]))
+    # phase 10 (t), the plane under a growing index: a ninth generator
+    before = registry_counts()
+    light = phase_light_clients(np.random.default_rng([args.seed, 10]))
+    attribution["light_clients"] = check_attribution(
+        "light clients (t)", before, {})
     kernels = phase_times(rng, env, main_path["launches"], errs)
     kernels += phase_times_secp(prng, env, receive["launches"], errs)
     for entry in kernels:
@@ -3835,6 +4360,8 @@ def main() -> int:
         entry["daemon_launches"] = daemon["launches"][entry["name"]]
         entry["farm_launches"] = farm["launches"][entry["name"]]
         entry["roles_launches"] = roles["launches"][entry["name"]]
+        entry["clients_launches"] = light["launches"][entry["name"]] + \
+            roles["phases"]["u"]["launches"][entry["name"]]
     wall = time.perf_counter() - t_start
     print("chip_smoke wall %.1f s" % wall)
     if args.report:
@@ -3842,7 +4369,7 @@ def main() -> int:
             json.dump({"env": env, "main_path": main_path,
                        "selftest": selftest, "receive": receive,
                        "node": node, "sockets": sockets, "daemon": daemon,
-                       "farm": farm, "roles": roles,
+                       "farm": farm, "roles": roles, "light": light,
                        "attribution": attribution,
                        "utilization": utilization, "kernels": kernels,
                        "wall_s": wall}, fh, indent=1)

@@ -15,16 +15,27 @@ spec naming an injection site this package does not plant; the
 subsystems the JAX package runs by default and this one does not yet
 (``NOT_RUN``) are named in one warning line at startup.  The PoW farm
 (``powfarmlisten``, ``powfarmconnect`` and their knobs), ``powmaxretries``
-and ``powstalltimeout`` are applied as the JAX daemon applies them, and
-so are the roles (``role=edge|relay``, ``rolestreams``,
+and ``powstalltimeout``, the ingest knobs (``cryptoworkers``,
+``cryptodrainmax``, ``ingestqueuehigh``) and the sampling profiler
+(``profiling``, ``profilehz``) are applied as the JAX daemon applies
+them, and so are the roles (``role=edge|relay|client``, ``rolestreams``,
 ``roleipclisten``, ``roleipcconnect``; ``edgeprocs`` above 1 shares the
-P2P port through ``SO_REUSEPORT``).  A split deployment on one host::
+P2P port through ``SO_REUSEPORT``) and the light-client tier
+(``clientplanelisten`` on an edge, ``clientconnect`` on a client,
+``clientbuckets``).  A split deployment on one host::
 
     python -m pybitmessage_tpu_torch -d R1 --set role=relay \
         --set rolestreams=1,2 --set roleipclisten=127.0.0.1:8460 ...
     python -m pybitmessage_tpu_torch -d E1 -p 8444 --set role=edge \
         --set edgeprocs=2 --set rolestreams=1,2 \
-        --set roleipcconnect=127.0.0.1:8460 ...   (E2 the same)
+        --set roleipcconnect=127.0.0.1:8460 \
+        --set clientplanelisten=127.0.0.1:8470 ...   (E2 the same)
+    python -m pybitmessage_tpu_torch -d C --set role=client \
+        --set clientconnect=127.0.0.1:8470 ...
+
+Every key of the JAX package's ``DEFAULTS`` is in this package's
+``core.config.DEFAULTS``, in :data:`REFUSED`, in :data:`NOT_RUN`, in
+:data:`IGNORED_WHILE_OFF` or in :data:`FRONTEND_ONLY`.
 
 At its stop the daemon logs one ``kernel launches at stop:`` line, a
 JSON object with its kernel wrappers' launch counts beside the device
@@ -47,20 +58,39 @@ def _on(value: str) -> bool:
     return value.lower() in ("true", "1", "yes")
 
 
+def _nonzero(value: str) -> bool:
+    """A number other than 0 (or no number at all)."""
+    try:
+        return float(value) != 0.0
+    except ValueError:
+        return True
+
+
+def _changed(default: str):
+    """Set to anything but the JAX package's default."""
+    return lambda value: value != default
+
+
 #: option -> (the JAX package's default, "turns on a subsystem the port
 #: lacks"): any of these set so refuses the start, since running
 #: without the subsystem would not be what the setting asked for
 #: (proxied traffic must never go out unproxied)
 REFUSED = {
-    "role": ("all", lambda v: v == "client"),
     "sockstype": ("none", lambda v: v != "none"),
     "smtpdenabled": ("false", _on),
     "smtpdeliver": ("", bool),
     "upnp": ("false", _on),
-    "clientplanelisten": ("", bool),
-    "clientconnect": ("", bool),
     "federationpush": ("", bool),
     "inventorystorage": ("sqlite", lambda v: v != "sqlite"),
+    # settings the JAX daemon applies that have nothing to set here: the
+    # engine's coalescing window, the XLA tier's slab shape, the onion
+    # peer the sender announces, the new-message sound
+    "cryptobatchwindow": ("0.0", _nonzero),
+    "powlanes": ("131072", _changed("131072")),
+    "powchunks": ("32", _changed("32")),
+    "onionhostname": ("", bool),
+    "onionport": ("8444", _changed("8444")),
+    "notifysound": ("false", _on),
 }
 
 #: option -> (the JAX package's default, "on"): subsystems the JAX
@@ -70,12 +100,42 @@ NOT_RUN = {
     "udp": ("true", _on),
     "syncenabled": ("true", _on),
     "wiretrace": ("true", _on),
-    "profiling": ("true", _on),
     "federation": ("aggregator", lambda v: v != "off"),
     "cryptonative": ("true", _on),
     "cryptotpu": ("auto", lambda v: v.lower() not in ("off", "false",
                                                       "0", "no")),
 }
+
+#: option -> the switch (a key of :data:`REFUSED` or :data:`NOT_RUN`)
+#: of the subsystem it tunes: that subsystem does not run here, so the
+#: option has nothing to tune and, set alone, neither refuses the start
+#: nor warns (the switch does either)
+IGNORED_WHILE_OFF = {
+    "sockshostname": "sockstype", "socksport": "sockstype",
+    "socksusername": "sockstype", "sockspassword": "sockstype",
+    "sockslisten": "sockstype", "torcontrolport": "sockstype",
+    "onionservicekey": "sockstype", "onionservicekeytype": "sockstype",
+    "smtpdport": "smtpdenabled", "smtpdusername": "smtpdenabled",
+    "smtpdpassword": "smtpdenabled",
+    "slabmaxbytes": "inventorystorage", "slabhotbytes": "inventorystorage",
+    "slabbucketseconds": "inventorystorage",
+    "syncinterval": "syncenabled", "syncfanout": "syncenabled",
+    "cryptonativethreads": "cryptonative",
+    "cryptotpubatchmin": "cryptotpu",
+    "federationinterval": "federation",
+    "notifysoundfile": "notifysound",
+}
+
+#: the JAX package's settings that no daemon code of it reads: the
+#: front-ends' (``ttl``, ``userlocale``) and the reference settings
+#: dialog's, kept in ``settings.dat`` for them
+FRONTEND_ONLY = (
+    "ttl", "userlocale", "stopresendingafterxdays",
+    "stopresendingafterxmonths", "apiinterface", "apivariant",
+    "minimizeonclose", "replybelow", "timeformat", "socksauthentication",
+    "namecoinrpctype", "namecoinrpchost", "namecoinrpcport",
+    "namecoinrpcuser", "namecoinrpcpassword",
+)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -191,7 +251,7 @@ async def run(args) -> int:
     from .api import APIServer
     from .core import Node
     from .core.config import parse_tenant_table
-    from .observability import FLIGHT_RECORDER, set_peer_buckets
+    from .observability import FLIGHT_RECORDER, PROFILER, set_peer_buckets
     from .powfarm import TenantConfig
     from .resilience.chaos import CHAOS, unplanted
     from .storage.knownnodes import Peer
@@ -238,7 +298,10 @@ async def run(args) -> int:
                 role_streams=parse_role_streams(
                     settings.get("rolestreams")) or None,
                 role_ipc_listen=settings.get("roleipclisten") or None,
-                role_ipc_connect=settings.get("roleipcconnect") or None)
+                role_ipc_connect=settings.get("roleipcconnect") or None,
+                client_listen=settings.get("clientplanelisten") or None,
+                client_connect=settings.get("clientconnect") or None,
+                client_buckets=settings.getint("clientbuckets"))
     node.settings = settings
     # edgeprocs > 1: the listener shares its port via SO_REUSEPORT so
     # sibling edge processes can bind beside it
@@ -282,9 +345,22 @@ async def run(args) -> int:
     node.health.sample_interval = settings.getfloat("healthinterval")
     node.health.probe.interval = settings.getfloat("looplaginterval")
     set_peer_buckets(settings.getint("peerlabelbuckets"))
+    # the sampling profiler: costStatus, profileDump, GET /debug/profile,
+    # the loop-lag culprit and the flight recorder's stacks
+    if settings.getbool("profiling"):
+        PROFILER.hz = settings.getfloat("profilehz")
+        PROFILER.start()
     node.processor.list_mode = settings.get("blackwhitelist")
-    # applied before start() spawns the processor's workers
+    # applied before start() spawns the processor's workers and the
+    # engine's drain task
     node.processor.concurrency = settings.getint("ingestworkers")
+    if settings.getint("cryptoworkers"):
+        node.crypto.size = settings.getint("cryptoworkers")
+    if node.crypto.batch is not None:
+        node.crypto.batch.drain_max = settings.getint("cryptodrainmax")
+    queue = node.ctx.object_queue
+    queue.high = settings.getint("ingestqueuehigh")
+    queue.low = max(1, queue.high // 4)
     if not settings.getbool("cryptoscreen"):
         node.crypto.screen = None
         if node.crypto.batch is not None:
@@ -308,7 +384,11 @@ async def run(args) -> int:
     if args.seed_defaults:
         node.knownnodes.seed_defaults()
 
-    await node.start()
+    try:
+        await node.start()
+    except BaseException:
+        PROFILER.stop()
+        raise
 
     notifier = None
     if settings.get("apinotifypath"):
@@ -352,6 +432,7 @@ async def run(args) -> int:
     if api is not None:
         await api.stop()
     await node.stop()
+    PROFILER.stop()
     logging.info("kernel launches at stop: %s",
                  json.dumps(launch_record(), sort_keys=True))
     settings.save()

@@ -11,19 +11,20 @@ Not here yet, so a call answers ``APIError 20`` as for any method the
 handler lacks: the email gateway and mailing lists
 (``setEmailGateway``, ``emailGatewayRegister``,
 ``emailGatewayUnregister``, ``emailGatewayStatus``,
-``emailGatewaySettings``, ``sendEmail``, ``setMailingList``), federation
-(``federatedStatus``) and the sampling profiler (``costStatus``,
-``profileDump``).  ``roleStatus``, ``shardStatus`` and ``shardShed``
-answer as the JAX ones do over the port's ``roles`` runtimes (an edge's
-relay links, a relay's edges and its live shard handoff).
+``emailGatewaySettings``, ``sendEmail``, ``setMailingList``) and
+federation (``federatedStatus``).  ``roleStatus``, ``shardStatus`` and
+``shardShed`` answer as the JAX ones do over the port's ``roles``
+runtimes (an edge's relay links and client plane, a relay's edges and
+its live shard handoff, a light client's session); ``costStatus`` and
+``profileDump`` over the port's sampling profiler.
 
 The telemetry commands (``metrics``, ``dumpFlightRecorder``,
 ``deviceStatus``, ``profileDevice``, ``objectTimeline``) answer as the
 JAX ones do, over the port's ``observability`` package; ``clientStatus``
 carries the JAX ``device`` (per-program launches from the registry),
-``health`` and ``farm`` blocks, and of the JAX ``resilience`` block the
-PoW journal's part (pending jobs, checkpoints, jobs recovered at open)
-and the armed chaos sites.  ``farmStatus`` answers the JAX command's
+``health``, ``farm`` and ``clients`` blocks, and of the JAX
+``resilience`` block the PoW journal's part (pending jobs, checkpoints,
+jobs recovered at open) and the armed chaos sites.  ``farmStatus`` answers the JAX command's
 text: the farm daemon's scheduler, tenants and job outcomes, and the
 client tier's endpoint and breaker.
 """
@@ -40,9 +41,9 @@ from ..models.constants import OBJECT_MSG, OBJECT_PUBKEY
 from ..models.objects import ObjectHeader
 from ..core.config import DEFAULTS, Settings, SettingsError
 from ..crypto.keys import grind_deterministic_keys
-from ..observability import (FLIGHT_RECORDER, LIFECYCLE, REGISTRY,
-                             HealthMonitor, capture_device_trace,
-                             device_status, render_prometheus)
+from ..observability import (FLIGHT_RECORDER, LIFECYCLE, PROFILER,
+                             REGISTRY, HealthMonitor, capture_device_trace,
+                             cost_status, device_status, render_prometheus)
 from ..resilience.chaos import CHAOS
 from ..utils.addresses import AddressError, decode_address, encode_address
 from ..utils.hashes import inventory_hash
@@ -704,6 +705,32 @@ class CommandHandler:
                            "skew": round(FLIGHT_RECORDER.skew(), 6),
                            "events": events}, default=repr)
 
+    def cmd_costStatus(self):
+        """CPU and cost attribution: the sampler's state, CPU-sample
+        shares by subsystem and thread class, CPU-µs per object per
+        ingest stage, per-tenant farm CPU, the crypto engine's seconds
+        and items, and the card's busy seconds by program."""
+        return json.dumps(cost_status(self.node), indent=4)
+
+    async def cmd_profileDump(self, seconds=0, fmt=""):
+        """Dump the sampling profiler: collapsed folded stacks and a
+        speedscope document, classified by thread class and subsystem.
+        ``seconds > 0`` dumps the rolling window of the last N seconds;
+        0 the whole-run bounded trie.  ``fmt="collapsed"`` leaves out
+        the speedscope document.  Also ``GET /debug/profile``."""
+        try:
+            seconds = float(seconds)
+        except (TypeError, ValueError):
+            raise APIError(0, "seconds must be numeric")
+        win = seconds if seconds > 0 else None
+        node_id = getattr(self.node, "node_id", "")
+        # the walk and the serialization scale with the whole-run
+        # profile: off the event loop
+        return await asyncio.get_running_loop().run_in_executor(
+            None, lambda: json.dumps(PROFILER.dump(
+                win, speedscope=fmt != "collapsed",
+                node_id=node_id), default=repr))
+
     def cmd_deviceStatus(self):
         """The device telemetry plane: per-program launches, first
         launches and repeats, dispatch and wait seconds, busy seconds,
@@ -829,11 +856,26 @@ class CommandHandler:
             out["client"] = client.snapshot()
         return out
 
+    def _client_tier_stats(self) -> dict:
+        """Light-client tier block: the edge's subscription plane (with
+        its ``farmDelegation``) and this node's own light-client
+        session under ``role=client``."""
+        plane = getattr(self.node, "client_plane", None)
+        light = getattr(self.node, "light_client", None)
+        out: dict = {"serving": plane is not None,
+                     "lightClient": light is not None}
+        if plane is not None:
+            out["plane"] = plane.snapshot()
+        if light is not None:
+            out["session"] = light.snapshot()
+        return out
+
     def cmd_roleStatus(self):
         """Role-split deployment status: this node's role, subscribed
-        streams, per-stream peer overlay, inventory size and the role
-        IPC runtime's snapshot (an edge's relay links, a relay's edges
-        and ingest counts)."""
+        streams, per-stream peer overlay, inventory size, the role IPC
+        runtime's snapshot (an edge's relay links, a relay's edges and
+        ingest counts), an edge's client plane and a client's
+        session."""
         node = self.node
         out = {
             "role": getattr(node, "role", "all"),
@@ -846,6 +888,12 @@ class CommandHandler:
         runtime = getattr(node, "role_runtime", None)
         if runtime is not None:
             out["ipc"] = runtime.snapshot()
+        plane = getattr(node, "client_plane", None)
+        if plane is not None:
+            out["clientPlane"] = plane.snapshot()
+        light = getattr(node, "light_client", None)
+        if light is not None:
+            out["lightClient"] = light.snapshot()
         return json.dumps(out, indent=4)
 
     def cmd_shardStatus(self):
@@ -941,6 +989,7 @@ class CommandHandler:
             "resilience": self._resilience_stats(),
             "crypto": self._crypto_stats(),
             "farm": self._farm_stats(),
+            "clients": self._client_tier_stats(),
             "device": self._device_stats(),
             "health": self._health_stats(),
             "powVerify": {

@@ -1,6 +1,6 @@
 """Minimal asyncio HTTP RPC server with basic auth: JSON-RPC + XML-RPC
-(copy of ``pybitmessage_tpu.api.server``, without ``GET /debug/profile``,
-the federation push and the fault-injection site).
+(copy of ``pybitmessage_tpu.api.server``, without the federation push
+and the fault-injection site).
 
 Reference: src/api.py singleAPI — XML/JSON-RPC on 127.0.0.1:8442 with
 HTTP basic auth (api.py:437-457).  Both of the reference's apivariants
@@ -14,7 +14,10 @@ error vocabulary (api.py:111-153).
 GETs, under the same basic auth: ``/metrics`` serves the Prometheus
 text exposition of the process-wide registry; ``/debug/device`` the
 device-telemetry table, or with ``?seconds=N`` a ``torch.profiler``
-trace captured for N seconds; ``/metrics/federated`` answers 404
+trace captured for N seconds; ``/debug/profile`` the sampling
+profiler's dump (collapsed stacks and a speedscope document; with
+``?seconds=N`` the rolling window of the last N seconds);
+``/metrics/federated`` answers 404
 "federation disabled", as the JAX daemon does with federation off.
 Blocking work runs in the executor.  Every other GET answers 404.
 """
@@ -29,8 +32,8 @@ import logging
 import time
 import xmlrpc.client
 
-from ..observability import (REGISTRY, capture_device_trace, device_status,
-                             render_prometheus)
+from ..observability import (PROFILER, REGISTRY, capture_device_trace,
+                             device_status, render_prometheus)
 from ..resilience import Deadline
 from .commands import APIError, CommandHandler
 
@@ -171,13 +174,15 @@ class APIServer:
 
     async def _get(self, writer, request_line: bytes,
                    headers: dict[str, str]) -> None:
-        """The GET endpoints: ``/metrics``, ``/metrics/federated`` and
-        ``/debug/device[?seconds=N]``; anything else is 404."""
+        """The GET endpoints: ``/metrics``, ``/metrics/federated``,
+        ``/debug/device[?seconds=N]`` and ``/debug/profile[?seconds=N]``;
+        anything else is 404."""
         parts = request_line.split()
         raw_path = parts[1].decode("latin-1", "replace") \
             if len(parts) > 1 else ""
         path, _, query = raw_path.partition("?")
-        if path not in ("/metrics", "/metrics/federated", "/debug/device"):
+        if path not in ("/metrics", "/metrics/federated", "/debug/device",
+                        "/debug/profile"):
             await self._respond(writer, 404, {"error": "not found"})
             return
         if not self._authorized(headers):
@@ -203,6 +208,16 @@ class APIServer:
                     await self._respond(writer, 400,
                                         {"error": "bad seconds"})
                     return
+        if path == "/debug/profile":
+            # the whole-run trie walk, the speedscope build and the
+            # serialization run in the executor, not on the event loop
+            win = seconds if seconds and seconds > 0 else None
+            node_id = getattr(self.node, "node_id", "")
+            body = await asyncio.get_running_loop().run_in_executor(
+                None, lambda: json.dumps(
+                    PROFILER.dump(win, node_id=node_id)).encode("utf-8"))
+            await self._respond_raw(writer, 200, body, "application/json")
+            return
         # the device table and a trace capture both block: executor,
         # not the event loop
         if seconds and seconds > 0:

@@ -48,9 +48,16 @@ DEFAULTS: dict[str, str] = {
                                      # (0 = launch immediately)
     "ingestworkers": "8",            # concurrent objects in the
                                      # processor pipeline
+    "cryptoworkers": "0",            # crypto pool threads (0 = auto:
+                                     # min(8, cores))
+    "ingestqueuehigh": "512",        # object-queue high watermark
+                                     # pausing connection reads (the
+                                     # low one is a quarter of it)
     "cryptobatch": "true",           # decrypts and signature checks
                                      # through the batch engine on the
                                      # device (off = host threads)
+    "cryptodrainmax": "4096",        # ECDH pair budget per
+                                     # trial-decrypt drain
     "cryptoscreen": "true",          # object-keyed negative cache in
                                      # front of the trial-decrypt sweep
     "breakerfailures": "3",          # consecutive failures opening the
@@ -67,6 +74,10 @@ DEFAULTS: dict[str, str] = {
                                      # seconds
     "peerlabelbuckets": "16",        # hashed peer-bucket count for
                                      # per-peer metric labels
+    "profiling": "true",             # continuous sampling profiler
+                                     # (costStatus / profileDump /
+                                     # GET /debug/profile)
+    "profilehz": "19",               # profiler sampling rate, Hz
     # ceilings on recipient-demanded PoW; 0 = unlimited (reference
     # helper_startup sanity cap: ridiculousDifficulty x network default)
     "maxacceptablenoncetrialsperbyte": "20000000000",
@@ -126,6 +137,14 @@ DEFAULTS: dict[str, str] = {
                                      # list of "host:port" (shard
                                      # ownership learned from
                                      # HELLO_ACK)
+    "clientplanelisten": "",         # edge: serve the light-client
+                                     # subscription plane on this
+                                     # "port" or "host:port" (empty =
+                                     # no client plane)
+    "clientconnect": "",             # client role: one edge's client
+                                     # plane at "host:port"
+    "clientbuckets": "64",           # filter-digest bucket count the
+                                     # plane serves
     # -- resilience --
     "powstalltimeout": "120",        # per-harvest slab stall deadline,
                                      # seconds (0 = watchdog off)
@@ -227,6 +246,9 @@ VALIDATORS: dict[str, Callable[[str], bool]] = {
     "apiport": _validate_int_range(1, 65535),
     "powbatchwindow": _validate_float_range(0.0, 10.0),
     "ingestworkers": _validate_int_range(1, 256),
+    "cryptoworkers": _validate_int_range(0, 256),
+    "ingestqueuehigh": _validate_int_range(0, 1 << 20),
+    "cryptodrainmax": _validate_int_range(1, 1 << 20),
     "cryptobatch": _validate_bool,
     "cryptoscreen": _validate_bool,
     "breakerfailures": _validate_int_range(1, 1000),
@@ -239,6 +261,8 @@ VALIDATORS: dict[str, Callable[[str], bool]] = {
     "healthinterval": _validate_float_range(0.1, 3600.0),
     "looplaginterval": _validate_float_range(0.01, 60.0),
     "peerlabelbuckets": _validate_int_range(1, 512),
+    "profiling": _validate_bool,
+    "profilehz": _validate_float_range(0.1, 1000.0),
     "powfarmlisten": lambda v: v == "" or (
         v.rpartition(":")[2].isdigit()
         and 0 <= int(v.rpartition(":")[2]) <= 65535),
@@ -264,6 +288,13 @@ VALIDATORS: dict[str, Callable[[str], bool]] = {
         v.rpartition(":")[2].isdigit()
         and 0 <= int(v.rpartition(":")[2]) <= 65535),
     "roleipcconnect": _validate_endpoint_list,
+    "clientplanelisten": lambda v: v == "" or (
+        v.rpartition(":")[2].isdigit()
+        and 0 <= int(v.rpartition(":")[2]) <= 65535),
+    "clientconnect": lambda v: v == "" or (
+        v.rpartition(":")[2].isdigit()
+        and 1 <= int(v.rpartition(":")[2]) <= 65535),
+    "clientbuckets": _validate_int_range(1, 65535),
     "powstalltimeout": _validate_float_range(0.0, 86400.0),
     "powmaxretries": _validate_int_range(1, 100),
     "chaosseed": _validate_int_range(0, 2**63 - 1),

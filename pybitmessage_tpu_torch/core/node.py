@@ -39,9 +39,15 @@ PoW on its ``BatchVerifier`` and hands it over role IPC
 a ``relay`` serves role IPC on ``role_ipc_listen``, does not listen for
 P2P, and stores, processes and sends for its streams
 (``role_streams``, the fused node's too; default ``(stream,)``).
-Sync, TLS, SOCKS, UDP discovery, UPnP, federation, the sampling
-profiler, the email gateway and the ``client`` role are not part of this
-package yet.
+``client_listen`` ("host:port") serves the light-client plane
+(``roles/subscription.py`` ``ClientPlane``, ``client_buckets`` digest
+buckets), fed from the ingest pump, the sender's publishes and, on an
+edge, the relay's pushes; ``role="client"`` is a light client
+(``roles/client.py`` ``LightClient``) of the plane at ``client_connect``,
+trial-decrypting on its own ``BatchCryptoEngine``.  ``start`` tells the
+sampling profiler which thread runs the event loop.  Sync, TLS, SOCKS,
+UDP discovery, UPnP, federation and the email gateway are not part of
+this package yet.
 """
 
 from __future__ import annotations
@@ -56,7 +62,7 @@ from ..crypto.keys import priv_to_pub_many
 from ..models.payloads import gen_ack_payload
 from ..network.dandelion import Dandelion
 from ..network.pool import ConnectionPool, NodeContext
-from ..observability import (FLIGHT_RECORDER, HealthMonitor,
+from ..observability import (FLIGHT_RECORDER, PROFILER, HealthMonitor,
                              log_snapshot_task)
 from ..pow.dispatcher import PowDispatcher
 from ..pow.service import PowService
@@ -94,7 +100,9 @@ class Node:
     listening) serve a PoW farm and delegate to one, under
     ``farm_tenant`` signed with ``farm_secret``.  ``role``,
     ``role_streams``, ``role_ipc_listen`` and ``role_ipc_connect`` make
-    it an edge or a relay; ``role="client"`` raises (not ported yet).
+    it an edge or a relay.  ``client_listen`` serves the light-client
+    plane over ``client_buckets`` buckets; ``role="client"`` needs
+    ``client_connect``, the ``host:port`` of an edge's plane.
     """
 
     def __init__(self, data_dir: str | None = None, *,
@@ -109,12 +117,16 @@ class Node:
                  role: str = "all",
                  role_streams: tuple[int, ...] | None = None,
                  role_ipc_listen: str | None = None,
-                 role_ipc_connect: str | None = None):
+                 role_ipc_connect: str | None = None,
+                 client_listen: str | None = None,
+                 client_connect: str | None = None,
+                 client_buckets: int = 64):
         self.role = role
         self.role_spec = spec = get_role(role)
-        if role == "client":
-            raise ValueError("the client role is not part of this "
-                             "package yet")
+        if role == "client" and not client_connect:
+            raise ValueError(
+                "client role needs clientconnect (host:port of an edge's "
+                "clientplanelisten)")
         self.device = resolve_device(device)
         self.data_dir = Path(data_dir) if data_dir else None
         if self.data_dir:
@@ -237,6 +249,33 @@ class Node:
                     "relay role needs roleipclisten (port or host:port)")
             from ..roles.relay import RelayRuntime
             self.role_runtime = RelayRuntime(self, role_ipc_listen)
+        #: the light-client tier: an edge's plane serving store-nothing
+        #: clients, or this node's own client of one edge's plane
+        self.client_plane = None
+        self.light_client = None
+        self.client_crypto = None
+        if client_listen:
+            from ..roles.subscription import ClientPlane
+            self.client_plane = ClientPlane(
+                self, client_listen, buckets=client_buckets)
+            self.sender.on_publish = self.client_plane.on_record
+        if role == "client":
+            from ..crypto.batch import BatchCryptoEngine
+            from ..roles.client import LightClient
+            self.client_crypto = BatchCryptoEngine(self.device)
+            self.light_client = LightClient(
+                client_connect,
+                client_id=self.ctx.nonce.hex()[:16],
+                tenant=farm_tenant if farm_tenant != "default" else None,
+                streams=self.ctx.streams, buckets=client_buckets,
+                crypto=self.client_crypto)
+
+            def _sync_client_keys() -> None:
+                self.light_client.set_keys(
+                    identities=self.keystore.identities.values(),
+                    subscriptions=self.keystore.active_subscriptions())
+            self.keystore.add_change_listener(_sync_client_keys)
+            _sync_client_keys()
 
     def set_streams(self, streams) -> None:
         """Adopt a new shard map mid-session (a relay's live acquire or
@@ -246,6 +285,9 @@ class Node:
     # -- lifecycle -----------------------------------------------------------
 
     async def start(self) -> None:
+        # the sampling profiler's event_loop thread class and the loop
+        # lag probe's culprit key off the thread that runs the loop
+        PROFILER.note_loop_thread()
         self.pow_service.start()
         self.pow_verifier.start()
         self.sender.start()
@@ -260,6 +302,11 @@ class Node:
         self.health.start()
         if self.farm_server is not None:
             await self.farm_server.start()
+        if self.client_plane is not None:
+            await self.client_plane.start()
+        if self.light_client is not None:
+            self.client_crypto.start()
+            await self.light_client.start()
         logger.info("node started on %s (port %s)", self.device,
                     self.pool.listen_port if self.listen else "-")
 
@@ -271,6 +318,9 @@ class Node:
         forwards = self.role_spec.forwards_ingest
         while not self.shutdown.is_set():
             h, header, payload = await self.ctx.object_queue.get()
+            if self.client_plane is not None:
+                # one index probe and a fan-out to the matched clients
+                self.client_plane.on_object(h, header, payload)
             if forwards:
                 await self.role_runtime.handoff(h, header, payload)
             else:
@@ -284,6 +334,11 @@ class Node:
         edge flushes its outbox to its relays (bounded); a relay stops
         serving role IPC before the processor drains."""
         self.shutdown.set()
+        if self.light_client is not None:
+            await self.light_client.stop()
+            await self.client_crypto.stop()
+        if self.client_plane is not None:
+            await self.client_plane.stop()
         await self.health.stop()
         for task in (self._pump_task, self._metrics_task):
             if task is not None:

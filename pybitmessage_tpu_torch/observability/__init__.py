@@ -1,17 +1,18 @@
 """Process-wide telemetry of the port (twin of
 ``pybitmessage_tpu.observability``): metrics registry, span tracer,
 exporters, object lifecycle tracing, flight recorder, runtime health
-probes and the device telemetry plane.
+probes, the device telemetry plane and the sampling profiler
+(``profiling.py``: ``costStatus``, ``profileDump``, ``GET
+/debug/profile``).
 
-Not here yet: the sampling profiler (``profiling.py``: ``costStatus``,
-``profileDump``, ``GET /debug/profile``), federation
-(``federation.py``) and the wire trace's ``TraceContext`` /
-``SkewEstimator``.
+Not here yet: federation (``federation.py``) and the wire trace's
+``TraceContext`` / ``SkewEstimator``.
 """
 
 from .devicetelemetry import (DEVICE_TELEMETRY, DeviceTelemetry,
                               DeviceTrace, capture_device_trace,
-                              device_status, env_fingerprint,
+                              device_cost_block, device_status,
+                              env_fingerprint,
                               record_launch, register_program)
 from .export import (escape_help, escape_label_value, log_snapshot_task,
                      render_prometheus, snapshot)
@@ -21,6 +22,10 @@ from .lifecycle import LIFECYCLE, LifecycleTracer
 from .metrics import (DEFAULT_LATENCY_BUCKETS, DEFAULT_SIZE_BUCKETS,
                       REGISTRY, Counter, Gauge, Histogram, Registry,
                       peer_bucket, peer_bucket_label, set_peer_buckets)
+from .profiling import (PROFILER, SamplingProfiler, cost_status,
+                        cpu_shares, crypto_rung_costs, farm_tenant_costs,
+                        ingest_stage_costs, note_slow_callback,
+                        speedscope_doc)
 from .tracing import (TRACER, Span, Tracer, current_span,
                       enable_profiler_annotations, new_span_id,
                       new_trace_id, profiler_annotations_enabled, trace)
@@ -39,5 +44,8 @@ __all__ = [
     "HealthMonitor", "LoopLagProbe",
     "DeviceTelemetry", "DEVICE_TELEMETRY", "DeviceTrace",
     "register_program", "record_launch", "device_status",
-    "capture_device_trace", "env_fingerprint",
+    "capture_device_trace", "env_fingerprint", "device_cost_block",
+    "SamplingProfiler", "PROFILER", "cost_status", "cpu_shares",
+    "ingest_stage_costs", "farm_tenant_costs", "crypto_rung_costs",
+    "note_slow_callback", "speedscope_doc",
 ]

@@ -512,6 +512,30 @@ def device_status() -> dict:
     }
 
 
+def device_cost_block() -> dict:
+    """The ``costStatus`` ``device`` block: the card's busy seconds in
+    all and by program, compile and execute-wait seconds, launches (the
+    attribution a cost view needs, without the per-program table)."""
+    progs = DEVICE_TELEMETRY.programs()
+    busy = {p: _counter_value("device_busy_seconds_total", p)
+            for p in progs}
+    total_busy = sum(busy.values())
+    return {
+        "busySeconds": round(total_busy, 6),
+        "byProgram": {p: round(s, 6) for p, s in sorted(busy.items())
+                      if s > 0},
+        "compileSeconds": round(sum(
+            _hist_stats("device_program_compile_seconds", p)[1]
+            for p in progs), 6),
+        "executeWaitSeconds": round(sum(
+            _hist_stats("device_execute_wait_seconds", p)[1]
+            for p in progs), 6),
+        "launches": int(sum(
+            _counter_value("device_launches_total", p)
+            for p in progs)),
+    }
+
+
 #: bound on one on-demand capture - a forgotten long trace would hold
 #: the profiler (and its buffer growth) for the whole session
 MAX_TRACE_SECONDS = 60.0

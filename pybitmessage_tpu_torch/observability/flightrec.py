@@ -9,8 +9,8 @@ command dumps it on demand.
 
 Appends are lock-free on CPython: one ``deque.append`` (atomic under
 the GIL) plus a counter increment.  ``record()`` never raises.
-``profile_provider`` stays ``None`` until the sampling profiler is
-ported.
+A running sampling profiler sets ``profile_provider``, so every dump
+also carries the stacks of its last ~10 s.
 """
 
 from __future__ import annotations
@@ -55,8 +55,8 @@ class FlightRecorder:
         #: offset vs its peers (remote-minus-local seconds), recorded in
         #: every dump; unset until the wire trace is ported
         self.skew_provider = None
-        #: optional callable returning a rolling-window profile block;
-        #: unset until the sampling profiler is ported
+        #: optional callable returning a rolling-window profile block
+        #: (``profiling.py``; set while the sampler runs)
         self.profile_provider = None
 
     def resize(self, maxlen: int) -> None:

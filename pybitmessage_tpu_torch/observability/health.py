@@ -12,20 +12,23 @@ occupancy) and serves the composite per-subsystem ``health`` block
 ``clientStatus`` exposes: each subsystem reports ``ok`` or ``degraded``
 with the reading that tripped it.
 
-One difference from the JAX package: its probe asks the sampling
-profiler which callback held the loop during a late tick; that profiler
-is not ported yet, so the port records the lag without a culprit and
-``recent_culprit`` answers ``None`` (``lastSlowCallback`` stays "").
-The port's node has no sync reconciler or client tier, so the block
-carries ``loop``, ``role``, ``pow``, ``ingest`` and ``storage``, as the
-JAX block does for such a node; ``role`` judges an edge's replica-set
-coverage and reports a relay's edges, epoch and forwarded streams.
+A lag sample above ``culprit_threshold`` asks the sampling profiler
+(``profiling.py``) which site held the loop during the late tick; the
+site is counted into ``event_loop_slow_callback_total{site}``, dropped
+as a flight-recorder breadcrumb and shown as the health block's
+``lastSlowCallback``.  The port's node has no sync reconciler, so the
+block carries ``loop``, ``role``, ``pow``, ``ingest``, ``storage`` and,
+with the light-client tier, ``clients`` (an edge's plane) and
+``lightClient`` (a client's link), as the JAX block does for such a
+node; ``role`` judges an edge's replica-set coverage and reports a
+relay's edges, epoch and forwarded streams.
 """
 
 from __future__ import annotations
 
 import asyncio
 import logging
+import time
 from collections import deque
 
 from .metrics import REGISTRY
@@ -62,8 +65,11 @@ class LoopLagProbe:
     seconds later; any excess is time the loop spent running other
     callbacks (or blocked in C) - the lag.
 
-    The JAX probe names the site that held the loop through the
-    sampling profiler; until that is ported a spike stays anonymous.
+    A lag sample above ``culprit_threshold`` is attributed: the probe
+    asks the sampling profiler which site dominated the event-loop
+    thread during the late window and counts it into
+    ``event_loop_slow_callback_total{site}`` with a flight-recorder
+    breadcrumb (without the sampler running the number stays bare).
     """
 
     #: samples kept for the live-state window (~1 min at the default
@@ -72,10 +78,15 @@ class LoopLagProbe:
     WINDOW = 240
 
     def __init__(self, interval: float = DEFAULT_INTERVAL, *,
-                 histogram=LOOP_LAG):
+                 histogram=LOOP_LAG,
+                 culprit_threshold: float = LAG_DEGRADED_SECONDS):
         self.interval = interval
         self.histogram = histogram
+        self.culprit_threshold = culprit_threshold
         self.max_lag = 0.0
+        #: the most recently attributed spike, (site, lag, wall time);
+        #: aged out of the health block after CULPRIT_TTL
+        self.last_culprit: tuple[str, float, float] | None = None
         self.recent: deque = deque(maxlen=self.WINDOW)
         self._task: asyncio.Task | None = None
 
@@ -91,11 +102,33 @@ class LoopLagProbe:
             if lag > self.max_lag:
                 self.max_lag = lag
                 LOOP_LAG_MAX.set(lag)
+            if lag >= self.culprit_threshold:
+                self._attribute(lag)
+
+    #: seconds after which an attributed culprit stops being shown
+    CULPRIT_TTL = 900.0
+
+    def _attribute(self, lag: float) -> None:
+        """Name the callback that held the loop (never raises)."""
+        try:
+            from .profiling import PROFILER, note_slow_callback
+            site = PROFILER.loop_culprit(lag + self.interval)
+            if site is not None:
+                self.last_culprit = (site, lag, time.time())
+                note_slow_callback(site, lag)
+        except Exception:
+            logger.debug("slow-callback attribution failed",
+                         exc_info=True)
 
     def recent_culprit(self) -> tuple[str, float] | None:
-        """(site, lag) of the last attributed spike: always None, since
-        no spike is attributed without the sampling profiler."""
-        return None
+        """(site, lag) of the last attributed spike, or None once it
+        has aged past :data:`CULPRIT_TTL`."""
+        if self.last_culprit is None:
+            return None
+        site, lag, t = self.last_culprit
+        if time.time() - t > self.CULPRIT_TTL:
+            return None
+        return site, lag
 
     def recent_p99(self) -> float:
         """p99 over the recent window (0.0 with no samples yet)."""
@@ -249,6 +282,26 @@ class HealthMonitor:
         out["storage"] = _verdict(
             wb is None or pending < wb.max_rows, pendingRows=pending)
 
+        # light-client tier: a plane whose sessions keep overflowing is
+        # deferring pushes into FETCH repair; a light client that cannot
+        # hold its edge link is degraded
+        plane = getattr(node, "client_plane", None)
+        if plane is not None:
+            snap = plane.snapshot()
+            pushed = max(snap["pushed"], 1)
+            out["clients"] = _verdict(
+                snap["overflowed"] < pushed,
+                sessions=snap["sessions"],
+                subscriptions=snap["index"]["memberships"],
+                epoch=snap["index"]["epoch"],
+                overflowed=snap["overflowed"])
+        light = getattr(node, "light_client", None)
+        if light is not None:
+            snap = light.snapshot()
+            out["lightClient"] = _verdict(
+                snap["connected"], **{k: snap[k] for k in
+                                      ("edge", "connects", "epoch",
+                                       "subscribedBuckets", "objects")})
         return out
 
 

@@ -18,11 +18,12 @@ The sites this package plants (:data:`SITES`):
                        sends on the role IPC channel (``roles/``)
 ``role.handoff``       a relay's handoff control, drain and forward sends
 ``role.replica``       an edge's replica health probe
+``role.client``        a light-client plane frame send, both the edge's
+                       session writer and the client's (``roles/``)
 =====================  ==================================================
 
 The JAX package's other sites (``pow.readback``, ``net.*``, ``api.*``,
-``sync.*``, ``crypto.*``, ``storage.*``, ``role.client``) are not
-planted here; :func:`unplanted` names them in a spec so the daemon can
+``sync.*``, ``crypto.*``, ``storage.*``) are not planted here; :func:`unplanted` names them in a spec so the daemon can
 refuse it.
 
 Arming, one of:
@@ -56,7 +57,8 @@ FAULTS = REGISTRY.counter(
 
 #: the injection sites planted in this package
 SITES = ("pow.device_launch", "db.write", "farm.accept", "farm.dispatch",
-         "farm.result", "role.ipc", "role.handoff", "role.replica")
+         "farm.result", "role.ipc", "role.handoff", "role.replica",
+         "role.client")
 
 
 class ChaosError(RuntimeError):

@@ -5,8 +5,9 @@ The node runs fused in one process (``all``, the default) or split into
 dedupe cache) and stream-sharded ``relay`` processes (storage, the
 processor and the sender), joined by the length-prefixed role IPC
 channel of :mod:`.ipc`, whose frames are the JAX package's byte for
-byte.  The light-client tier (``ClientPlane``, ``SubscriptionIndex``,
-``LightClient``) is not here yet.
+byte.  The light-client tier: an edge's ``ClientPlane`` (with its
+``SubscriptionIndex``) serves store-nothing ``LightClient``s
+(``role=client``) over the frames of :mod:`.subscription`.
 """
 
 from .registry import ROLES, RoleSpec, get_role, parse_role_streams
@@ -16,6 +17,7 @@ __all__ = [
     "ROLES", "RoleSpec", "get_role", "parse_role_streams",
     "shard_owner", "stream_for_address", "stream_for_ripe",
     "EdgeCache", "EdgeRuntime", "RelayRuntime",
+    "ClientPlane", "SubscriptionIndex", "LightClient",
 ]
 
 
@@ -26,4 +28,10 @@ def __getattr__(name):  # PEP 562: the runtimes import lazily
     if name == "RelayRuntime":
         from .relay import RelayRuntime
         return RelayRuntime
+    if name in ("ClientPlane", "SubscriptionIndex"):
+        from . import subscription
+        return getattr(subscription, name)
+    if name == "LightClient":
+        from .client import LightClient
+        return LightClient
     raise AttributeError(name)

@@ -716,6 +716,11 @@ class EdgeRuntime:
         cache = self.node.inventory
         fresh = h not in cache or cache.is_known_uncached(h)
         cache.add(h, type_, stream, payload, expires, tag)
+        plane = self.node.client_plane
+        if plane is not None and fresh:
+            # relay-originated objects reach light-client subscribers
+            # too, not only locally ingested ones
+            plane.on_record(h, type_, stream, expires, tag, payload)
         waiters, _ = self._fetch_waiters.pop(h, ([], 0.0))
         for conn in waiters:
             FETCHES.labels(result="served").inc()

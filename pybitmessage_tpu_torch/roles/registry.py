@@ -10,8 +10,10 @@
 ``relay``   inventory authority for its stream shard, the processor and
             the sender; serves the role IPC channel and does not open
             the shared P2P listener (edges own the port)
-``client``  stores and forwards nothing (the light-client tier, which
-            ``Node`` of this package refuses: not ported yet)
+``client``  stores and forwards nothing: no inventory, no relay links,
+            no P2P listener; syncs filter digests from one edge's
+            subscription plane, trial-decrypts on its own engine and
+            delegates PoW through the edge
 ==========  ============================================================
 """
 

@@ -10,7 +10,7 @@ clock reading in either package: msgids, ackdata, ``receivedTime`` and
 ``lastActionTime``; ``getSettings`` is compared on the options both
 packages know (``powBackends`` names each package's own solver).
 
-Also here: the port's command table is the JAX table less the 13
+Also here: the port's command table is the JAX table less the 8
 commands it has not ported, each of which answers ``APIError 20``; the
 ``clientStatus`` keys are a subset of the JAX keys; XML-RPC and JSON-RPC
 share one port; a data directory written behind one package's API is
@@ -39,12 +39,13 @@ USER, PASS = "apiuser", "apipass"
 CALL_TIMEOUT = 30.0
 POLL_TIMEOUT = 45.0
 
-#: the JAX commands the port has not ported (ROADMAP §1 items 8-10)
+#: the JAX commands the port has not ported (the email gateway and
+#: federation)
 UNPORTED = (
     "setEmailGateway", "emailGatewayRegister", "emailGatewayUnregister",
     "emailGatewayStatus", "emailGatewaySettings", "sendEmail",
     "setMailingList",
-    "federatedStatus", "costStatus", "profileDump",
+    "federatedStatus",
 )
 
 #: masked in answers: random or clock readings in either package
@@ -205,14 +206,14 @@ def _commands(handler_cls) -> set[str]:
 def test_command_table_is_the_jax_table_less_the_unported():
     JaxHandler = _jax()[2]
     jax_names, port_names = _commands(JaxHandler), _commands(CommandHandler)
-    assert len(UNPORTED) == 10
+    assert len(UNPORTED) == 8
     assert port_names == jax_names - set(UNPORTED)
     assert set(UNPORTED) <= jax_names
-    # 67 commands, plus the five aliases both register
+    # 69 commands, plus the five aliases both register
     aliases = {"getAllInboxMessageIDs", "getAllSentMessageIDs",
                "getInboxMessageByID", "getSentMessageByID",
                "getSentMessagesBySender"}
-    assert len(port_names - aliases) == 67
+    assert len(port_names - aliases) == 69
 
 
 @pytest.mark.parametrize("method", UNPORTED)
@@ -523,12 +524,13 @@ async def test_client_status_keys_are_the_jax_keys_the_port_fills():
                     "bytesReceived", "powBackend", "powVerify", "device",
                     "health"):
             assert key in pst
-        for key in ("clients", "lifecycle"):
-            assert key not in pst
-        # the farm block, and the journal and chaos parts of the
-        # resilience block
+        assert "lifecycle" not in pst
+        # the farm and client-tier blocks, and the journal and chaos
+        # parts of the resilience block
         assert pst["farm"] == jst["farm"] == {"serving": False,
                                               "delegating": False}
+        assert pst["clients"] == jst["clients"] == {"serving": False,
+                                                    "lightClient": False}
         assert set(pst["resilience"]) == {"journal", "chaos"}
         assert set(pst["resilience"]["journal"]) == \
             set(jst["resilience"]["journal"])

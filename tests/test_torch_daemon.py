@@ -10,7 +10,12 @@ the other, unknown options kept, the v1 -> v2 migration equal; a setting
 that turns on a subsystem the port lacks, and a start with no card and
 no ``--device``, both exit 1.  A split deployment of two daemons, a
 relay and an edge, carries one message from a raw wire client into the
-relay's inbox (the twin of the JAX ``tests/test_roles_smoke.py``).
+relay's inbox (the twin of the JAX ``tests/test_roles_smoke.py``); a
+light-client daemon (``role=client``) subscribes through an edge
+daemon's plane and decrypts its broadcast.  In process: both packages'
+``run`` apply ``cryptodrainmax``, ``ingestqueuehigh`` and
+``cryptoworkers`` alike, and every key of the JAX ``DEFAULTS`` is
+accounted for.
 
 Every daemon is spawned with ``--device cpu`` (but the one that must
 find no card) and ``cryptobatch=false`` (host crypto: the plain torch
@@ -178,10 +183,10 @@ def test_the_port_lock_refuses_a_jax_instance(tmp_path):
 def test_a_refused_setting_exits_1_naming_it(tmp_path):
     run = subprocess.run(
         _port_daemon(tmp_path / "home", "--device", "cpu", "-t",
-                     "--no-api", "-p", "0", "--set", "role=client"),
+                     "--no-api", "-p", "0", "--set", "sockstype=SOCKS5"),
         env=_env(), cwd=ROOT, capture_output=True, timeout=START_TIMEOUT)
     assert run.returncode == 1
-    assert b"refusing to start: role=client" in run.stderr
+    assert b"refusing to start: sockstype=SOCKS5" in run.stderr
 
 
 def test_no_card_and_no_device_exits_1(tmp_path):
@@ -207,8 +212,9 @@ def test_each_refused_setting_is_off_by_the_jax_default(key):
     assert not turns_on(default)
     settings = port_config.Settings()
     assert daemon.refused_options(settings) == []
-    on = {"role": "client", "sockstype": "SOCKS5", "inventorystorage": "slab",
-          "smtpdenabled": "true", "upnp": "true"}.get(key, "127.0.0.1:9")
+    on = {"sockstype": "SOCKS5", "inventorystorage": "slab",
+          "smtpdenabled": "true", "upnp": "true",
+          "notifysound": "true"}.get(key, "127.0.0.1:9")
     settings.set(key, on)
     assert daemon.refused_options(settings) == ["%s=%s" % (key, on)]
 
@@ -224,6 +230,97 @@ def test_not_run_settings_are_on_by_the_jax_defaults():
     settings.set_temp("udp", False)
     assert "tls" not in daemon.not_run_options(settings)
     assert "udp" not in daemon.not_run_options(settings)
+
+
+@pytest.mark.parametrize("key", sorted(daemon.IGNORED_WHILE_OFF))
+def test_each_knob_of_an_unported_subsystem_is_ignored_alone(key):
+    """A knob of a subsystem the port refuses or does not run, set to
+    anything but the JAX default, neither refuses the start nor adds a
+    warning; its switch does either."""
+    _, _, config = _jax()
+    switch = daemon.IGNORED_WHILE_OFF[key]
+    assert switch in daemon.REFUSED or switch in daemon.NOT_RUN
+    settings = port_config.Settings()
+    warned = daemon.not_run_options(settings)
+    value = "true" if config.DEFAULTS[key] == "false" else "7"
+    assert value != config.DEFAULTS[key]
+    settings.set(key, value)
+    assert daemon.refused_options(settings) == []
+    assert daemon.not_run_options(settings) == warned
+
+
+class _Stop(Exception):
+    pass
+
+
+@pytest.mark.parametrize("pkg", ["jax", "port"])
+def test_cryptodrainmax_ingestqueuehigh_and_cryptoworkers_reach_the_node(
+        tmp_path, monkeypatch, pkg):
+    """Each package's daemon ``run`` builds its node from ``--set
+    cryptodrainmax=64 --set ingestqueuehigh=40 --set cryptoworkers=3``:
+    the node carries all three before it starts (the engine's drain
+    budget 64, the object queue's watermarks 40 and 10, a pool of 3)."""
+    import asyncio
+    if pkg == "jax":
+        _jax()
+        import pybitmessage_tpu.__main__ as main
+        import pybitmessage_tpu.core as core
+        # no sampling profiler thread left behind in the test process
+        flags = ["--no-udp", "--set", "profiling=false"]
+    else:
+        import pybitmessage_tpu_torch.__main__ as main
+        import pybitmessage_tpu_torch.core as core
+        flags = ["--device", "cpu", "--set", "profiling=false"]
+    built = []
+
+    class Recorded(core.Node):
+        async def start(self):
+            built.append(self)
+            raise _Stop
+
+    monkeypatch.setattr(core, "Node", Recorded)
+    args = main.build_parser().parse_args(
+        ["-d", str(tmp_path / "home"), "-t", "--no-listen", "--no-api",
+         "--set", "cryptodrainmax=64", "--set", "ingestqueuehigh=40",
+         "--set", "cryptoworkers=3", *flags])
+    with pytest.raises(_Stop):
+        asyncio.run(main.run(args))
+    [node] = built
+    try:
+        pool = node.processor.crypto
+        assert pool.batch is not None and pool.batch.drain_max == 64
+        assert pool.size == 3
+        queue = node.ctx.object_queue
+        assert (queue.high, queue.low) == (40, 10)
+    finally:
+        node.pow_journal.close()
+        node.db.close()
+
+
+def test_every_jax_setting_is_accounted_for():
+    """Every key of the JAX ``DEFAULTS`` is applied (the port's
+    ``DEFAULTS``), refused, warned (``NOT_RUN``), a knob of a subsystem
+    that is refused or not run (``IGNORED_WHILE_OFF``) or read only by
+    the front-ends; no key is in two of these, and none of the JAX
+    package's is unknown to the port's daemon."""
+    _, _, config = _jax()
+    tables = {"DEFAULTS": set(port_config.DEFAULTS),
+              "REFUSED": set(daemon.REFUSED),
+              "NOT_RUN": set(daemon.NOT_RUN),
+              "IGNORED_WHILE_OFF": set(daemon.IGNORED_WHILE_OFF),
+              "FRONTEND_ONLY": set(daemon.FRONTEND_ONLY)}
+    for key in config.DEFAULTS:
+        homes = [name for name, keys in tables.items() if key in keys]
+        assert len(homes) == 1, (key, homes)
+    for keys in tables.values():
+        assert keys <= set(config.DEFAULTS)
+    for key in ("cryptodrainmax", "ingestqueuehigh", "cryptoworkers",
+                "profiling", "profilehz", "clientplanelisten",
+                "clientconnect", "clientbuckets"):
+        assert key in port_config.DEFAULTS
+    assert "profiling" not in daemon.NOT_RUN
+    assert not {"role", "clientplanelisten", "clientconnect"} & \
+        set(daemon.REFUSED)
 
 
 def test_port_defaults_and_validators_are_the_jax_ones():
@@ -368,6 +465,94 @@ def test_relay_and_edge_daemons_deliver_one_message(tmp_path):
             assert "node stopped" in log and "kernel launches at stop" in log
     finally:
         for proc in (edge, relay):
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=STOP_TIMEOUT)
+
+
+# ---------------------------------------------------------------------------
+# the light-client tier: an edge daemon's plane and a client daemon
+# ---------------------------------------------------------------------------
+
+
+def test_a_client_daemon_decrypts_a_broadcast_through_an_edges_plane(
+        tmp_path):
+    """A fused daemon S serving a plane (``clientplanelisten``) and a
+    light-client daemon C (``role=client``, ``clientconnect`` naming the
+    plane): C's ``addSubscription`` of S's address re-subscribes C's
+    session to one bucket; S's ``sendBroadcast`` reaches C through the
+    plane, C decrypts it on its own engine (the plain torch ECDH here)
+    and both report the tier in ``clientStatus`` and ``roleStatus``.
+    Both stop on SIGTERM with rc 0."""
+    cli, _, _ = _jax()
+    s_api, c_api, plane = _free_port(), _free_port(), _free_port()
+    common = ["--device", "cpu", "-t", "--api-user", USER,
+              "--api-password", PASS, "--set", "cryptobatch=false"]
+    server = client = None
+    try:
+        server = subprocess.Popen(
+            _port_daemon(tmp_path / "S", *common, "--no-listen",
+                         "--api-port", str(s_api),
+                         "--set", "clientplanelisten=127.0.0.1:%d" % plane,
+                         "--set", "clientbuckets=32"),
+            env=_env(), cwd=ROOT, stdout=subprocess.DEVNULL,
+            stderr=subprocess.DEVNULL)
+        client = subprocess.Popen(
+            _port_daemon(tmp_path / "C", *common, "--api-port", str(c_api),
+                         "--set", "role=client",
+                         "--set", "clientconnect=127.0.0.1:%d" % plane),
+            env=_env(), cwd=ROOT, stdout=subprocess.DEVNULL,
+            stderr=subprocess.DEVNULL)
+        s_rpc = cli.RPCClient("127.0.0.1", s_api, USER, PASS)
+        c_rpc = cli.RPCClient("127.0.0.1", c_api, USER, PASS)
+
+        def status(rpc, method="clientStatus"):
+            try:
+                return json.loads(rpc.call(method))
+            except (OSError, cli.CommandError):
+                return None
+
+        def session():
+            st = status(c_rpc)
+            return st["clients"]["session"] if st else {}
+        _wait_for(lambda: status(s_rpc) is not None, START_TIMEOUT,
+                  "S's API", server)
+        _wait_for(lambda: session().get("connected"), START_TIMEOUT,
+                  "C linked to S's plane", client)
+        assert session()["bucketCount"] == 32      # S's count adopted
+        assert session()["subscribedBuckets"] == 0
+        addr = s_rpc.call("createRandomAddress",
+                          base64.b64encode(b"caster").decode())
+        c_rpc.call("addSubscription", addr,
+                   base64.b64encode(b"watched").decode())
+        _wait_for(lambda: session()["subscribedBuckets"] == 1, 15,
+                  "C re-subscribed", client)
+        s_rpc.call("sendBroadcast", addr,
+                   base64.b64encode(b"light subj").decode(),
+                   base64.b64encode(b"light body").decode())
+        _wait_for(lambda: session()["decrypted"] == 1, DELIVERY_TIMEOUT,
+                  "C decrypted the broadcast", client)
+        plane_status = status(s_rpc)["clients"]
+        assert plane_status["serving"] is True
+        assert plane_status["plane"]["sessions"] == 1
+        assert plane_status["plane"]["pushed"] >= 1
+        assert plane_status["plane"]["overflowed"] == 0
+        role = status(c_rpc, "roleStatus")
+        assert role["role"] == "client" and role["p2pListen"] is False
+        assert role["lightClient"]["objects"] >= 1
+        assert "clientPlane" in status(s_rpc, "roleStatus")
+        health = status(c_rpc)["health"]
+        assert health["lightClient"]["status"] == "ok"
+        cost = json.loads(c_rpc.call("costStatus"))
+        assert cost["sampler"]["running"] is True
+        assert cost["role"] == "client"
+        for proc, name in ((client, "C"), (server, "S")):
+            proc.send_signal(signal.SIGTERM)
+            assert proc.wait(timeout=STOP_TIMEOUT) == 0, name
+            assert "node stopped" in (tmp_path / name / "debug.log") \
+                .read_text()
+    finally:
+        for proc in (client, server):
             if proc is not None and proc.poll() is None:
                 proc.kill()
                 proc.wait(timeout=STOP_TIMEOUT)

@@ -303,9 +303,11 @@ def test_chaos_count_cap_disarm_and_spec_parsing():
 def test_the_port_names_the_sites_it_does_not_plant():
     assert port_chaos.unplanted(
         "pow.device_launch:0.5,db.write:1x3,farm.accept,farm.dispatch:1,"
-        "farm.result:0.1x2,role.ipc:1,role.handoff,role.replica:0.5") == []
-    assert port_chaos.unplanted("net.send:1, farm.accept:1,role.client:0.5") \
-        == ["net.send", "role.client"]
+        "farm.result:0.1x2,role.ipc:1,role.handoff,role.replica:0.5,"
+        "role.client:1") == []
+    assert port_chaos.unplanted(
+        "net.send:1, farm.accept:1,sync.sketch_decode:0.5") \
+        == ["net.send", "sync.sketch_decode"]
     # every planted site is in the JAX catalog
     import inspect
     catalog = inspect.getdoc(_jax()[0].chaos)
