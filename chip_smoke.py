@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's send and receive paths, its node, daemon, PoW farm, role split and light-client tier on a card.
+"""Drive the PyTorch/CUDA port's send and receive paths, its node, daemon, PoW farm, role split, light-client tier and network plane on a card.
 
     python3 chip_smoke.py [--seed N] [--report PATH]
 
@@ -94,7 +94,9 @@ Phases (any failure exits non-zero):
    delegates its PoW to F (``powfarmconnect``) and sends to its own
    second identity until the inbox holds it: E launches no search
    kernel and never falls back, F's counters rise, ``farmStatus`` names
-   E's tenant on F and a closed breaker on E; F's ``costStatus`` after
+   E's tenant on F and a closed breaker on E, and F's ``objectTimeline``
+   of each of E's objects' initial hash carries the trace E's farm tier
+   sent with the job (E's span its parent); F's ``costStatus`` after
    (n) gives its event loop's shares by subsystem, and E's sampler runs;
    (p) a 1 KB job at
    ntpb x 64, TTL 28 d: F is killed once its ``farmjournal.dat`` holds a
@@ -134,6 +136,27 @@ Phases (any failure exits non-zero):
    (ntpb = extra = 10, TTL 900 s, solved by kernel 3) offered over the
    wire: objects/s accepted at each scale and no subscribed object lost
    at any;
+11. the network plane the daemon runs by default (``phase_plane``):
+   set-reconciliation sync, the wire trace and metrics federation, two
+   ``python -m pybitmessage_tpu_torch`` daemons P and Q at network
+   difficulty.  (v) 10,000 storm-shaped objects (kernel 3) and 100 ~1 KB
+   msgs to Q's identities (kernel 2), solved here; P holds the base less
+   a seeded 2% and the msgs, Q the base less a disjoint 2%, written into
+   their inventories before they start.  Q dials P through a wire tap
+   that counts the bytes of each command: the wall until both hold all
+   10,100 objects and Q's inbox the 100 msgs (each equal to what was
+   sent, decrypted and verified by kernels 5 and 4 on Q), the announce
+   bytes per delivered object, the sync rounds and fallbacks; then the
+   same with ``syncenabled=false`` (the classic big inv) side by side;
+   no object lost, every one hashlib-checked.  (w) With sync off, P
+   sends Q a 1 KB msg (kernel 1 on P): Q's ``objectTimeline`` carries
+   P's trace id, the trace counters rise on both, Q's clock offset for
+   P is under 1 s.
+   (x) Q pushes its metrics to P (``federationpush``): P's
+   ``federatedStatus`` lists both ``ok`` and its ``GET
+   /metrics/federated`` sums both daemons' counters.  (y) the port's
+   ``sync/mesh.py`` at the JAX bench's sync-storm size (8 peers, 10,000
+   objects, 2% missing) reduces announce bytes at least 5x with 0 lost;
 4. times: each kernel at its main-path shape (CUDA events over warm
    launches) beside its plain version and its bound; the packed kernel
    on the storm's own targets and on targets that mostly miss, with the
@@ -145,7 +168,8 @@ Phases (any failure exits non-zero):
    (``ladder_field_ops``) printed beside it.
 
 Over phases 3, 3b, 5, 6 and 10 (t), the ones that go through the host
-drivers, and phase 8's in-process solve, each kernel's ``device_launches_total``
+drivers, and phase 8's in-process solve and phase 11's set-up, each
+kernel's ``device_launches_total``
 delta in the registry must equal its wrapper's ``LAUNCHES`` delta, and
 ``pow_verify`` (plain torch ops) the verifier's device batches
 (``check_attribution``); after phase 6 every program that launched has
@@ -154,9 +178,9 @@ host driver, and is not attributed.
 
 The receive phases draw their data from a second generator seeded from
 ``--seed``, so phases 1-4 keep their inputs.
-Phases 5, 6, 7, 8, 9 and 10 run before phase 4 and draw from a fourth,
-a fifth, a sixth, a seventh, an eighth, a ninth ((t)) and a tenth ((u))
-generator; each kernel's entry
+Phases 5 to 11 run before phase 4 and draw from a fourth, a fifth, a
+sixth, a seventh, an eighth, a ninth ((t)), a tenth ((u)) and an
+eleventh (phase 11) generator; each kernel's entry
 in the kernels line carries its launches on the send or receive path
 (``launches``), in the node phase (``node_launches``), in the socket
 phase (``net_launches``), in phase 7's daemons (``daemon_launches``),
@@ -164,7 +188,8 @@ in the farm's daemons (``farm_launches``: F before the crash of (p)
 and after its restart, and E), in phase 9's six daemons
 (``roles_launches``, from their launch records at stop) and in phase 10
 (``clients_launches``: (t) in this process, C's launch record and this
-process's light client in (u)).
+process's light client in (u)) and in phase 11 (``sync_launches``: its
+set-up's solves in this process and P's and Q's launch records).
 The second-to-last line of output is the ``{"kernels": [...]}`` record,
 the last ``{"ok": true, "device": {...}}``.  Exits non-zero without
 printing either when no CUDA device is present.
@@ -213,7 +238,7 @@ KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms", "node_launches", "net_launches",
                "daemon_launches", "farm_launches", "roles_launches",
-               "clients_launches")
+               "clients_launches", "sync_launches")
 MASK64 = (1 << 64) - 1
 ALWAYS_HIT = MASK64
 
@@ -2871,6 +2896,38 @@ def _journal_checkpoint(path: str, ih: bytes) -> int:
     return int.from_bytes(bytes(row[0]), "big") if row else 0
 
 
+def _farm_traces(submits, e) -> list:
+    """The trace field of every submission daemon E sent its farm, read
+    on the wire: one 32-byte ``TraceContext`` a job, with a trace id,
+    for the initial hash of each object E holds once it has stopped.
+    (The farm decodes the field and its lifecycle adopts the trace; a
+    job's timeline there is keyed by its 64-byte initial hash, which
+    ``objectTimeline`` does not take, so the CPU tests hold that part.)"""
+    from pybitmessage_tpu_torch.models.pow_math import pow_initial_hash
+    from pybitmessage_tpu_torch.observability.tracing import TraceContext
+    conn = sqlite3.connect(os.path.join(e.dir, "messages.dat"))
+    try:
+        made = {pow_initial_hash(bytes(p)[8:]) for p, in conn.execute(
+            "SELECT payload FROM inventory")}
+    finally:
+        conn.close()
+    traces = {}
+    for msg in list(submits):
+        require(len(msg.trace) == 32, "a submission of E's carries a "
+                "%d-byte trace field" % len(msg.trace))
+        ctx = TraceContext.decode(msg.trace)
+        require(any(ctx.trace_id) and ctx.parent_span,
+                "a submission of E's carries an empty trace")
+        traces[msg.initial_hash] = ctx.trace_id.hex()
+    require(made and made <= set(traces), "%d of E's %d objects were "
+            "submitted without a trace" % (len(made - set(traces)),
+                                           len(made)))
+    print("farm (o): E's %d submissions each carried a trace of E's (%s), "
+          "one per object E holds" % (len(traces), ", ".join(
+              t[:8] for t in traces.values())))
+    return sorted(traces.values())
+
+
 def phase_farm(rng, *, device=None, crypto_batch: bool = True,
                tenants: int = 8, interactive: int = 4, bulk: int = 1250,
                ntpb: int = 1000, resume_ntpb: int = 64 * 1000,
@@ -2894,8 +2951,11 @@ def phase_farm(rng, *, device=None, crypto_batch: bool = True,
     its own tenant and secret) and sends a message to its own second
     identity through its API until the inbox holds it: E launches no
     search kernel, counts no ``pow_fallback_total{from="farm"}``, F's
-    launch counters rise, and ``farmStatus`` names E's tenant on F and
-    shows a closed breaker on E.  (p) A 1 KB job at ntpb ``resume_ntpb``
+    launch counters rise, ``farmStatus`` names E's tenant on F and
+    shows a closed breaker on E, and once E has stopped, F's
+    ``objectTimeline`` of the initial hash of each object in E's
+    inventory holds a trace whose parent span is E's (``_farm_traces``).
+    (p) A 1 KB job at ntpb ``resume_ntpb``
     (x64 the network's), TTL 28 d, is submitted to F; once F's
     ``farmjournal.dat`` holds a checkpoint above 0, F gets SIGKILL and
     restarts on its directory, logs the job adopted from its checkpoint,
@@ -2910,6 +2970,7 @@ def phase_farm(rng, *, device=None, crypto_batch: bool = True,
     from pybitmessage_tpu_torch.ops import sha512_cuda as sc
     from pybitmessage_tpu_torch.pow.dispatcher import PowDispatcher
     from pybitmessage_tpu_torch.powfarm import FarmClient, FarmError
+    from pybitmessage_tpu_torch.powfarm import protocol as farm_proto
     from pybitmessage_tpu_torch.powfarm.protocol import (LANE_BULK,
                                                          LANE_INTERACTIVE)
 
@@ -2955,8 +3016,18 @@ def phase_farm(rng, *, device=None, crypto_batch: bool = True,
 
     with tempfile.TemporaryDirectory(prefix="bm-farm-") as root:
         f = _Daemon(root, "F", farm_flags, timeout)
+        # E's farm link runs through a tap reading each submission's
+        # trace field (F's adoption is keyed by the 64-byte initial hash,
+        # which objectTimeline cannot name)
+        e_submits: list = []
+        e_tap = _WireTap(farm_port, header_len=farm_proto.HEADER_LEN,
+                         split=farm_proto.parse_header,
+                         on_frame=lambda way, cmd, payload: e_submits.append(
+                             farm_proto.SubmitMsg.decode(payload))
+                         if way == "out" and cmd == farm_proto.MSG_SUBMIT
+                         else None)
         e = _Daemon(root, "E", flags + [
-            "--set", "powfarmconnect=%s:%d" % (LOOPBACK, farm_port),
+            "--set", "powfarmconnect=%s:%d" % (LOOPBACK, e_tap.port),
             "--set", "powfarmtenant=edge-e",
             "--set", "powfarmsecret=" + secrets["edge-e"], *e_flags],
             timeout)
@@ -3161,6 +3232,8 @@ def phase_farm(rng, *, device=None, crypto_batch: bool = True,
             e_launches = e_status["launches"]
             sampler_check(e, "E")
             require(e.stop() == 0, "daemon E exited non-zero")
+            # the wire trace: each job E delegated carried E's trace
+            report["delegation"]["traces"] = _farm_traces(e_submits, e)
 
             # (p) a crash of F mid-solve and the resumed search; F's
             # launches for the interrupted job die with its process
@@ -3253,6 +3326,7 @@ def phase_farm(rng, *, device=None, crypto_batch: bool = True,
                       % (d.dir, d.tail()), file=sys.stderr)
             raise
         finally:
+            e_tap.close()
             for d in daemons:
                 d.kill()
 
@@ -3398,11 +3472,12 @@ def _deterministic_keys(passphrase: bytes, n: int) -> list:
 
 
 def _flood_msgs(rng, recipients, n: int, stream: int, ttl: int,
-                ntpb: int) -> list:
+                ntpb: int, texts: list | None = None) -> list:
     """``n`` msg objects of ~1 KB before their nonce, from one seeded
     sender, each encrypted to the next of ``recipients`` ((ripe,
     encryption public key) pairs; a random key for a msg to nobody) and
-    signed; no ack asked."""
+    signed; no ack asked.  ``texts`` collects each msg's (subject,
+    body)."""
     from pybitmessage_tpu_torch.crypto.ecies import encrypt
     from pybitmessage_tpu_torch.crypto.keys import host_priv_to_pub_many
     from pybitmessage_tpu_torch.crypto.signing import sign
@@ -3416,12 +3491,15 @@ def _flood_msgs(rng, recipients, n: int, stream: int, ttl: int,
     out = []
     for i in range(n):
         ripe, pub = recipients[i % len(recipients)]
+        subject, body = "flood %d" % i, _text(rng, 640)
+        if texts is not None:
+            texts.append((subject, body))
         plain = MsgPlaintext(
             sender_version=4, sender_stream=1,
             bitfield=get_bitfield(False), pub_signing_key=pub_sk,
             pub_encryption_key=pub_ek, nonce_trials_per_byte=ntpb,
             extra_bytes=ntpb, dest_ripe=ripe, encoding=2,
-            message=encode_message("flood %d" % i, _text(rng, 640)),
+            message=encode_message(subject, body),
             ack_data=b"")
         plain.signature = sign(shell + plain.encode_unsigned(), sender_sk)
         out.append(shell + encrypt(plain.encode(), pub))
@@ -4207,6 +4285,596 @@ def phase_light_clients(rng, *, device=None,
             "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the network plane (sync, wire trace, federation) on the card
+# ---------------------------------------------------------------------------
+
+def _bm_frame(header: bytes) -> tuple:
+    """A Bitmessage frame header's (command, payload length)."""
+    return (header[4:16].rstrip(b"\0").decode("ascii", "replace"),
+            int.from_bytes(header[16:20], "big"))
+
+
+class _WireTap:
+    """A TCP relay between one dialer and one listener that forwards
+    every frame as it came and counts each direction's bytes per
+    command (its header included), from a thread with its own event
+    loop.  ``out`` is dialer -> listener.  ``split`` reads a header of
+    ``header_len`` bytes into (command, payload length): Bitmessage's
+    by default; ``on_frame(way, command, payload)`` sees every frame."""
+
+    def __init__(self, target_port: int, *, header_len: int = 24,
+                 split=_bm_frame, on_frame=None, timeout: float = 30.0):
+        self.target = target_port
+        self.header_len, self.split, self.on_frame = \
+            header_len, split, on_frame
+        self.port = _free_port()
+        self.bytes = {"out": {}, "in": {}}
+        self._lock = threading.Lock()
+        self._writers: list = []
+        self._ready = threading.Event()
+        self._thread = threading.Thread(
+            target=lambda: asyncio.run(self._run()), name="bmtpu-smoke-tap",
+            daemon=True)
+        self._thread.start()
+        require(self._ready.wait(timeout), "the wire tap did not listen")
+
+    async def _run(self) -> None:
+        self._loop = asyncio.get_running_loop()
+        self._stop = asyncio.Event()
+        server = await asyncio.start_server(self._serve, LOOPBACK, self.port)
+        self._ready.set()
+        await self._stop.wait()
+        server.close()
+        for w in self._writers:
+            w.close()
+        await server.wait_closed()
+
+    async def _serve(self, reader, writer) -> None:
+        up_r, up_w = await asyncio.open_connection(LOOPBACK, self.target)
+        self._writers += [writer, up_w]
+        await asyncio.gather(self._pump(reader, up_w, "out"),
+                             self._pump(up_r, writer, "in"))
+
+    async def _pump(self, reader, writer, way: str) -> None:
+        counts = self.bytes[way]
+        try:
+            while True:
+                header = await reader.readexactly(self.header_len)
+                command, length = self.split(header)
+                payload = await reader.readexactly(length)
+                with self._lock:
+                    counts[command] = counts.get(command, 0) \
+                        + len(header) + len(payload)
+                    if self.on_frame is not None:
+                        self.on_frame(way, command, payload)
+                writer.write(header + payload)
+                await writer.drain()
+        except (asyncio.IncompleteReadError, ConnectionError, OSError):
+            pass
+        finally:
+            writer.close()
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {way: dict(c) for way, c in self.bytes.items()}
+
+    def close(self) -> None:
+        self._loop.call_soon_threadsafe(self._stop.set)
+        self._thread.join(30)
+        require(not self._thread.is_alive(), "the wire tap hung")
+
+
+def _seed_inventory(data_dir: str, payloads) -> None:
+    """Write objects into a daemon's ``messages.dat`` inventory with the
+    port's ``storage/inventory.py`` before the daemon starts."""
+    from pybitmessage_tpu_torch.models.objects import (ObjectHeader,
+                                                       extract_tag)
+    from pybitmessage_tpu_torch.storage.db import Database
+    from pybitmessage_tpu_torch.storage.inventory import Inventory
+    from pybitmessage_tpu_torch.utils.hashes import inventory_hash
+    os.makedirs(data_dir, exist_ok=True)
+    db = Database(os.path.join(data_dir, "messages.dat"))
+    try:
+        inv = Inventory(db)
+        for payload in payloads:
+            hdr = ObjectHeader.parse(payload)
+            inv.add(inventory_hash(payload), hdr.object_type, hdr.stream,
+                    payload, hdr.expires, extract_tag(hdr, payload))
+        inv.flush()
+    finally:
+        db.close()
+
+
+def _http_get(d, path: str) -> tuple:
+    conn = http.client.HTTPConnection("127.0.0.1", d.api_port,
+                                      timeout=d.timeout)
+    auth = base64.b64encode(("%s:%s" % (d.USER, d.PASSWORD)).encode())
+    try:
+        conn.request("GET", path,
+                     headers={"Authorization": "Basic " + auth.decode()})
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def _family(samples: dict, name: str, **labels) -> float:
+    """The sum of a Prometheus family's samples whose labels include
+    ``labels``."""
+    return sum(v for (fam, lab), v in samples.items() if fam == name
+               and all(dict(lab).get(k) == str(x)
+                       for k, x in labels.items()))
+
+
+def _mesh_storm(rng, *, peers: int, objects: int) -> dict:
+    """(y): the JAX bench's ``_bench_sync_storm`` scenario on the port's
+    ``sync/mesh.py``: ``peers`` fully meshed simulated nodes each holding
+    the base less a seeded 2%, a live storm of an eighth of
+    ``objects``; flooding, then reconciliation at fanout 1.  Host code:
+    its wall and CPU seconds are this process's."""
+    from pybitmessage_tpu_torch.sync.mesh import Mesh
+    live = max(objects // 8, 8)
+    base_n = objects - live
+    per_tick = max(live // 40, 1)
+    seed = int(rng.integers(1 << 62))
+    base = [bytes(h) for h in rng.integers(0, 256, (base_n, 32),
+                                           dtype=np.uint8)]
+    fresh = [bytes(h) for h in rng.integers(0, 256, (live, 32),
+                                            dtype=np.uint8)]
+
+    async def run(sync: bool, fanout):
+        mesh = Mesh(peers, sync=sync, fanout=fanout,
+                    rng=random.Random(seed))
+        pick = random.Random(seed + 1)
+        held0 = 0
+        for i in range(peers):
+            gone = set(pick.sample(range(base_n), int(base_n * 0.02)))
+            seeded = [h for j, h in enumerate(base) if j not in gone]
+            mesh.seed(i, seeded)
+            held0 += len(seeded)
+        await mesh.establish()
+        estab = mesh.stats.announce_bytes
+        for k in range(0, live, per_tick):
+            for h in fresh[k:k + per_tick]:
+                mesh.inject(pick.randrange(peers), h)
+            await mesh.tick()
+        ticks = await mesh.run_until_converged()
+        lost = sum(objects - len(n.inventory) for n in mesh.nodes)
+        return {"announce_bytes": mesh.stats.announce_bytes,
+                "announce_bytes_establishment": estab,
+                "by_command": dict(sorted(
+                    mesh.stats.bytes_by_command.items())),
+                "delivered": peers * objects - held0, "ticks": ticks,
+                "lost": lost}
+
+    out = {"peers": peers, "objects": objects, "live": live}
+    for mode, sync, fanout in (("flooding", False, None),
+                               ("reconciliation", True, 1)):
+        t0, c0 = time.perf_counter(), time.process_time()
+        out[mode] = asyncio.run(run(sync, fanout))
+        out[mode]["wall_s"] = time.perf_counter() - t0
+        out[mode]["cpu_s"] = time.process_time() - c0
+        out[mode]["bytes_per_delivered"] = \
+            out[mode]["announce_bytes"] / out[mode]["delivered"]
+    out["reduction_x"] = out["flooding"]["announce_bytes"] / max(
+        out["reconciliation"]["announce_bytes"], 1)
+    for mode in ("flooding", "reconciliation"):
+        require(out[mode]["lost"] == 0, "the %s mesh lost %d objects"
+                % (mode, out[mode]["lost"]))
+    require(out["reduction_x"] >= 5.0, "the mesh reduced announce bytes "
+            "only %.2fx (the reference bench's floor is 5x)"
+            % out["reduction_x"])
+    print("plane (y): %d peers, %d objects: announce bytes %d flooding, "
+          "%d reconciling (%.2fx), per delivered object %.1f / %.1f; "
+          "host wall %.2f s / %.2f s, CPU %.2f s / %.2f s"
+          % (peers, objects, out["flooding"]["announce_bytes"],
+             out["reconciliation"]["announce_bytes"], out["reduction_x"],
+             out["flooding"]["bytes_per_delivered"],
+             out["reconciliation"]["bytes_per_delivered"],
+             out["flooding"]["wall_s"], out["reconciliation"]["wall_s"],
+             out["flooding"]["cpu_s"], out["reconciliation"]["cpu_s"]))
+    return out
+
+
+def phase_plane(rng, *, device=None, test_mode: bool = False,
+                crypto_batch: bool = True, base: int = 10000,
+                missing: int = 200, msgs: int = 100, idents: int = 4,
+                mesh_peers: int = 8, mesh_objects: int = 10000,
+                timeout: float = 240.0) -> dict:
+    """Phase 11: the network plane the daemon runs by default, two
+    ``python -m pybitmessage_tpu_torch`` daemons P and Q on the card.
+
+    Set-up in this process: ``base`` objects shaped like phase 9 (r)'s
+    relay objects (116 B, a type no node parses, stream 1, TTL 1 h) at
+    the network difficulty, solved by kernel 3; ``msgs`` ~1 KB msgs to
+    ``idents`` identities of Q's (written into Q's ``keys.dat``), solved
+    by kernel 2.  P holds the base less a seeded ``missing`` and the
+    msgs; Q the base less a disjoint ``missing``; both written into the
+    data directories' inventories before the daemons start.
+
+    (v) Q dials P through a wire tap in this process that counts each
+    direction's bytes per command.  With the defaults (sync, wire trace,
+    federation on), the wall from Q's ``apiEnabled`` (its first dial)
+    until both inventories hold every object, and until Q's inbox holds
+    the ``msgs`` msgs, each equal to what was sent; announce-layer bytes
+    (inv, sketchreq, sketch, recondiff) per delivered object; both
+    daemons' ``sync_sketch_bytes_total``, ``sync_rounds_total`` by
+    outcome and ``sync_fallback_total``; Q's kernel 4 and 5 launches;
+    Q's clock-offset estimate for P (its flight recorder's ``skew``).
+    Then the same inputs with ``syncenabled=false`` on both (the classic
+    big inv), side by side.  After each run both stop with rc 0, no
+    object is lost and every held object passes hashlib's PoW check.
+    (w) In the flood run, P sends a 1 KB msg to Q (kernel 1 on P): Q's
+    ``objectTimeline`` of it carries P's trace id, P's
+    ``trace_ctx_sent_total{command="tobject"}`` and Q's
+    ``trace_ctx_received_total`` rise, and Q's clock-offset estimate for
+    P is under 1 s (in the sync run the catch-up's 500 pushes wait in
+    Q's socket behind its verify window, and that wait counts in the
+    estimate).  (x) In the sync run, Q pushes its
+    snapshots to P's API (``federationpush``): P's ``federatedStatus``
+    lists both nodes ``ok``, and P's ``GET /metrics/federated`` gives
+    ``network_objects_received_total`` as the sum of both daemons' own.
+    (y) ``sync/mesh.py`` at the JAX bench's ``_bench_sync_storm`` size
+    (``_mesh_storm``).  ``sync_launches`` of a kernel: the set-up's
+    launches in this process plus P's and Q's launch records of both
+    runs.  (``device="cpu"``, ``test_mode=True``, ``crypto_batch=False``
+    and small sizes rehearse it without the launch gates.)"""
+    from pybitmessage_tpu_torch.ops import secp256k1_cuda as scc
+    from pybitmessage_tpu_torch.ops import sha512_cuda as sc
+    from pybitmessage_tpu_torch.sync.mesh import ANNOUNCE_COMMANDS
+    from pybitmessage_tpu_torch.utils.hashes import inventory_hash
+    from pybitmessage_tpu_torch.workers.keystore import KeyStore
+
+    on_card = device != "cpu"
+    flags = ["--device", device or "cuda"]
+    if test_mode:
+        flags.append("-t")
+    if not crypto_batch:
+        flags += ["--set", "cryptobatch=false"]
+    ntpb = 10 if test_mode else 1000
+    ttl = 3600
+    report: dict = {}
+    names = (*sc.LAUNCHES, *scc.LAUNCHES)
+
+    def until(pred, what: str, limit: float = timeout) -> float:
+        t0 = time.perf_counter()
+        while not pred():
+            require(time.perf_counter() - t0 < limit,
+                    "timed out after %.0f s waiting for %s" % (limit, what))
+            time.sleep(0.1)
+        return time.perf_counter() - t0
+
+    def launches_of(d) -> dict:
+        programs = json.loads(d.rpc("clientStatus"))["device"]["programs"]
+        return {kernel: programs.get(program, {}).get("launches", 0)
+                for kernel, program in PROGRAM_OF.items()}
+
+    def held(d) -> int:
+        return json.loads(d.rpc("roleStatus"))["inventoryObjects"]
+
+    def metrics(d) -> dict:
+        return _prometheus(d.rpc("metrics"))
+
+    # the set-up: solved in this process, kernels 3 and 2
+    before = registry_counts()
+    t0 = time.perf_counter()
+    base_objs = _solve_objects(_relay_objects(rng, base, 1, ttl), ttl,
+                               ntpb, device, packed=True)
+    with tempfile.TemporaryDirectory(prefix="bm-keys-") as kdir:
+        ks = KeyStore(os.path.join(kdir, "keys.dat"))
+        q_ids = [ks.create_deterministic(rng.bytes(16), "Q%d" % i)
+                 for i in range(idents)]
+        for ident in q_ids:
+            ident.nonce_trials_per_byte = ident.extra_bytes = ntpb
+        ks.save()
+        with open(os.path.join(kdir, "keys.dat"), "rb") as fh:
+            q_keys = fh.read()
+    texts: list = []
+    msg_objs = _solve_objects(
+        _flood_msgs(rng, [(i.ripe, i.pub_encryption_key) for i in q_ids],
+                    msgs, 1, ttl, ntpb, texts=texts),
+        ttl, ntpb, device, packed=False)
+    order = rng.permutation(base)
+    p_gone = {int(k) for k in order[:missing]}
+    q_gone = {int(k) for k in order[missing:2 * missing]}
+    p_seed = [o for k, o in enumerate(base_objs) if k not in p_gone] \
+        + msg_objs
+    q_seed = [o for k, o in enumerate(base_objs) if k not in q_gone]
+    everything = {inventory_hash(o) for o in base_objs + msg_objs}
+    report["setup_s"] = time.perf_counter() - t0
+    setup = {k: int(v) for k, v in check_attribution(
+        "plane set-up", before, {}).items()} if on_card else {}
+    setup_launches = {name: registry_counts()["wrappers"][name]
+                      - before["wrappers"][name] for name in names}
+    print("plane set-up: %d base objects (kernel 3) and %d msgs to Q's %d "
+          "identities (kernel 2) in %.2f s; P lacks %d, Q lacks %d"
+          % (base, msgs, idents, report["setup_s"], missing, missing))
+    want = sorted(texts)
+    daemon_launches = {name: 0 for name in names}
+
+    for mode in ("sync", "flood"):
+        extra = ["--set", "federationinterval=1"] if mode == "sync" \
+            else ["--set", "syncenabled=false"]
+        daemons: list = []
+        tap = None
+        run: dict = {}
+        with tempfile.TemporaryDirectory(prefix="bm-plane-") as root:
+            p = _Daemon(root, "P", flags + extra, timeout)
+            q = _Daemon(root, "Q", flags + extra, timeout)
+            _seed_inventory(p.dir, p_seed)
+            _seed_inventory(q.dir, q_seed)
+            with open(os.path.join(q.dir, "keys.dat"), "wb") as fh:
+                fh.write(q_keys)
+            try:
+                daemons.append(p)
+                run["p_start_s"] = p.start()
+                tap = _WireTap(p.p2p_port)
+                # Q does not listen: P must not dial it around the tap
+                q_flags = ["--no-listen", "--trusted-peer",
+                           "%s:%d" % (LOOPBACK, tap.port)]
+                if mode == "sync":
+                    q_flags += ["--set", "federationpush=%s:%d"
+                                % (LOOPBACK, p.api_port)]
+                daemons.append(q)
+                run["q_start_s"] = q.start(*q_flags)
+                total = len(everything)
+                run["converge_s"] = until(
+                    lambda: held(p) >= total and held(q) >= total,
+                    "both daemons to hold %d objects (%s)" % (total, mode))
+
+                def inbox() -> list:
+                    return json.loads(q.rpc("getAllInboxMessages"))[
+                        "inboxMessages"]
+                run["inbox_s"] = run["converge_s"] + until(
+                    lambda: len(inbox()) >= msgs, "Q's inbox (%s)" % mode)
+                got = sorted((base64.b64decode(r["subject"]).decode(),
+                              base64.b64decode(r["message"]).decode())
+                             for r in inbox())
+                require(got == want, "Q's inbox (%s) differs from the %d "
+                        "msgs sent" % (mode, msgs))
+                wire = tap.snapshot()
+                pm, qm = metrics(p), metrics(q)
+                run["q_launches"] = launches_of(q)
+                run["wire_bytes"] = wire
+                # the announcement layer, what reconciliation shrinks
+                # (a dandelion stem's dinv announces too)
+                run["announce_bytes"] = sum(
+                    c.get(cmd, 0) for c in wire.values()
+                    for cmd in (*ANNOUNCE_COMMANDS, "dinv"))
+                run["delivered"] = 2 * missing + msgs
+                run["announce_bytes_per_delivered"] = \
+                    run["announce_bytes"] / run["delivered"]
+                run["sync"] = {
+                    who: {"sketch_bytes_tx": _family(m, "sync_sketch_bytes_"
+                                                     "total", direction="tx"),
+                          "sketch_bytes_rx": _family(m, "sync_sketch_bytes_"
+                                                     "total", direction="rx"),
+                          "rounds": {dict(lab)["outcome"]: v
+                                     for (fam, lab), v in m.items()
+                                     if fam == "sync_rounds_total"},
+                          "fallbacks": _family(m, "sync_fallback_total")}
+                    for who, m in (("P", pm), ("Q", qm))}
+                print("plane (v) %s: both hold %d objects %.2f s after Q's "
+                      "apiEnabled (P started in %.2f s, Q in %.2f s), Q's "
+                      "inbox holds the %d msgs at %.2f s; announce bytes %d "
+                      "(%.1f per delivered object), by command %s; sync %s; "
+                      "Q launches %s"
+                      % (mode, total, run["converge_s"], run["p_start_s"],
+                         run["q_start_s"], msgs, run["inbox_s"],
+                         run["announce_bytes"],
+                         run["announce_bytes_per_delivered"], wire,
+                         run["sync"], run["q_launches"]))
+                if on_card:
+                    require(run["q_launches"]["secp_ecdh"] > 0
+                            and run["q_launches"]["secp_verify"] > 0,
+                            "Q launched no kernel 4 or 5 on the msgs (%s)"
+                            % mode)
+                # Q's clock-offset estimate for P: each sample is P's
+                # send time less Q's read time, so the time a frame
+                # waited in Q's socket while Q's verify window was full
+                # counts in it (recorded, not held, after a catch-up)
+                run["q_skew_s"] = json.loads(q.rpc(
+                    "dumpFlightRecorder", "nothing"))["skew"]
+                print("plane (v) %s: Q's clock-offset estimate for P %.6f s"
+                      % (mode, run["q_skew_s"]))
+                if mode == "sync":
+                    require(sum(run["sync"]["Q"]["rounds"].values()) > 0,
+                            "Q opened no reconciliation round")
+                    report["x"] = _plane_federation(p, q, until)
+                else:
+                    require(run["wire_bytes"]["out"].get("sketchreq", 0)
+                            == 0, "sync ran with syncenabled=false")
+                    # (w) where Q reads at the download window's pace
+                    report["w"] = _plane_trace(p, q, rng, q_ids[0].address,
+                                               on_card, until)
+                run["q_rc"] = q.stop()
+                run["p_rc"] = p.stop()
+                require(run["p_rc"] == run["q_rc"] == 0,
+                        "P or Q exited non-zero (%s)" % mode)
+                for d in (p, q):
+                    line = _launch_line(d)
+                    # the wrappers count only launches on the card
+                    require(not on_card or (line["wrappers"] == {
+                        k: line["registry"][PROGRAM_OF[k]]
+                        for k in line["wrappers"]} and line["registry"][
+                            "pow_verify"] == line["verifyBatches"]),
+                        "%s: wrappers and registry disagree at stop: %s"
+                        % (d.dir, line))
+                    for name in names:
+                        daemon_launches[name] += line["wrappers"][name]
+                    held_now = _held_hashes(os.path.join(d.dir,
+                                                         "messages.dat"))
+                    lost = len(everything - held_now)
+                    require(lost == 0, "%s lost %d objects (%s)"
+                            % (d.dir, lost, mode))
+                    run["%s_pow_checked" % os.path.basename(d.dir)] = \
+                        _inventory_pow_checks(
+                            os.path.join(d.dir, "messages.dat"), ntpb)
+            except BaseException:
+                for d in daemons:
+                    print("--- daemon %s output (last lines):\n%s"
+                          % (d.dir, d.tail()), file=sys.stderr)
+                raise
+            finally:
+                if tap is not None:
+                    tap.close()
+                for d in daemons:
+                    d.kill()
+        report[mode] = run
+    sync_run, flood_run = report["sync"], report["flood"]
+    print("plane (v) side by side: converge %.2f s sync / %.2f s flood; "
+          "announce bytes %d / %d (%.1f / %.1f per delivered object, "
+          "%.2fx); 0 lost"
+          % (sync_run["converge_s"], flood_run["converge_s"],
+             sync_run["announce_bytes"], flood_run["announce_bytes"],
+             sync_run["announce_bytes_per_delivered"],
+             flood_run["announce_bytes_per_delivered"],
+             flood_run["announce_bytes"]
+             / max(sync_run["announce_bytes"], 1)))
+    report["y"] = _mesh_storm(rng, peers=mesh_peers, objects=mesh_objects)
+    launches = {name: setup_launches[name] + daemon_launches[name]
+                for name in names}
+    if on_card:
+        require(setup_launches["packed_search"] > 0,
+                "the set-up launched no kernel 3")
+    print("plane launches (set-up %s, daemons %s): %s"
+          % (setup_launches, daemon_launches, launches))
+    return {"phases": report, "setup_attribution": setup,
+            "launches": launches}
+
+
+def _plane_trace(p, q, rng, q_address: str, on_card: bool, until) -> dict:
+    """(w): P sends a 1 KB msg to Q; the trace crosses the processes."""
+    def b64(text: str) -> str:
+        return base64.b64encode(text.encode()).decode()
+
+    def metrics(d) -> dict:
+        return _prometheus(d.rpc("metrics"))
+
+    p0, q0 = metrics(p), metrics(q)
+    p_search0 = json.loads(p.rpc("clientStatus"))["device"]["programs"] \
+        .get("pallas_slab", {}).get("launches", 0)
+    sender = p.rpc("createRandomAddress", b64("P"))
+    subject, body = "traced " + _text(rng, 24), _text(rng, 1000)
+    t0 = time.perf_counter()
+    p.rpc("sendMessage", q_address, sender, b64(subject), b64(body))
+
+    def row():
+        for r in json.loads(q.rpc("getAllInboxMessages"))["inboxMessages"]:
+            if base64.b64decode(r["subject"]).decode() == subject:
+                return r
+        return None
+    until(lambda: row() is not None, "P's traced msg in Q's inbox")
+    wall = time.perf_counter() - t0
+    r = row()
+    require(base64.b64decode(r["message"]).decode() == body,
+            "the traced msg's body differs")
+    mine = json.loads(q.rpc("objectTimeline", r["msgid"]))
+    theirs = json.loads(p.rpc("objectTimeline", r["msgid"]))
+    require("trace" in mine and "trace" in theirs,
+            "an objectTimeline lacks its trace block: %s / %s"
+            % (mine, theirs))
+    require(mine["trace"]["traceId"] == theirs["trace"]["traceId"],
+            "Q's trace id %s is not P's %s"
+            % (mine["trace"]["traceId"], theirs["trace"]["traceId"]))
+    require(mine["trace"]["parentSpan"] == theirs["trace"]["span"],
+            "Q's parent span is not P's span")
+    p1, q1 = metrics(p), metrics(q)
+    sent = _family(p1, "trace_ctx_sent_total", command="tobject") \
+        - _family(p0, "trace_ctx_sent_total", command="tobject")
+    received = _family(q1, "trace_ctx_received_total") \
+        - _family(q0, "trace_ctx_received_total")
+    require(sent > 0 and received > 0, "trace contexts did not rise: P "
+            "sent %d tobject contexts, Q received %d" % (sent, received))
+    skew = json.loads(q.rpc("dumpFlightRecorder", "nothing"))["skew"]
+    gauge = _family(q1, "trace_clock_skew_seconds")
+    require(abs(skew) < 1.0, "Q's clock offset for P is %r s" % skew)
+    p_search = json.loads(p.rpc("clientStatus"))["device"]["programs"] \
+        .get("pallas_slab", {}).get("launches", 0) - p_search0
+    if on_card:
+        require(p_search > 0, "P launched no kernel 1 for its msg")
+    print("plane (w): P's 1 KB msg in Q's inbox after %.2f s; Q's "
+          "objectTimeline trace %s = P's; P sent %d tobject contexts, Q "
+          "received %d contexts; Q's skew for P %.6f s (gauge %.6f); P's "
+          "kernel 1 launches %d"
+          % (wall, mine["trace"]["traceId"], sent, received, skew, gauge,
+             p_search))
+    return {"wall_s": wall, "trace_id": mine["trace"]["traceId"],
+            "stages": [e["stage"] for e in mine["timeline"]],
+            "tobject_sent": sent, "contexts_received": received,
+            "skew_s": skew, "skew_gauge_s": gauge,
+            "p_search_launches": p_search}
+
+
+def _plane_federation(p, q, until) -> dict:
+    """(x): Q pushes to P's aggregator; P's fleet view lists both, each
+    ``ok``.  A node's loop verdict is the lag p99 over the probe's
+    window (~60 s), so a daemon that started or caught up within the
+    last minute may push ``degraded`` until its lag spikes age out:
+    the wait covers that window, and every degraded verdict seen on the
+    way is recorded with the subsystems that gave it."""
+    from pybitmessage_tpu_torch.observability.health import (
+        DEFAULT_INTERVAL, LoopLagProbe)
+
+    q_id = json.loads(q.rpc("dumpFlightRecorder", "nothing"))["node"]
+    p_id = json.loads(p.rpc("dumpFlightRecorder", "nothing"))["node"]
+
+    status: dict = {}
+    degraded: list = []
+    t0 = time.perf_counter()
+
+    def not_ok() -> dict:
+        nodes = status.get("nodes", {})
+        out = {}
+        for who, nid in (("P", p_id), ("Q", q_id)):
+            node = nodes.get(nid)
+            if node is None:
+                out[who] = "not listed"
+            elif node.get("verdict") != "ok":
+                out[who] = {"verdict": node.get("verdict"), **{
+                    sub: v for sub, v in (node.get("health") or {}).items()
+                    if isinstance(v, dict) and v.get("status") != "ok"}}
+        return out
+
+    def both_ok() -> bool:
+        status.update(json.loads(p.rpc("federatedStatus")))
+        bad = not_ok()
+        if bad and not any(d["not_ok"] == bad for d in degraded):
+            degraded.append({"t_s": round(time.perf_counter() - t0, 3),
+                             "not_ok": bad})
+        return not bad
+    limit = LoopLagProbe.WINDOW * DEFAULT_INTERVAL + 30
+    try:
+        ok_s = until(both_ok, "P's federatedStatus to list P and Q, both "
+                     "ok", limit)
+    except RuntimeError as exc:
+        raise RuntimeError("%s; not ok at the last poll: %s" % (
+            exc, json.dumps(not_ok(), default=repr))) from None
+    for d in degraded:
+        print("plane (x): at %.2f s not ok: %s"
+              % (d["t_s"], json.dumps(d["not_ok"], default=repr)))
+    fam = "network_objects_received_total"
+    seen: dict = {}
+
+    def summed() -> bool:
+        own = [_family(_prometheus(d.rpc("metrics")), fam) for d in (p, q)]
+        code, body = _http_get(p, "/metrics/federated")
+        require(code == 200, "GET /metrics/federated answered %d" % code)
+        merged = _family(_prometheus(body.decode()), fam)
+        seen.update(own=own, merged=merged)
+        return merged == sum(own)
+    until(summed, "P's merged %s to equal P's and Q's own" % fam, 30)
+    print("plane (x): P's federatedStatus lists P %s and Q %s, both ok "
+          "after %.2f s, fleet %s; GET /metrics/federated %s %s = %s = "
+          "P's %s + Q's %s"
+          % (p_id, q_id, ok_s, status["fleet"], fam, seen["merged"],
+             sum(seen["own"]), *seen["own"]))
+    return {"fleet": status["fleet"], "nodes": sorted(status["nodes"]),
+            "ok_s": ok_s, "not_ok_seen": degraded,
+            "family": fam, "merged": seen["merged"], "own": seen["own"]}
+
+
 def _random_pubs(rng, n: int) -> list:
     from pybitmessage_tpu_torch.crypto.keys import host_priv_to_pub_many
     return host_priv_to_pub_many([rng.bytes(32) for _ in range(n)])
@@ -4352,6 +5020,9 @@ def main() -> int:
     light = phase_light_clients(np.random.default_rng([args.seed, 10]))
     attribution["light_clients"] = check_attribution(
         "light clients (t)", before, {})
+    # phase 11, the network plane: an eleventh generator
+    plane = phase_plane(np.random.default_rng([args.seed, 12]))
+    attribution["plane"] = plane["setup_attribution"]
     kernels = phase_times(rng, env, main_path["launches"], errs)
     kernels += phase_times_secp(prng, env, receive["launches"], errs)
     for entry in kernels:
@@ -4362,6 +5033,7 @@ def main() -> int:
         entry["roles_launches"] = roles["launches"][entry["name"]]
         entry["clients_launches"] = light["launches"][entry["name"]] + \
             roles["phases"]["u"]["launches"][entry["name"]]
+        entry["sync_launches"] = plane["launches"][entry["name"]]
     wall = time.perf_counter() - t_start
     print("chip_smoke wall %.1f s" % wall)
     if args.report:
@@ -4370,6 +5042,7 @@ def main() -> int:
                        "selftest": selftest, "receive": receive,
                        "node": node, "sockets": sockets, "daemon": daemon,
                        "farm": farm, "roles": roles, "light": light,
+                       "plane": plane,
                        "attribution": attribution,
                        "utilization": utilization, "kernels": kernels,
                        "wall_s": wall}, fh, indent=1)

@@ -20,9 +20,15 @@ and ``powstalltimeout``, the ingest knobs (``cryptoworkers``,
 (``profiling``, ``profilehz``) are applied as the JAX daemon applies
 them, and so are the roles (``role=edge|relay|client``, ``rolestreams``,
 ``roleipclisten``, ``roleipcconnect``; ``edgeprocs`` above 1 shares the
-P2P port through ``SO_REUSEPORT``) and the light-client tier
+P2P port through ``SO_REUSEPORT``), the light-client tier
 (``clientplanelisten`` on an edge, ``clientconnect`` on a client,
-``clientbuckets``).  A split deployment on one host::
+``clientbuckets``) and the network plane the JAX daemon runs by
+default: set-reconciliation sync (``syncenabled``, ``syncinterval``,
+``syncfanout``; the sync breakers take ``breakerfailures`` and
+``breakercooldown``), the wire trace (``wiretrace``) and metrics
+federation (``federation``, ``federationinterval``, and
+``federationpush``: this node's snapshots pushed to a parent's API as
+well as to its own aggregator).  A split deployment on one host::
 
     python -m pybitmessage_tpu_torch -d R1 --set role=relay \
         --set rolestreams=1,2 --set roleipclisten=127.0.0.1:8460 ...
@@ -80,7 +86,6 @@ REFUSED = {
     "smtpdenabled": ("false", _on),
     "smtpdeliver": ("", bool),
     "upnp": ("false", _on),
-    "federationpush": ("", bool),
     "inventorystorage": ("sqlite", lambda v: v != "sqlite"),
     # settings the JAX daemon applies that have nothing to set here: the
     # engine's coalescing window, the XLA tier's slab shape, the onion
@@ -98,9 +103,6 @@ REFUSED = {
 NOT_RUN = {
     "tls": ("true", _on),
     "udp": ("true", _on),
-    "syncenabled": ("true", _on),
-    "wiretrace": ("true", _on),
-    "federation": ("aggregator", lambda v: v != "off"),
     "cryptonative": ("true", _on),
     "cryptotpu": ("auto", lambda v: v.lower() not in ("off", "false",
                                                       "0", "no")),
@@ -119,10 +121,8 @@ IGNORED_WHILE_OFF = {
     "smtpdpassword": "smtpdenabled",
     "slabmaxbytes": "inventorystorage", "slabhotbytes": "inventorystorage",
     "slabbucketseconds": "inventorystorage",
-    "syncinterval": "syncenabled", "syncfanout": "syncenabled",
     "cryptonativethreads": "cryptonative",
     "cryptotpubatchmin": "cryptotpu",
-    "federationinterval": "federation",
     "notifysoundfile": "notifysound",
 }
 
@@ -251,7 +251,8 @@ async def run(args) -> int:
     from .api import APIServer
     from .core import Node
     from .core.config import parse_tenant_table
-    from .observability import FLIGHT_RECORDER, PROFILER, set_peer_buckets
+    from .observability import (FLIGHT_RECORDER, PROFILER, http_transport,
+                                set_peer_buckets)
     from .powfarm import TenantConfig
     from .resilience.chaos import CHAOS, unplanted
     from .storage.knownnodes import Peer
@@ -289,6 +290,9 @@ async def run(args) -> int:
                 dandelion_enabled=settings.getint("dandelion") > 0,
                 pow_window=settings.getfloat("powbatchwindow"),
                 device=device,
+                sync_enabled=settings.getbool("syncenabled"),
+                wiretrace_enabled=settings.getbool("wiretrace"),
+                federation_enabled=settings.get("federation") != "off",
                 crypto_batch=settings.getbool("cryptobatch"),
                 farm_listen=settings.get("powfarmlisten") or None,
                 farm_connect=settings.get("powfarmconnect") or None,
@@ -345,6 +349,32 @@ async def run(args) -> int:
     node.health.sample_interval = settings.getfloat("healthinterval")
     node.health.probe.interval = settings.getfloat("looplaginterval")
     set_peer_buckets(settings.getint("peerlabelbuckets"))
+    # metrics federation: the snapshot push cadence and the optional
+    # parent aggregator this node federates its own registry up to
+    if node.federation_publisher is not None:
+        node.federation_publisher.interval = \
+            settings.getfloat("federationinterval")
+        if settings.get("federationpush"):
+            host, _, port = settings.get("federationpush").rpartition(":")
+            parent = http_transport(
+                host or "127.0.0.1", int(port),
+                username=settings.get("apiusername"),
+                password=settings.get("apipassword"))
+            # tee: the push still lands in the LOCAL aggregator (this
+            # node's own /metrics/federated must keep including the
+            # local node) while the PARENT's ack drives the
+            # delta/resync bookkeeping.  Both see the same seq stream
+            # from seq 1, so their stored state cannot diverge.
+            local_ingest = (node.federation.ingest
+                            if node.federation is not None else None)
+
+            async def tee(push, _parent=parent, _local=local_ingest):
+                if _local is not None:
+                    _local(push)
+                return await _parent(push)
+
+            node.federation_publisher.transport = tee
+            node.federation_publisher.count_bytes = True  # real wire
     # the sampling profiler: costStatus, profileDump, GET /debug/profile,
     # the loop-lag culprit and the flight recorder's stacks
     if settings.getbool("profiling"):
@@ -374,6 +404,15 @@ async def run(args) -> int:
     node.pool.handshake_timeout = settings.getfloat("handshaketimeout")
     node.pool.dial_breaker_threshold = settings.getint("breakerfailures")
     node.pool.dial_breaker_cooldown = settings.getfloat("breakercooldown")
+    # set-reconciliation sync knobs
+    if node.reconciler is not None:
+        node.reconciler.interval = settings.getfloat("syncinterval")
+        fanout = settings.getint("syncfanout")
+        node.reconciler.fanout = None if fanout < 0 else fanout
+        node.reconciler.breaker_threshold = \
+            settings.getint("breakerfailures")
+        node.reconciler.breaker_cooldown = \
+            settings.getfloat("breakercooldown")
     node.sender.max_acceptable_ntpb = settings.getint(
         "maxacceptablenoncetrialsperbyte")
     node.sender.max_acceptable_extra = settings.getint(

@@ -11,8 +11,9 @@ Not here yet, so a call answers ``APIError 20`` as for any method the
 handler lacks: the email gateway and mailing lists
 (``setEmailGateway``, ``emailGatewayRegister``,
 ``emailGatewayUnregister``, ``emailGatewayStatus``,
-``emailGatewaySettings``, ``sendEmail``, ``setMailingList``) and
-federation (``federatedStatus``).  ``roleStatus``, ``shardStatus`` and
+``emailGatewaySettings``, ``sendEmail``, ``setMailingList``).
+``federatedStatus`` answers the node's federation aggregator's fleet
+view.  ``roleStatus``, ``shardStatus`` and
 ``shardShed`` answer as the JAX ones do over the port's ``roles``
 runtimes (an edge's relay links and client plane, a relay's edges and
 its live shard handoff, a light client's session); ``costStatus`` and
@@ -693,11 +694,27 @@ class CommandHandler:
         same bytes ``GET /metrics`` serves."""
         return render_prometheus()
 
+    def cmd_federatedStatus(self):
+        """Fleet view from the federation aggregator: per-node health
+        verdicts (pushed health blocks), last-push age, sequence,
+        clock-skew estimate, and an ok/degraded/stale roll-up.  The
+        merged metric families themselves are served as ``GET
+        /metrics/federated``."""
+        agg = getattr(self.node, "federation", None)
+        if agg is None:
+            return json.dumps({"enabled": False})
+        out = agg.status()
+        out["enabled"] = True
+        return json.dumps(out)
+
     def cmd_dumpFlightRecorder(self, kind=""):
         """Dump the flight-recorder ring: the last structured events
-        (breaker flips, requeues, slab traffic, watermark pauses),
-        newest last; also logged as one line (trigger=api).  ``kind``
-        filters by event kind."""
+        (breaker flips, requeues, sync round verdicts, slab traffic,
+        watermark pauses), newest last; also logged as one line
+        (trigger=api).  ``kind`` filters by event kind.  The dump
+        carries the node id and its clock-skew estimate (the mean of
+        its connections' wire-trace estimators), so many nodes' dumps
+        fold onto one clock."""
         events = FLIGHT_RECORDER.dump("api")
         if kind:
             events = [e for e in events if e.get("kind") == kind]
@@ -754,8 +771,9 @@ class CommandHandler:
 
     def cmd_objectTimeline(self, hash_hex):
         """Lifecycle timeline of one inventory hash: the recorded stage
-        events, oldest first (no wire-trace metadata until the wire
-        trace is ported)."""
+        events, oldest first, plus the wire trace-stitching metadata
+        (trace id, local span, the sending node's parent span) when the
+        object crossed a NODE_TRACE link or was pushed by this node."""
         if len(hash_hex) != 64:
             raise APIError(19)
         h = unhexlify(hash_hex)

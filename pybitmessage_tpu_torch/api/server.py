@@ -1,6 +1,6 @@
 """Minimal asyncio HTTP RPC server with basic auth: JSON-RPC + XML-RPC
-(copy of ``pybitmessage_tpu.api.server``, without the federation push
-and the fault-injection site).
+(copy of ``pybitmessage_tpu.api.server``, without the fault-injection
+site).
 
 Reference: src/api.py singleAPI — XML/JSON-RPC on 127.0.0.1:8442 with
 HTTP basic auth (api.py:437-457).  Both of the reference's apivariants
@@ -17,9 +17,11 @@ device-telemetry table, or with ``?seconds=N`` a ``torch.profiler``
 trace captured for N seconds; ``/debug/profile`` the sampling
 profiler's dump (collapsed stacks and a speedscope document; with
 ``?seconds=N`` the rolling window of the last N seconds);
-``/metrics/federated`` answers 404
-"federation disabled", as the JAX daemon does with federation off.
-Blocking work runs in the executor.  Every other GET answers 404.
+``/metrics/federated`` the node's federation aggregator's merged fleet
+view (404 "federation disabled" with federation off).  ``POST
+/federation/push`` takes a child's or peer's delta-encoded snapshot
+push into that aggregator and answers its ack.  Blocking work runs in
+the executor.  Every other GET answers 404.
 """
 
 from __future__ import annotations
@@ -147,6 +149,12 @@ class APIServer:
                 await self._respond(writer, 401, {"error": "unauthorized"},
                                     extra="WWW-Authenticate: Basic\r\n")
                 return
+            post_path = request_line.split()[1].decode(
+                "latin-1", "replace").split("?")[0] \
+                if len(request_line.split()) > 1 else ""
+            if post_path == "/federation/push":
+                await self._federation_push(writer, body)
+                return
             is_xml = body.lstrip().startswith(b"<") or \
                 "xml" in headers.get("content-type", "")
             if is_xml:
@@ -190,8 +198,15 @@ class APIServer:
                                 extra="WWW-Authenticate: Basic\r\n")
             return
         if path == "/metrics/federated":
-            await self._respond(writer, 404,
-                                {"error": "federation disabled"})
+            # the fleet-wide merged view; 404 when federation is off
+            agg = getattr(self.node, "federation", None)
+            if agg is None:
+                await self._respond(writer, 404,
+                                    {"error": "federation disabled"})
+                return
+            await self._respond_raw(
+                writer, 200, agg.render().encode("utf-8"),
+                "text/plain; version=0.0.4; charset=utf-8")
             return
         if path == "/metrics":
             await self._respond_raw(
@@ -234,6 +249,22 @@ class APIServer:
         await self._respond_raw(
             writer, 200, json.dumps(doc, default=repr).encode("utf-8"),
             "application/json")
+
+    async def _federation_push(self, writer, body: bytes) -> None:
+        """Child processes and peer nodes push delta-encoded registry
+        snapshots here; the ack drives their delta/resync
+        bookkeeping."""
+        agg = getattr(self.node, "federation", None)
+        if agg is None:
+            await self._respond(writer, 404,
+                                {"error": "federation disabled"})
+            return
+        try:
+            push = json.loads(body)
+        except ValueError:
+            await self._respond(writer, 400, {"error": "bad json"})
+            return
+        await self._respond(writer, 200, agg.ingest(push))
 
     async def _dispatch(self, req: dict) -> dict:
         method = req.get("method", "")

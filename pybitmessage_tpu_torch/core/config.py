@@ -60,8 +60,17 @@ DEFAULTS: dict[str, str] = {
                                      # trial-decrypt drain
     "cryptoscreen": "true",          # object-keyed negative cache in
                                      # front of the trial-decrypt sweep
+    # -- set-reconciliation sync --
+    "syncenabled": "true",           # sketch-based inventory sync
+                                     # (negotiated; old peers keep
+                                     # classic inv flooding)
+    "syncinterval": "10",            # min seconds between
+                                     # reconciliation rounds per peer
+    "syncfanout": "-1",              # peers flooded immediately per
+                                     # new object: -1 = auto sqrt(n),
+                                     # 0 = pure reconciliation
     "breakerfailures": "3",          # consecutive failures opening the
-                                     # dial breakers
+                                     # dial and sync breakers
     "breakercooldown": "60",         # seconds before a half-open probe
     "connecttimeout": "10",          # outbound dial budget, seconds
     "handshaketimeout": "30",        # version/verack must finish in this
@@ -72,6 +81,19 @@ DEFAULTS: dict[str, str] = {
                                      # seconds
     "looplaginterval": "0.25",       # event-loop lag probe cadence,
                                      # seconds
+    # -- distributed observability plane --
+    "wiretrace": "true",             # advertise NODE_TRACE: carry
+                                     # trace contexts on sync rounds +
+                                     # object pushes (legacy peers see
+                                     # nothing)
+    "federation": "aggregator",      # off | aggregator (merge pushed
+                                     # snapshots, serve the fleet view)
+    "federationinterval": "10",      # self/child snapshot push
+                                     # cadence, seconds
+    "federationpush": "",            # parent aggregator "host:port" to
+                                     # push this node's snapshots to
+                                     # (basic auth from apiusername/
+                                     # apipassword; empty = no parent)
     "peerlabelbuckets": "16",        # hashed peer-bucket count for
                                      # per-peer metric labels
     "profiling": "true",             # continuous sampling profiler
@@ -251,6 +273,15 @@ VALIDATORS: dict[str, Callable[[str], bool]] = {
     "cryptodrainmax": _validate_int_range(1, 1 << 20),
     "cryptobatch": _validate_bool,
     "cryptoscreen": _validate_bool,
+    "syncenabled": _validate_bool,
+    "syncinterval": _validate_float_range(0.5, 3600.0),
+    "syncfanout": _validate_int_range(-1, 1000),
+    "wiretrace": _validate_bool,
+    "federation": lambda v: v in ("off", "aggregator"),
+    "federationinterval": _validate_float_range(0.5, 3600.0),
+    "federationpush": lambda v: v == "" or (
+        v.rpartition(":")[2].isdigit()
+        and 1 <= int(v.rpartition(":")[2]) <= 65535),
     "breakerfailures": _validate_int_range(1, 1000),
     "breakercooldown": _validate_float_range(0.0, 86400.0),
     "connecttimeout": _validate_float_range(1.0, 300.0),

@@ -45,9 +45,20 @@ buckets), fed from the ingest pump, the sender's publishes and, on an
 edge, the relay's pushes; ``role="client"`` is a light client
 (``roles/client.py`` ``LightClient``) of the plane at ``client_connect``,
 trial-decrypting on its own ``BatchCryptoEngine``.  ``start`` tells the
-sampling profiler which thread runs the event loop.  Sync, TLS, SOCKS,
-UDP discovery, UPnP, federation and the email gateway are not part of
-this package yet.
+sampling profiler which thread runs the event loop.
+
+Three network-plane features run by default, as in the JAX node:
+``sync_enabled`` advertises NODE_SYNC and attaches a ``Reconciler``
+(``sync/``) over an ``InventoryDigest`` the inventory keeps current (a
+relay's digest covers only its own streams; edges do not reconcile);
+``wiretrace_enabled`` advertises NODE_TRACE, so object pushes and sync
+rounds carry trace contexts to peers that advertise it too; and
+``federation_enabled`` runs a metrics ``Aggregator`` with this node's
+own ``FederationPublisher`` pushing into it (``GET
+/metrics/federated``, ``federatedStatus``).  ``mean_skew`` (the mean of
+the connections' clock-offset estimates) feeds the pushes and the
+flight recorder's dumps.  TLS, SOCKS, UDP discovery, UPnP and the email
+gateway are not part of this package yet.
 """
 
 from __future__ import annotations
@@ -59,10 +70,12 @@ from pathlib import Path
 
 from .. import resolve_device
 from ..crypto.keys import priv_to_pub_many
+from ..models.constants import NODE_SYNC, NODE_TRACE
 from ..models.payloads import gen_ack_payload
 from ..network.dandelion import Dandelion
 from ..network.pool import ConnectionPool, NodeContext
-from ..observability import (FLIGHT_RECORDER, PROFILER, HealthMonitor,
+from ..observability import (FLIGHT_RECORDER, PROFILER, Aggregator,
+                             FederationPublisher, HealthMonitor,
                              log_snapshot_task)
 from ..pow.dispatcher import PowDispatcher
 from ..pow.service import PowService
@@ -74,6 +87,7 @@ from ..storage.db import Database
 from ..storage.inventory import Inventory
 from ..storage.knownnodes import KnownNodes
 from ..storage.messages import MessageStore
+from ..sync import InventoryDigest, Reconciler
 from ..utils.addresses import decode_address
 from ..workers.cleaner import Cleaner
 from ..workers.cryptopool import CryptoPool
@@ -103,6 +117,9 @@ class Node:
     it an edge or a relay.  ``client_listen`` serves the light-client
     plane over ``client_buckets`` buckets; ``role="client"`` needs
     ``client_connect``, the ``host:port`` of an edge's plane.
+    ``sync_enabled``, ``wiretrace_enabled`` and ``federation_enabled``
+    (all on by default) run set-reconciliation sync, the wire trace and
+    the metrics federation aggregator.
     """
 
     def __init__(self, data_dir: str | None = None, *,
@@ -111,6 +128,9 @@ class Node:
                  allow_private_peers: bool = False,
                  stream: int = 1, test_mode: bool = False,
                  pow_window: float | None = None, device=None,
+                 sync_enabled: bool = True,
+                 wiretrace_enabled: bool = True,
+                 federation_enabled: bool = True,
                  crypto_batch: bool = True, farm_listen: str | None = None,
                  farm_connect: str | None = None,
                  farm_tenant: str = "default", farm_secret: str = "",
@@ -174,6 +194,24 @@ class Node:
         self.pool = ConnectionPool(self.ctx)
         self.pool.reuse_port = spec.reuse_port
         self.listen = listen and spec.listens_p2p
+        #: set-reconciliation sync: sketch exchanges replace most
+        #: per-object inv flooding for NODE_SYNC peers.  Edges don't
+        #: reconcile — sync is shard (relay) authority.
+        self.reconciler = None
+        self.sync_digest = None
+        if sync_enabled and spec.runs_sync:
+            # a sharded relay's digest is restricted to its own streams
+            # — the shard boundary
+            self.sync_digest = InventoryDigest(
+                streams=set(self.ctx.streams) if role == "relay" else None)
+            self.inventory.attach_digest(self.sync_digest)
+            self.reconciler = Reconciler(self.pool, digest=self.sync_digest)
+            self.pool.reconciler = self.reconciler
+            self.ctx.services |= NODE_SYNC
+        if wiretrace_enabled:
+            # NODE_TRACE: sync rounds and object pushes carry trace
+            # contexts to negotiating peers; legacy peers see nothing
+            self.ctx.services |= NODE_TRACE
         self.solver = PowDispatcher(self.device)
         #: crash-safe PoW job journal: queued and in-flight solves
         #: survive a restart and resume from their checkpointed offset
@@ -238,6 +276,21 @@ class Node:
         #: this node's identity in flight-recorder dumps and role IPC
         self.node_id = self.ctx.nonce.hex()
         FLIGHT_RECORDER.node_id = self.node_id
+        #: fleet aggregator + this node's own snapshot publisher: the
+        #: aggregator merges pushes from other processes (POST
+        #: /federation/push) and this process publishes itself into it
+        #: in-process, so ``GET /metrics/federated`` and
+        #: ``federatedStatus`` always include the local node
+        self.federation = None
+        self.federation_publisher = None
+        if federation_enabled:
+            self.federation = Aggregator()
+            self.federation_publisher = FederationPublisher(
+                self.node_id, transport=self.federation.ingest,
+                health=self.health.health_block, skew=self.mean_skew,
+                # in-process transport: no wire bytes to account for
+                count_bytes=False)
+            FLIGHT_RECORDER.skew_provider = self.mean_skew
         #: an edge's relay links or a relay's IPC server; None fused
         self.role_runtime = None
         if spec.forwards_ingest:
@@ -279,8 +332,23 @@ class Node:
 
     def set_streams(self, streams) -> None:
         """Adopt a new shard map mid-session (a relay's live acquire or
-        shed): the streams this node accepts, stores and announces."""
+        shed): the streams this node accepts, stores and announces.
+        The sync digest is re-scoped and re-seeded from the inventory,
+        so an acquired stream's stored objects enter the announce view
+        and a shed stream's leave it."""
         self.ctx.streams = tuple(sorted(set(streams)))
+        if self.sync_digest is not None:
+            self.sync_digest.streams = set(self.ctx.streams)
+            self.inventory.attach_digest(self.sync_digest)
+
+    def mean_skew(self) -> float:
+        """This node's clock-offset estimate vs its peers: the mean of
+        the per-connection wire-trace skew estimators (0.0 without
+        samples) — recorded in snapshot pushes and flight dumps so
+        multi-node telemetry normalizes onto one clock."""
+        offsets = [c.skew.offset() for c in self.pool.established()
+                   if c.skew.samples]
+        return sum(offsets) / len(offsets) if offsets else 0.0
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -300,6 +368,8 @@ class Node:
         # one structured log line a minute with the metrics that changed
         self._metrics_task = asyncio.create_task(log_snapshot_task(60.0))
         self.health.start()
+        if self.federation_publisher is not None:
+            self.federation_publisher.start()
         if self.farm_server is not None:
             await self.farm_server.start()
         if self.client_plane is not None:
@@ -339,6 +409,8 @@ class Node:
             await self.client_crypto.stop()
         if self.client_plane is not None:
             await self.client_plane.stop()
+        if self.federation_publisher is not None:
+            await self.federation_publisher.stop()
         await self.health.stop()
         for task in (self._pump_task, self._metrics_task):
             if task is not None:

@@ -13,6 +13,13 @@ PROTOCOL_VERSION = 3
 NODE_NETWORK = 1
 NODE_SSL = 2
 NODE_DANDELION = 8
+# set-reconciliation inventory sync — peers without the bit stay on
+# classic inv flooding
+NODE_SYNC = 16
+# wire trace-context propagation: sync rounds and object pushes carry a
+# 32-byte trace trailer so lifecycle timelines stitch across nodes —
+# peers without the bit see nothing
+NODE_TRACE = 32
 
 # object types
 OBJECT_GETPUBKEY = 0

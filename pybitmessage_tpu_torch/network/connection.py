@@ -1,13 +1,17 @@
 """One peer connection: framed packets, handshake, command dispatch
-(copy of ``pybitmessage_tpu.network.connection``, without TLS, the
-set-reconciliation sync, the wire trace context and chaos sites).
+(copy of ``pybitmessage_tpu.network.connection``, without TLS and
+chaos sites).
 Frames, framing errors and handshake timeouts go to the JAX
 connection's metric families.
 
 Wire behavior kept: 24-byte header with magic resync
 (bmproto.py:85-104), sha512/4 checksum, version validity checks
-(bmproto.py:563-643), big-inv sync on establishment (tcp.py:210-253),
-addr sample exchange (tcp.py:175-208).
+(bmproto.py:563-643), big-inv sync on establishment (tcp.py:210-253)
+unless both ends advertise NODE_SYNC (then the reconciler's digest
+catch-up replaces it), addr sample exchange (tcp.py:175-208).  Between
+two NODE_TRACE ends, sync payloads carry a 32-byte trace trailer and
+object pushes travel as ``tobject`` frames whose trace context the
+receiver's lifecycle adopts.
 
 A received object goes through three steps, split where the JAX
 connection splits them:
@@ -20,8 +24,8 @@ connection splits them:
    card) in a task per object, at most ``VERIFY_WINDOW`` in flight per
    connection, so a peer's flood coalesces into device batches.  A
    failed PoW closes the peer.
-3. :func:`store_object`: the duplicate check, the inventory and
-   ``pool.object_received``.
+3. :func:`store_object`: the trace adoption, the duplicate check, the
+   inventory and ``pool.object_received``.
 
 :func:`accept_object` composes the three for a caller without a
 socket.
@@ -38,10 +42,15 @@ import time
 from collections import deque
 from typing import TYPE_CHECKING
 
-from ..models.constants import MAGIC, MAX_OBJECT_COUNT, MAX_TIME_OFFSET
+from ..models.constants import (MAGIC, MAX_OBJECT_COUNT, MAX_TIME_OFFSET,
+                                NODE_SYNC, NODE_TRACE)
 from ..models.objects import (ObjectError, ObjectHeader, check_by_type,
                               extract_tag)
 from ..observability import REGISTRY
+from ..observability.lifecycle import LIFECYCLE
+from ..observability.tracing import (TRACE_CTX_INVALID, TRACE_CTX_LEN,
+                                     TRACE_CTX_RECEIVED, TRACE_CTX_SENT,
+                                     SkewEstimator, TraceContext)
 from ..resilience.policy import ERRORS
 from ..models.packet import (HEADER_LEN, PacketError, pack_packet,
                              unpack_header, verify_payload)
@@ -49,9 +58,10 @@ from ..storage.knownnodes import Peer
 from ..utils.hashes import inventory_hash
 from ..utils.varint import VarintError
 from .bufpool import RECV_POOL, PooledBuffer
-from .messages import (AddrEntry, MessageError, VersionPayload, decode_addr,
-                       decode_error, decode_inv, encode_addr, encode_error,
-                       encode_host, encode_inv)
+from .messages import (AddrEntry, MessageError, VersionPayload,
+                       append_trace_ctx, decode_addr, decode_error,
+                       decode_inv, encode_addr, encode_error, encode_host,
+                       encode_inv, split_trace_ctx)
 from .tracker import ConnectionTracker
 
 if TYPE_CHECKING:  # pragma: no cover
@@ -104,13 +114,17 @@ def parse_object(payload) -> ObjectHeader | None:
     return header
 
 
-def store_object(ctx, pool, header, payload, source=None) -> str:
+def store_object(ctx, pool, header, payload, source=None,
+                 trace_ctx: TraceContext | None = None) -> str:
     """Accept a parsed, PoW-checked object: ``"duplicate"`` when the
     inventory holds it, else it enters the inventory and
     ``pool.object_received`` and the answer is ``"accepted"``.  A
     memoryview payload is turned into ``bytes`` here, for new objects
-    only."""
+    only.  An object that arrived with a wire trace context joins the
+    sender's trace first (first writer wins)."""
     h = inventory_hash(payload)
+    if trace_ctx is not None:
+        LIFECYCLE.adopt(h, trace_ctx.trace_id, trace_ctx.parent_span)
     if source is not None:
         source.tracker.object_received(h)
     ctx.global_tracker.received(h)
@@ -174,6 +188,9 @@ class BMConnection:
         #: (antiIntersectionDelay, reference tcp.py:96-127)
         self.skip_until = 0.0
         self._connected_at = time.time()
+        #: bounded per-connection clock-offset estimator, fed by the
+        #: send timestamps of incoming wire trace contexts
+        self.skew = SkewEstimator()
         #: bounded in-flight object-verification pipeline (per peer)
         self._verify_sem = asyncio.Semaphore(VERIFY_WINDOW)
         self._verify_tasks: set[asyncio.Task] = set()
@@ -329,6 +346,9 @@ class BMConnection:
             if command == "object":
                 await self.cmd_object(view, buf=buf)
                 return
+            if command == "tobject":
+                await self.cmd_tobject(view, buf=buf)
+                return
             handler = getattr(self, "cmd_" + command, None)
             if handler is None:
                 logger.debug("unimplemented command %r", command)
@@ -414,8 +434,25 @@ class BMConnection:
             self._handshake_task = None
         self._anti_intersection_delay(initial=True)
         await self._send_addr_sample()
-        await self._send_big_inv()
+        if not await self._start_sync():
+            await self._send_big_inv()
         self.pool.connection_established(self)
+
+    async def _start_sync(self) -> bool:
+        """Negotiate set-reconciliation sync: when both ends advertise
+        NODE_SYNC and a reconciler is attached, register the session and
+        replace the big-inv flood with a digest-sized IBLT catch-up.
+        The OUTBOUND end initiates (one exchange converges both
+        directions).  Returns False when the classic big inv should be
+        sent instead."""
+        rec = getattr(self.pool, "reconciler", None)
+        if rec is None or not self.services & NODE_SYNC \
+                or not self.ctx.services & NODE_SYNC:
+            return False
+        rec.register(self)
+        if not self.outbound:
+            return True
+        return await rec.start_catchup(self)
 
     async def _send_addr_sample(self) -> None:
         entries = []
@@ -469,6 +506,11 @@ class BMConnection:
             self._handle_inventory_announcement(h)
 
     def _handle_inventory_announcement(self, h: bytes) -> None:
+        rec = getattr(self.pool, "reconciler", None)
+        if rec is not None:
+            # the peer has this object: drop it from the sync pending
+            # set so neither a sketch nor an inv echoes it back
+            rec.peer_announced(self, h)
         self.tracker.peer_announced(h)
         if h in self.ctx.inventory:
             self.tracker.object_received(h)
@@ -526,18 +568,97 @@ class BMConnection:
                     continue
                 self._anti_intersection_delay()
                 continue
-            await self.send_packet("object", item.payload)
+            await self.send_object(h, item.payload)
             self.objects_sent += 1
             self.tracker.object_received(h)
             served += 1
+
+    # -- wire trace context ---------------------------------------------------
+
+    @property
+    def trace_negotiated(self) -> bool:
+        """Both ends advertised NODE_TRACE: sync payloads carry the
+        32-byte trace trailer and object pushes travel as ``tobject``.
+        Legacy peers (no bit) see the classic wire format, byte for
+        byte."""
+        return bool(self.services & NODE_TRACE
+                    and self.ctx.services & NODE_TRACE)
+
+    def attach_trace(self, command: str, payload: bytes) -> bytes:
+        """Append the trace trailer for a sync-round payload when the
+        peer negotiated NODE_TRACE (reconciler send hook; simulated
+        connections simply lack this method)."""
+        if not self.trace_negotiated:
+            return payload
+        ctx = TraceContext(self.ctx.nonce.ljust(16, b"\x00"), 0)
+        TRACE_CTX_SENT.labels(command=command).inc()
+        return append_trace_ctx(payload, ctx)
+
+    def _strip_trace(self, command: str, payload: bytes) -> bytes:
+        """Split and consume an incoming sync payload's trace trailer:
+        feed the skew estimator, count it, hand back the bare payload.
+        A malformed trailer is dropped (counted) without killing the
+        round — telemetry must not break sync."""
+        if not self.trace_negotiated:
+            return payload
+        try:
+            payload, ctx = split_trace_ctx(payload)
+        except MessageError:
+            TRACE_CTX_INVALID.inc()
+            return payload
+        TRACE_CTX_RECEIVED.labels(command=command).inc()
+        self.skew.observe(ctx.sent_at)
+        return payload
+
+    async def send_object(self, h: bytes, payload: bytes) -> None:
+        """Push one object: a ``tobject`` frame (32-byte trace context
+        + object payload) to NODE_TRACE peers so the receiver's
+        lifecycle timeline joins this object's trace, the classic
+        ``object`` frame otherwise."""
+        if not self.trace_negotiated:
+            await self.send_packet("object", payload)
+            return
+        ctx = LIFECYCLE.trace_ctx_for(h)
+        if ctx is None:
+            await self.send_packet("object", payload)
+            return
+        TRACE_CTX_SENT.labels(command="tobject").inc()
+        await self.send_packet("tobject", ctx.encode() + payload)
+
+    async def cmd_tobject(self, payload, *,
+                          buf: PooledBuffer | None = None) -> None:
+        """A trace-carrying object push.  Only trace-negotiated peers
+        send these; from anyone else the command is ignored like any
+        unknown command would be (the object will arrive again through
+        normal paths)."""
+        self._require_established()
+        if not self.trace_negotiated or len(payload) <= TRACE_CTX_LEN:
+            logger.debug("tobject from %s without negotiation; ignored",
+                         self.host)
+            return
+        try:
+            ctx = TraceContext.decode(bytes(payload[:TRACE_CTX_LEN]))
+        except ValueError:
+            TRACE_CTX_INVALID.inc()
+            return
+        TRACE_CTX_RECEIVED.labels(command="tobject").inc()
+        self.skew.observe(ctx.sent_at)
+        await self._handle_object(payload[TRACE_CTX_LEN:], buf=buf,
+                                  trace_ctx=ctx)
 
     # -- objects -------------------------------------------------------------
 
     async def cmd_object(self, payload, *,
                          buf: PooledBuffer | None = None) -> None:
-        """``payload`` is ``bytes`` or a memoryview over ``buf``; the
-        checks run on either without copying."""
         self._require_established()
+        await self._handle_object(payload, buf=buf)
+
+    async def _handle_object(self, payload, *,
+                             buf: PooledBuffer | None = None,
+                             trace_ctx: TraceContext | None = None) -> None:
+        """``payload`` is ``bytes`` or a memoryview over ``buf``; the
+        checks run on either without copying.  ``trace_ctx`` is the
+        wire trace context a ``tobject`` frame carried."""
         header = parse_object(payload)       # a VarintError closes us
         if header is None or header.stream not in self.ctx.streams:
             return
@@ -549,7 +670,7 @@ class BMConnection:
         if buf is not None:
             buf.retain()
         task = asyncio.create_task(
-            self._verify_and_accept(header, payload, buf))
+            self._verify_and_accept(header, payload, buf, trace_ctx))
         self._verify_tasks.add(task)
         self.verify_window_peak = max(self.verify_window_peak,
                                       len(self._verify_tasks))
@@ -566,16 +687,50 @@ class BMConnection:
                          self.host, self.port, exc_info=exc)
 
     async def _verify_and_accept(self, header, payload,
-                                 buf: PooledBuffer | None = None) -> None:
+                                 buf: PooledBuffer | None = None,
+                                 trace_ctx: TraceContext | None = None
+                                 ) -> None:
         try:
             if not await self.ctx.pow_verifier.check(payload):
                 logger.debug("insufficient PoW from %s", self.host)
                 await self.close("object with insufficient PoW")
                 return
-            store_object(self.ctx, self.pool, header, payload, source=self)
+            store_object(self.ctx, self.pool, header, payload, source=self,
+                         trace_ctx=trace_ctx)
         finally:
             if buf is not None:
                 buf.release()
+
+    # -- set-reconciliation sync ----------------------------------------------
+
+    def _reconciler(self):
+        rec = getattr(self.pool, "reconciler", None)
+        if rec is None or not rec.negotiated(self):
+            logger.debug("sync message from %s without a negotiated "
+                         "session; ignored", self.host)
+            return None
+        return rec
+
+    async def cmd_sketchreq(self, payload: bytes) -> None:
+        self._require_established()
+        payload = self._strip_trace("sketchreq", payload)
+        rec = self._reconciler()
+        if rec is not None:
+            await rec.handle_sketchreq(self, payload)
+
+    async def cmd_sketch(self, payload: bytes) -> None:
+        self._require_established()
+        payload = self._strip_trace("sketch", payload)
+        rec = self._reconciler()
+        if rec is not None:
+            await rec.handle_sketch(self, payload)
+
+    async def cmd_recondiff(self, payload: bytes) -> None:
+        self._require_established()
+        payload = self._strip_trace("recondiff", payload)
+        rec = self._reconciler()
+        if rec is not None:
+            await rec.handle_recondiff(self, payload)
 
     async def cmd_addr(self, payload: bytes) -> None:
         self._require_established()

@@ -1,6 +1,6 @@
 """Wire payload codecs: version, addr, inv/getdata, error, host encoding
-(copy of ``pybitmessage_tpu.network.messages``, without the sync and
-wire-trace codecs).
+and the set-reconciliation and wire-trace codecs (copy of
+``pybitmessage_tpu.network.messages``).
 
 Reference formats: src/protocol.py:303-395 (version/error assembly),
 src/network/bmproto.py:443-512 (addr/inv parsing patterns).
@@ -198,6 +198,206 @@ def decode_inv(data: bytes) -> list[bytes]:
     if len(data) < i + 32 * count:
         raise MessageError("truncated inv")
     return [data[i + 32 * k:i + 32 * (k + 1)] for k in range(count)]
+
+
+# -- set-reconciliation sync messages -----------------------------------------
+#
+# Three commands carry the reconciliation protocol:
+#   sketchreq  — open a round: session salt + agreed sketch capacity
+#                (IBLT rounds), or the initiator's bucket summaries
+#                (digest catch-up on establishment);
+#   sketch     — the responder's IBLT cells (or its own summaries);
+#   recondiff  — the initiator's decoded difference: full hashes the
+#                responder is missing + short IDs the initiator wants.
+
+SKETCH_KIND_IBLT = 0
+SKETCH_KIND_DIGEST = 1
+RECONDIFF_OK = 0
+RECONDIFF_DECODE_FAILED = 1
+#: wire guards mirroring sync/sketch.py MAX_CELLS / digest buckets
+MAX_SKETCH_CELLS = 1 << 16
+MAX_DIGEST_BUCKETS = 4096
+_SKETCH_CELL_BYTES = 13  # mirrors sync/sketch.py CELL_BYTES
+
+
+def _encode_summaries(summaries: dict[int, list[tuple[int, int]]]) -> bytes:
+    out = encode_varint(len(summaries))
+    for stream in sorted(summaries):
+        buckets = summaries[stream]
+        out += encode_varint(stream) + encode_varint(len(buckets))
+        for count, xor in buckets:
+            out += encode_varint(count) + struct.pack(">Q", xor)
+    return out
+
+
+def _decode_summaries(data: bytes, i: int
+                      ) -> tuple[dict[int, list[tuple[int, int]]], int]:
+    nstreams, n = decode_varint(data, i)
+    i += n
+    if nstreams > 256:
+        raise MessageError("too many digest streams")
+    out: dict[int, list[tuple[int, int]]] = {}
+    for _ in range(nstreams):
+        stream, n = decode_varint(data, i)
+        i += n
+        nbuckets, n = decode_varint(data, i)
+        i += n
+        if nbuckets > MAX_DIGEST_BUCKETS:
+            raise MessageError("digest bucket count exceeds maximum")
+        buckets = []
+        for _ in range(nbuckets):
+            count, n = decode_varint(data, i)
+            i += n
+            if len(data) < i + 8:
+                raise MessageError("truncated digest summary")
+            xor = struct.unpack_from(">Q", data, i)[0]
+            i += 8
+            buckets.append((count, xor))
+        out[stream] = buckets
+    return out, i
+
+
+def encode_sketchreq(kind: int, salt: int, capacity: int, set_size: int,
+                     summaries: dict[int, list[tuple[int, int]]]
+                     | None = None) -> bytes:
+    out = encode_varint(kind) + struct.pack(">Q", salt & (2**64 - 1))
+    out += encode_varint(capacity) + encode_varint(set_size)
+    if kind == SKETCH_KIND_DIGEST:
+        out += _encode_summaries(summaries or {})
+    return out
+
+
+def decode_sketchreq(data: bytes):
+    kind, i = decode_varint(data)
+    if len(data) < i + 8:
+        raise MessageError("truncated sketchreq")
+    salt = struct.unpack_from(">Q", data, i)[0]
+    i += 8
+    capacity, n = decode_varint(data, i)
+    i += n
+    set_size, n = decode_varint(data, i)
+    i += n
+    if capacity > MAX_SKETCH_CELLS:
+        raise MessageError("sketch capacity exceeds maximum")
+    summaries = None
+    if kind == SKETCH_KIND_DIGEST:
+        summaries, i = _decode_summaries(data, i)
+    return kind, salt, capacity, set_size, summaries
+
+
+def encode_sketch(kind: int, salt: int, set_size: int,
+                  cells: bytes = b"",
+                  summaries: dict[int, list[tuple[int, int]]]
+                  | None = None) -> bytes:
+    out = encode_varint(kind) + struct.pack(">Q", salt & (2**64 - 1))
+    out += encode_varint(set_size)
+    if kind == SKETCH_KIND_DIGEST:
+        out += _encode_summaries(summaries or {})
+    else:
+        ncells, rem = divmod(len(cells), _SKETCH_CELL_BYTES)
+        if rem:
+            raise MessageError("sketch cell blob not cell-aligned")
+        out += encode_varint(ncells) + cells
+    return out
+
+
+def decode_sketch(data: bytes):
+    kind, i = decode_varint(data)
+    if len(data) < i + 8:
+        raise MessageError("truncated sketch")
+    salt = struct.unpack_from(">Q", data, i)[0]
+    i += 8
+    set_size, n = decode_varint(data, i)
+    i += n
+    cells, summaries = b"", None
+    if kind == SKETCH_KIND_DIGEST:
+        summaries, i = _decode_summaries(data, i)
+    else:
+        ncells, n = decode_varint(data, i)
+        i += n
+        if ncells > MAX_SKETCH_CELLS:
+            raise MessageError("sketch cell count exceeds maximum")
+        end = i + ncells * _SKETCH_CELL_BYTES
+        if len(data) < end:
+            raise MessageError("truncated sketch cells")
+        cells = data[i:end]
+    return kind, salt, set_size, cells, summaries
+
+
+def encode_recondiff(flags: int, salt: int, diff_size: int,
+                     missing: list[bytes],
+                     want_ids: list[int]) -> bytes:
+    missing = missing[:MAX_INV_COUNT]
+    want_ids = want_ids[:MAX_INV_COUNT]
+    # salt binds the verdict to ONE round — gossip and catch-up rounds
+    # can be in flight on the same connection simultaneously, and a
+    # failure verdict consumed by the wrong round would tear down
+    # state it does not own.  diff_size = the initiator's decoded
+    # symmetric-difference total — two cheap bytes that let the
+    # responder train its own capacity estimator (it never decodes).
+    out = encode_varint(flags) + struct.pack(">Q", salt & (2**64 - 1))
+    out += encode_varint(diff_size)
+    out += encode_varint(len(missing)) + b"".join(missing)
+    out += encode_varint(len(want_ids))
+    for id_ in want_ids:
+        out += struct.pack(">Q", id_ & (2**64 - 1))
+    return out
+
+
+def decode_recondiff(data: bytes):
+    flags, i = decode_varint(data)
+    if len(data) < i + 8:
+        raise MessageError("truncated recondiff")
+    salt = struct.unpack_from(">Q", data, i)[0]
+    i += 8
+    diff_size, n = decode_varint(data, i)
+    i += n
+    nmissing, n = decode_varint(data, i)
+    i += n
+    if nmissing > MAX_INV_COUNT:
+        raise MessageError("recondiff hash count exceeds maximum")
+    if len(data) < i + 32 * nmissing:
+        raise MessageError("truncated recondiff hashes")
+    missing = [data[i + 32 * k:i + 32 * (k + 1)] for k in range(nmissing)]
+    i += 32 * nmissing
+    nwant, n = decode_varint(data, i)
+    i += n
+    if nwant > MAX_INV_COUNT:
+        raise MessageError("recondiff id count exceeds maximum")
+    if len(data) < i + 8 * nwant:
+        raise MessageError("truncated recondiff ids")
+    want = [struct.unpack_from(">Q", data, i + 8 * k)[0]
+            for k in range(nwant)]
+    return flags, salt, diff_size, missing, want
+
+
+# -- wire trace context -------------------------------------------------------
+#
+# NODE_TRACE peers append a fixed 32-byte trailer (16B trace id + 8B
+# parent span + 8B send-time micros) to sync-round payloads, and push
+# objects as `tobject` frames (trailer-prefixed object payload).  The
+# trailer travels ONLY between peers that both advertised NODE_TRACE,
+# so legacy decoders never see the extra bytes.
+
+def append_trace_ctx(payload: bytes, ctx) -> bytes:
+    """``payload + ctx.encode()`` (ctx stamped with the send time)."""
+    from ..observability.tracing import TraceContext
+    return payload + TraceContext(ctx.trace_id, ctx.parent_span).encode()
+
+
+def split_trace_ctx(payload: bytes):
+    """Inverse of :func:`append_trace_ctx`: ``(payload, ctx)``.
+    Raises :class:`MessageError` when the trailer cannot be there —
+    callers only split on trace-negotiated connections, where every
+    sync payload carries it."""
+    from ..observability.tracing import TRACE_CTX_LEN, TraceContext
+    if len(payload) < TRACE_CTX_LEN:
+        raise MessageError("payload too short for a trace trailer")
+    try:
+        ctx = TraceContext.decode(payload[-TRACE_CTX_LEN:])
+    except ValueError as exc:
+        raise MessageError("bad trace trailer: %s" % exc) from exc
+    return payload[:-TRACE_CTX_LEN], ctx
 
 
 def encode_error(fatal: int = 0, ban_time: int = 0,

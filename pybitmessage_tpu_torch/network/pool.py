@@ -1,6 +1,8 @@
 """Shared node state and the connection pool: dialer, listener, gossip
 cadences (copy of ``pybitmessage_tpu.network.pool``, without TLS,
-SOCKS, UDP discovery, the set-reconciliation sync and chaos sites).
+SOCKS, UDP discovery and chaos sites).  With a ``reconciler`` attached
+(set-reconciliation sync), fluff announcements go through its flood /
+pending split and the inv loop drives its rounds.
 The roles' hooks are here: ``on_object`` and ``on_announce`` (a relay's
 INV deltas and pushes), ``reuse_port`` (edges sharing one P2P port),
 ``ctx.payload_fetcher`` (an edge's getdata service of a hash its relay
@@ -137,6 +139,9 @@ class ConnectionPool:
         #: share the listen socket across processes (edge processes
         #: accepting on one port, balanced by the kernel)
         self.reuse_port = False
+        #: set-reconciliation subsystem (``sync/reconciler.py``); None
+        #: keeps the classic flooding-only paths
+        self.reconciler = None
         #: (AddrEntry, due_time) queue for ongoing addr relay
         self._addr_gossip: list = []
         #: peers that asked us to verify their reachability
@@ -286,6 +291,8 @@ class ConnectionPool:
         self.inbound.pop(conn, None)
         self.outbound.pop(conn, None)
         self._count_connections()
+        if self.reconciler is not None:
+            self.reconciler.unregister(conn)
         if self.ctx.dandelion:
             self.ctx.dandelion.remove_connection(conn)
         if conn.outbound and not conn.fully_established:
@@ -307,14 +314,23 @@ class ConnectionPool:
 
     def _route_announcement(self, h: bytes, conns,
                             stream: int | None = None) -> None:
-        """Fan one announcement out to the trackers of ``conns``.  With
-        a known ``stream`` only peers subscribed to it hear it, and a
-        stream outside ``ctx.streams`` is never announced."""
+        """Fan one announcement out: stem-phase hashes always ride the
+        classic trackers (dandelion routing decides who may see them —
+        they must NEVER enter a reconciliation sketch), everything else
+        goes through the reconciler's flood/pending split when sync is
+        enabled.  With a known ``stream`` only peers subscribed to it
+        hear it, and a stream outside ``ctx.streams`` is never
+        announced (the shard boundary)."""
         if stream is not None:
             if stream not in self.ctx.streams:
                 return
             conns = [c for c in conns if self._subscribes(c, stream)]
         LIFECYCLE.record(h, "announced")
+        dand = self.ctx.dandelion
+        if self.reconciler is not None and \
+                (dand is None or not dand.in_stem_phase(h)):
+            self.reconciler.route_announcement(h, conns, stream=stream)
+            return
         for conn in conns:
             conn.tracker.we_should_announce(h)
 
@@ -445,9 +461,11 @@ class ConnectionPool:
         if dand:
             for h, stream in dand.expire_fluffed():
                 # stem timer expired: the hash is now an ordinary
-                # fluff announcement
+                # fluff announcement and may use the sync paths
                 self._route_announcement(h, self.established(),
                                          stream=stream)
+        if self.reconciler is not None:
+            await self.reconciler.tick()
         for conn in self.established():
             chunk = conn.tracker.take_announcements()
             if not chunk:

@@ -73,12 +73,16 @@ class ConnectionTracker:
     :meth:`take_announcements` drains only the next bucket in rotation
     (so with the pool's 1 s inv cadence an announcement leaves 0..N-1
     seconds after it was queued, uncorrelated with arrival time).
-    ``buckets=1`` disables the jitter (tests).
+    ``buckets=1`` disables the jitter (tests).  ``rng`` draws the
+    buckets and the download picks (the module's generator by default;
+    the simulated mesh passes its own seeded one).
     """
 
-    def __init__(self, buckets: int = ANNOUNCE_BUCKETS) -> None:
+    def __init__(self, buckets: int = ANNOUNCE_BUCKETS,
+                 rng: random.Random | None = None) -> None:
+        self._rng = rng if rng is not None else random
         self.objects_new_to_me: RandomTrackingDict[bytes, bool] = \
-            RandomTrackingDict()
+            RandomTrackingDict(rng)
         self.buckets = max(1, buckets)
         self._new_to_them: list[dict[bytes, float]] = [
             {} for _ in range(self.buckets)]
@@ -94,7 +98,7 @@ class ConnectionTracker:
 
     def we_should_announce(self, hash_: bytes) -> None:
         with self._lock:
-            self._new_to_them[random.randrange(self.buckets)][hash_] = \
+            self._new_to_them[self._rng.randrange(self.buckets)][hash_] = \
                 time.time()
 
     def take_announcements(self, limit: int = 50000) -> list[bytes]:

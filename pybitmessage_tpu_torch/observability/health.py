@@ -16,9 +16,9 @@ A lag sample above ``culprit_threshold`` asks the sampling profiler
 (``profiling.py``) which site held the loop during the late tick; the
 site is counted into ``event_loop_slow_callback_total{site}``, dropped
 as a flight-recorder breadcrumb and shown as the health block's
-``lastSlowCallback``.  The port's node has no sync reconciler, so the
-block carries ``loop``, ``role``, ``pow``, ``ingest``, ``storage`` and,
-with the light-client tier, ``clients`` (an edge's plane) and
+``lastSlowCallback``.  The block carries ``loop``, ``role``, ``pow``,
+``ingest``, ``storage``, ``sync`` (with a reconciler: sessions with an
+open breaker are degraded peers) and, with the light-client tier, ``clients`` (an edge's plane) and
 ``lightClient`` (a client's link), as the JAX block does for such a
 node; ``role`` judges an edge's replica-set coverage and reports a
 relay's edges, epoch and forwarded streams.
@@ -281,6 +281,13 @@ class HealthMonitor:
         pending = wb.pending_rows() if wb is not None else 0
         out["storage"] = _verdict(
             wb is None or pending < wb.max_rows, pendingRows=pending)
+
+        # sync: sessions with an open breaker are degraded peers
+        recon = getattr(node, "reconciler", None)
+        if recon is not None:
+            snap = recon.snapshot_state()
+            out["sync"] = _verdict(
+                snap["breakersOpen"] == 0, **snap)
 
         # light-client tier: a plane whose sessions keep overflowing is
         # deferring pushes into FETCH repair; a light client that cannot

@@ -21,8 +21,9 @@ of the card (``farm -> cuda``):
   (one double-SHA512) before being trusted; a lying farm is a failed
   tier, not a corrupted send.
 
-Submissions carry an empty trace field: the wire trace is not part of
-this package yet.
+Each submission carries the object's wire trace context
+(``LIFECYCLE.trace_ctx_for`` of its initial hash), so the farm's job
+joins the submitting node's trace.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ import time
 from typing import Callable
 
 from ..observability import REGISTRY
+from ..observability.lifecycle import LIFECYCLE
 from ..ops.pow_search import PowInterrupted
 from ..pow.dispatcher import host_trial
 from ..resilience.policy import CircuitBreaker, current_deadline
@@ -250,10 +252,14 @@ class FarmSolverTier:
 
     def solve_batch(self, items, *, should_stop=None, start_nonces=None):
         items = list(items)
+        traces = []
+        for ih, _ in items:
+            ctx = LIFECYCLE.trace_ctx_for(ih)
+            traces.append(ctx.encode() if ctx is not None else b"")
         results = self.client.solve_batch(
             items, lane=self.lane_for(len(items)),
             should_stop=should_stop, start_nonces=start_nonces,
-            deadline_s=self._budget())
+            deadline_s=self._budget(), traces=traces)
         self._verify(items, results)
         return results
 

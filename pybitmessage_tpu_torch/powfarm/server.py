@@ -27,8 +27,9 @@ Failure contract (docs/resilience.md conventions):
   a bounded recent-results cache, so a client that reconnects and
   re-submits gets the answer without re-solving.
 
-A submission's 32-byte trace field is kept as opaque bytes (the wire
-trace is not decoded by this package).
+A submission's 32-byte trace field is the submitting node's wire trace
+context: the job adopts its trace id, so queue wait and solve latency
+stay attributable per tenant and per trace.
 
 Chaos sites (resilience/chaos.py catalog): ``farm.accept`` fails a
 submission accept (the client sees a retryable REJECT),
@@ -49,6 +50,7 @@ from concurrent.futures import ThreadPoolExecutor
 from ..observability import DEFAULT_SIZE_BUCKETS, REGISTRY
 from ..observability.flightrec import record as _flight
 from ..observability.lifecycle import LIFECYCLE
+from ..observability.tracing import TraceContext
 from ..ops.pow_search import PowInterrupted
 from ..resilience.chaos import inject
 from ..resilience.policy import ERRORS, RetryPolicy
@@ -353,8 +355,16 @@ class FarmServer:
         if journaled is not None:
             job.job_id, journal_start = journaled
             job.start_nonce = max(job.start_nonce, journal_start)
-        # the wire trace context rides along undecoded
-        job.trace_id = msg.trace
+        # the job joins the object's wire trace: queue wait and solve
+        # latency stay attributable per tenant AND per trace
+        if msg.trace:
+            try:
+                ctx = TraceContext.decode(msg.trace)
+                LIFECYCLE.adopt(msg.initial_hash, ctx.trace_id,
+                                ctx.parent_span)
+                job.trace_id = ctx.trace_id
+            except ValueError:
+                logger.debug("undecodable trace ctx on farm submit")
         LIFECYCLE.record(msg.initial_hash, "pow_queued")
         self._by_key[key] = job
         self.scheduler.push(job)

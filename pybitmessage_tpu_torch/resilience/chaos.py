@@ -20,10 +20,12 @@ The sites this package plants (:data:`SITES`):
 ``role.replica``       an edge's replica health probe
 ``role.client``        a light-client plane frame send, both the edge's
                        session writer and the client's (``roles/``)
+``sync.sketch_decode`` sketch subtract/peel (reconciler gossip/catch-up,
+                       ``sync/reconciler.py``)
 =====================  ==================================================
 
 The JAX package's other sites (``pow.readback``, ``net.*``, ``api.*``,
-``sync.*``, ``crypto.*``, ``storage.*``) are not planted here; :func:`unplanted` names them in a spec so the daemon can
+``crypto.*``, ``storage.*``) are not planted here; :func:`unplanted` names them in a spec so the daemon can
 refuse it.
 
 Arming, one of:
@@ -58,7 +60,7 @@ FAULTS = REGISTRY.counter(
 #: the injection sites planted in this package
 SITES = ("pow.device_launch", "db.write", "farm.accept", "farm.dispatch",
          "farm.result", "role.ipc", "role.handoff", "role.replica",
-         "role.client")
+         "role.client", "sync.sketch_decode")
 
 
 class ChaosError(RuntimeError):

@@ -32,7 +32,7 @@ class RoleSpec:
     #: owns an authoritative object store (relay/all); edges keep a
     #: bounded dedupe/serve cache instead
     owns_storage: bool = True
-    #: runs the set-reconciliation sync (the JAX package's; not here)
+    #: runs the set-reconciliation sync
     runs_sync: bool = True
     #: runs the ObjectProcessor/Sender pipeline (needs identity keys)
     processes_objects: bool = True

@@ -289,13 +289,14 @@ class RelayRuntime:
             if target is None:
                 # shard boundary: this relay does not own the stream —
                 # the edge mis-routed (stale routing table).  Refuse
-                # rather than store another shard's object.
+                # rather than pollute the shard's digest and sketches.
                 return "rejected"
             # forwarding mode (live split/merge): the record raced the
-            # epoch flip on a shed stream.  Store it (dedupe and getdata
-            # service keep working) and forward a copy to the new owner:
-            # double-delivered, never dropped, deduped at the
-            # destination.
+            # epoch flip on a shed stream.  Store it (the node's
+            # stream-restricted sync digest keeps it out of sketches;
+            # dedupe and getdata service keep working) and forward a
+            # copy to the new owner: double-delivered, never dropped,
+            # deduped at the destination.
             ctx.inventory.add(h, type_, stream, payload, expires, tag)
             self._forwarder_for(target).enqueue(
                 ipc.encode_record(h, type_, stream, expires, tag,

@@ -1,5 +1,5 @@
 """Object inventory: RAM cache of new objects over the SQL table (copy of
-``pybitmessage_tpu.storage.inventory``, without the sync digest).
+``pybitmessage_tpu.storage.inventory``).
 
 Same two-tier semantics as the reference (src/storage/sqlite.py:12-124):
 ``_pending`` holds objects received since the last flush; ``_known``
@@ -50,9 +50,27 @@ class Inventory:
         self._lock = threading.RLock()
         self._pending: dict[bytes, InventoryItem] = {}
         self._known: dict[bytes, int] = {}  # hash -> stream existence cache
+        #: optional sync/digest.py InventoryDigest kept incrementally
+        #: in step with add/clean — reconciliation rounds read it
+        #: instead of rescanning the inventory table
+        self._digest = None
         # process-wide gauge: the most recently constructed/cleaned
         # Inventory owns the reading (one live inventory per daemon)
         ITEMS.set(len(self))
+
+    def attach_digest(self, digest) -> None:
+        """Attach a bucketed digest (sync subsystem) and seed it with
+        one scan — the only full scan it ever costs; every later
+        ``add``/``clean`` maintains it incrementally."""
+        with self._lock:
+            now = int(time.time())
+            seed = [(h, v.stream, v.expires)
+                    for h, v in self._pending.items() if v.expires > now]
+            seed += [(bytes(h), s, e) for h, s, e in self._db.query(
+                "SELECT hash, streamnumber, expirestime FROM inventory"
+                " WHERE expirestime>?", (now,))]
+            digest.rebuild(seed)
+            self._digest = digest
 
     def __contains__(self, hash_: bytes) -> bool:
         with self._lock:
@@ -86,6 +104,8 @@ class Inventory:
                 ITEMS.inc()
             self._pending[hash_] = item
             self._known[hash_] = item.stream
+            if self._digest is not None:
+                self._digest.add(hash_, item.stream, item.expires)
 
     def __len__(self) -> int:
         """SQL rows plus the pending objects no row holds yet, counted
@@ -152,6 +172,10 @@ class Inventory:
             self._known.clear()
             for h, v in self._pending.items():
                 self._known[h] = v.stream
+            if self._digest is not None:
+                # expired objects must leave the announce view NOW,
+                # not after the 3 h purge grace
+                self._digest.clean(int(time.time()))
             ITEMS.set(len(self))
 
     def hashes(self) -> Iterable[bytes]:

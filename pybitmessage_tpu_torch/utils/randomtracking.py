@@ -27,7 +27,9 @@ class RandomTrackingDict(Generic[K, V]):
     #: seconds before a handed-out key becomes eligible again
     pending_timeout = 60
 
-    def __init__(self) -> None:
+    def __init__(self, rng: random.Random | None = None) -> None:
+        #: draws the keys handed out (the module's generator by default)
+        self._rng = rng if rng is not None else random
         self._dict: dict[K, V] = {}
         self._pending: dict[K, float] = {}  # key -> expiry time
         self._lock = threading.RLock()
@@ -74,7 +76,7 @@ class RandomTrackingDict(Generic[K, V]):
             eligible = [k for k in self._dict if k not in self._pending]
             if not eligible:
                 return []
-            chosen = random.sample(
+            chosen = self._rng.sample(
                 eligible, min(count, free_slots, len(eligible)))
             expiry = now + self.pending_timeout
             for k in chosen:

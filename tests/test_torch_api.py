@@ -39,13 +39,11 @@ USER, PASS = "apiuser", "apipass"
 CALL_TIMEOUT = 30.0
 POLL_TIMEOUT = 45.0
 
-#: the JAX commands the port has not ported (the email gateway and
-#: federation)
+#: the JAX commands the port has not ported (the email gateway)
 UNPORTED = (
     "setEmailGateway", "emailGatewayRegister", "emailGatewayUnregister",
     "emailGatewayStatus", "emailGatewaySettings", "sendEmail",
     "setMailingList",
-    "federatedStatus",
 )
 
 #: masked in answers: random or clock readings in either package
@@ -151,20 +149,24 @@ class Pair:
         return pr["error"]["code"]
 
 
-def jax_node(data_dir=None):
+def jax_node(data_dir=None, plane=False):
+    """A JAX node; ``plane`` keeps its sync, wire trace and federation
+    at their defaults (on), else all three are off."""
     JaxNode, _, _, _, dispatcher = _jax()
 
     def solver(ih, target, should_stop=None):
         return dispatcher.python_solve(ih, target, should_stop=should_stop)
     return JaxNode(data_dir, listen=False, solver=solver, test_mode=True,
                    dandelion_enabled=False, tls_enabled=False,
-                   sync_enabled=False, wiretrace_enabled=False,
-                   federation_enabled=False)
+                   sync_enabled=plane, wiretrace_enabled=plane,
+                   federation_enabled=plane)
 
 
-def port_node(data_dir=None):
+def port_node(data_dir=None, plane=False):
+    """A port node, its network plane as :func:`jax_node`'s."""
     return Node(data_dir, device="cpu", listen=False, test_mode=True,
-                crypto_batch=False)
+                crypto_batch=False, sync_enabled=plane,
+                wiretrace_enabled=plane, federation_enabled=plane)
 
 
 @contextlib.asynccontextmanager
@@ -180,9 +182,9 @@ async def serve(node, server_cls):
 
 
 @contextlib.asynccontextmanager
-async def pair(jax_dir=None, port_dir=None):
+async def pair(jax_dir=None, port_dir=None, plane=False):
     JaxAPIServer = _jax()[1]
-    jn, pn = jax_node(jax_dir), port_node(port_dir)
+    jn, pn = jax_node(jax_dir, plane), port_node(port_dir, plane)
     async with serve(jn, JaxAPIServer) as jrpc, \
             serve(pn, APIServer) as prpc:
         yield Pair(jn, pn, jrpc, prpc)
@@ -206,14 +208,14 @@ def _commands(handler_cls) -> set[str]:
 def test_command_table_is_the_jax_table_less_the_unported():
     JaxHandler = _jax()[2]
     jax_names, port_names = _commands(JaxHandler), _commands(CommandHandler)
-    assert len(UNPORTED) == 8
+    assert len(UNPORTED) == 7
     assert port_names == jax_names - set(UNPORTED)
     assert set(UNPORTED) <= jax_names
-    # 69 commands, plus the five aliases both register
+    # 70 commands, plus the five aliases both register
     aliases = {"getAllInboxMessageIDs", "getAllSentMessageIDs",
                "getInboxMessageByID", "getSentMessageByID",
                "getSentMessagesBySender"}
-    assert len(port_names - aliases) == 69
+    assert len(port_names - aliases) == 70
 
 
 @pytest.mark.parametrize("method", UNPORTED)
@@ -228,6 +230,31 @@ async def test_unported_command_answers_invalid_method(method):
     assert port_err.value.code == jax_err.value.code == 20
     assert str(port_err.value) == \
         str(jax_err.value).replace(method + "Missing", method)
+
+
+@pytest.mark.parametrize("plane", [True, False])
+async def test_federated_status_answers_as_jax(plane):
+    """With federation on, each node's aggregator lists the node itself
+    once its publisher has pushed, in the JAX answer's shape; off, both
+    answer ``{"enabled": false}``."""
+    async with pair(plane=plane) as p:
+        for node in (p.jax_node, p.port_node):
+            assert (node.federation is not None) == plane
+            if plane:
+                node.federation_publisher.push_once()
+        jr, pr = await p.each("federatedStatus", (), ())
+        jst, pst = json.loads(jr["result"]), json.loads(pr["result"])
+        if not plane:
+            assert pst == jst == {"enabled": False}
+            return
+        assert list(pst["nodes"]) == [p.port_node.node_id]
+        assert list(jst["nodes"]) == [p.jax_node.node_id]
+        mine, theirs = pst["nodes"].popitem()[1], jst["nodes"].popitem()[1]
+        assert set(mine) == set(theirs)
+        assert mine["verdict"] == theirs["verdict"] == "ok"
+        assert set(mine["health"]) == set(theirs["health"])
+        assert mine["seq"] == theirs["seq"] == 1
+        assert pst == jst
 
 
 @pytest.mark.parametrize("method,params", [

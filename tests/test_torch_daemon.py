@@ -133,15 +133,18 @@ def test_port_daemon_lifecycle_driven_by_the_jax_cli(tmp_path):
         # message a beat before the hook's marker write lands
         _wait_for(lambda: "newMessage" in marker.read_text(), 15,
                   "newMessage hook")
-        with pytest.raises(cli.CommandError, match="API Error 0020"):
-            rpc.call("federatedStatus")
+        # federation runs by default: the daemon's own aggregator
+        fleet = json.loads(rpc.call("federatedStatus"))
+        assert fleet["enabled"] is True
 
         assert (home / "settings.dat").exists()
         assert (home / "keys.dat").exists()
         assert (home / "messages.dat").exists()
         warning = [line for line in (home / "debug.log").read_text()
                    .splitlines() if "not run by this package yet" in line]
-        assert len(warning) == 1 and "tls, udp, syncenabled" in warning[0]
+        assert len(warning) == 1 and "tls, udp, cryptonative" in warning[0]
+        for switch in ("syncenabled", "wiretrace", "federation"):
+            assert switch not in warning[0]
 
         proc.send_signal(signal.SIGTERM)
         assert proc.wait(timeout=STOP_TIMEOUT) == 0
@@ -230,6 +233,9 @@ def test_not_run_settings_are_on_by_the_jax_defaults():
     settings.set_temp("udp", False)
     assert "tls" not in daemon.not_run_options(settings)
     assert "udp" not in daemon.not_run_options(settings)
+    # the network plane runs by default: its switches never warn
+    for key in ("syncenabled", "wiretrace", "federation"):
+        assert key not in daemon.NOT_RUN and key in port_config.DEFAULTS
 
 
 @pytest.mark.parametrize("key", sorted(daemon.IGNORED_WHILE_OFF))
@@ -297,6 +303,60 @@ def test_cryptodrainmax_ingestqueuehigh_and_cryptoworkers_reach_the_node(
         node.db.close()
 
 
+@pytest.mark.parametrize("pkg", ["jax", "port"])
+def test_sync_and_federation_settings_reach_the_node(tmp_path, monkeypatch,
+                                                     pkg):
+    """Each package's daemon ``run`` applies ``syncinterval``,
+    ``syncfanout`` and the breaker keys to the node's reconciler, and
+    ``federationinterval`` and ``federationpush`` (the tee into the
+    local aggregator and the parent) to its publisher, before it
+    starts."""
+    import asyncio
+    if pkg == "jax":
+        _jax()
+        import pybitmessage_tpu.__main__ as main
+        import pybitmessage_tpu.core as core
+        flags = ["--no-udp", "--set", "profiling=false"]
+    else:
+        import pybitmessage_tpu_torch.__main__ as main
+        import pybitmessage_tpu_torch.core as core
+        flags = ["--device", "cpu", "--set", "profiling=false"]
+    built = []
+
+    class Recorded(core.Node):
+        async def start(self):
+            built.append(self)
+            raise _Stop
+
+    monkeypatch.setattr(core, "Node", Recorded)
+    args = main.build_parser().parse_args(
+        ["-d", str(tmp_path / "home"), "-t", "--no-listen", "--no-api",
+         "--set", "syncinterval=2.5", "--set", "syncfanout=3",
+         "--set", "breakerfailures=5", "--set", "breakercooldown=7",
+         "--set", "federationinterval=4",
+         "--set", "federationpush=127.0.0.1:9",
+         "--set", "apiusername=u", "--set", "apipassword=p", *flags])
+    with pytest.raises(_Stop):
+        asyncio.run(main.run(args))
+    [node] = built
+    try:
+        rec = node.reconciler
+        assert node.pool.reconciler is rec
+        assert (rec.interval, rec.fanout, rec.breaker_threshold,
+                rec.breaker_cooldown) == (2.5, 3, 5, 7.0)
+        assert node.ctx.services & 16 and node.ctx.services & 32
+        pub = node.federation_publisher
+        assert pub.interval == 4.0 and pub.count_bytes
+        assert pub.transport is not node.federation.ingest
+        # the tee: a push lands in the local aggregator even with the
+        # parent unreachable (the publisher counts the parent's error)
+        assert asyncio.run(pub.push_once_async()) is None
+        assert list(node.federation.status()["nodes"]) == [node.node_id]
+    finally:
+        node.pow_journal.close()
+        node.db.close()
+
+
 def test_every_jax_setting_is_accounted_for():
     """Every key of the JAX ``DEFAULTS`` is applied (the port's
     ``DEFAULTS``), refused, warned (``NOT_RUN``), a knob of a subsystem
@@ -321,6 +381,9 @@ def test_every_jax_setting_is_accounted_for():
     assert "profiling" not in daemon.NOT_RUN
     assert not {"role", "clientplanelisten", "clientconnect"} & \
         set(daemon.REFUSED)
+    for key in ("syncenabled", "syncinterval", "syncfanout", "wiretrace",
+                "federation", "federationinterval", "federationpush"):
+        assert key in port_config.DEFAULTS
 
 
 def test_port_defaults_and_validators_are_the_jax_ones():

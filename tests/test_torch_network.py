@@ -10,7 +10,10 @@ to self, verack before version), addr gossip, the dial loop and its
 breaker, and a three-node line that relays without echoing.  Port
 against JAX, both dial directions: handshake, sync both ways, a bad-PoW
 close on either side, and a getpubkey -> pubkey -> msg -> ack flow
-between a port ``Node`` and a JAX ``Node``.  The malformed varint in an
+between a port ``Node`` and a JAX ``Node`` with their set-reconciliation
+sync and wire trace on and off; with both on, a digest catch-up of 200
+objects each way and a ``tobject`` adopted into the other package's
+lifecycle.  The malformed varint in an
 object header closes the connection in both packages.
 
 Every socket test runs under its own ``asyncio.wait_for`` limit, binds
@@ -53,6 +56,10 @@ from pybitmessage_tpu_torch.utils.varint import VarintError, encode_varint
 TEST_NTPB = 10
 #: the limit of each socket test
 LIMIT = 30.0
+#: the limit of a getpubkey -> pubkey -> msg -> ack flow between a port
+#: and a JAX node: four hops of announce jitter and two PoW searches on
+#: the CPU take 9-22 s on an idle machine
+FLOW_LIMIT = 60.0
 LOOPBACK = "127.0.0.1"
 
 
@@ -62,14 +69,19 @@ def ref(module: str):
     return importlib.import_module("pybitmessage_tpu." + module)
 
 
-def limited(fn):
-    """Run an async test body under ``asyncio.wait_for(LIMIT)``."""
+def limited_to(seconds: float):
+    """Run an async test body under ``asyncio.wait_for(seconds)``."""
     import functools
 
-    @functools.wraps(fn)
-    async def wrapper(*args, **kwargs):
-        await asyncio.wait_for(fn(*args, **kwargs), LIMIT)
-    return wrapper
+    def wrap(fn):
+        @functools.wraps(fn)
+        async def wrapper(*args, **kwargs):
+            await asyncio.wait_for(fn(*args, **kwargs), seconds)
+        return wrapper
+    return wrap
+
+
+limited = limited_to(LIMIT)
 
 
 def solved(body: bytes, ttl: int = 600, object_type: int = 2,
@@ -867,14 +879,20 @@ def identity(node, label, passphrase=None):
     return ident
 
 
+@pytest.mark.parametrize("plane", ["on", "off"])
 @pytest.mark.parametrize("sender", ["port", "jax"])
-@limited
-async def test_cross_package_message_flow(sender):
+@limited_to(FLOW_LIMIT)
+async def test_cross_package_message_flow(sender, plane):
     """getpubkey -> pubkey -> msg -> ack between a port Node and a JAX
-    Node over TCP; the JAX node's set-reconciliation sync and wire
-    trace stay off against the port peer."""
-    port, jax = port_node(), jax_node()
+    Node over TCP.  With the port's sync and wire trace on (its
+    defaults) both ends negotiate them; with them off, the JAX node's
+    stay off against the port peer."""
+    on = plane == "on"
+    port = port_node(sync_enabled=on, wiretrace_enabled=on)
+    jax = jax_node()
     assert jax.ctx.services & 16 and jax.ctx.services & 32
+    assert bool(port.ctx.services & 16) == bool(port.ctx.services & 32) \
+        == on
     a, b = (port, jax) if sender == "port" else (jax, port)
     await port.start()
     await jax.start()
@@ -884,19 +902,132 @@ async def test_cross_package_message_flow(sender):
         await until(lambda: conn.fully_established and
                     jax.pool.established(), "the handshake")
         theirs, = jax.pool.established()
-        assert not theirs.trace_negotiated
-        assert not jax.pool.reconciler.negotiated(theirs)
+        assert theirs.trace_negotiated == conn.trace_negotiated == on
+        assert jax.pool.reconciler.negotiated(theirs) == on
+        assert (port.pool.reconciler is not None
+                and port.pool.reconciler.negotiated(conn)) == on
         alice = identity(a, "alice")
         bob = identity(b, "bob", b"torch net 3")
         ack = await a.send_message(bob.address, alice.address,
                                    "over tcp", "across the packages",
                                    ttl=300)
         await until(lambda: a.message_status(ack) == ACKRECEIVED,
-                    "the ack", timeout=LIMIT)
+                    "the ack", timeout=FLOW_LIMIT)
         row, = b.store.inbox()
         assert (row.subject, row.message, row.fromaddress,
                 row.toaddress) == ("over tcp", "across the packages",
                                    alice.address, bob.address)
+    finally:
+        await port.stop()
+        await jax.stop()
+
+
+def _catchup_sides(seed: int, common: int, each: int):
+    """``common`` junk objects both sides hold (never transferred, so
+    unsolved) and ``each`` solved objects only one side holds, per
+    side."""
+    rng = np.random.default_rng(seed)
+    now = int(time.time())
+    shared = [(bytes(h), b"shared" + bytes(h)) for h in
+              rng.integers(0, 256, (common, 32), dtype=np.uint8)]
+    only = [[solved(b"%s only %d" % (side, i), ttl=900)
+             for i in range(each)] for side in (b"port", b"jax")]
+    return now, shared, only
+
+
+@limited_to(FLOW_LIMIT)
+async def test_cross_package_digest_catchup_of_200_each_way():
+    """A port Node and a JAX Node with sync and the wire trace on meet
+    over loopback: 200 objects only the port node holds and 200 only
+    the JAX node holds cross in one digest catch-up (or its big-inv
+    rung), over a common base of 1,000 neither sends, and each pushed
+    object joins the sender's trace.  The responder sizes its sketch
+    from the digests' bucket deltas (a lower bound, times 2.5), which
+    at 200 each way over 64 buckets leaves it near the peeling
+    threshold: a decode may fail and fall to the big inv, in both
+    packages alike, so either rung must converge."""
+    port, jax = port_node(), jax_node()
+    now, shared, (port_only, jax_only) = _catchup_sides(12, 1000, 200)
+    for node in (port, jax):
+        for h, payload in shared:
+            node.ctx.inventory.add(h, 2, 1, payload, now + 900)
+    hp = [hold(port.ctx, p) for p in port_only]
+    hj = [hold(jax.ctx, p) for p in jax_only]
+    await port.start()
+    await jax.start()
+    try:
+        sent0 = port_sample("trace_ctx_received_total",
+                            {"command": "tobject"})
+        outcomes = ("catchup_ok", "catchup_failed")
+        before = [port_sample("sync_rounds_total", {"outcome": o})
+                  for o in outcomes]
+        conn = await port.pool.connect_to(
+            Peer(LOOPBACK, jax.pool.listen_port))
+        await until(lambda: conn.fully_established and
+                    jax.pool.established(), "the handshake")
+        theirs, = jax.pool.established()
+        assert port.pool.reconciler.negotiated(conn)
+        assert jax.pool.reconciler.negotiated(theirs)
+        assert conn.trace_negotiated and theirs.trace_negotiated
+        await until(lambda: all(h in jax.ctx.inventory for h in hp)
+                    and all(h in port.ctx.inventory for h in hj),
+                    "the catch-up", timeout=FLOW_LIMIT - 5)
+        for h, payload in zip(hj, jax_only):
+            assert port.ctx.inventory[h].payload == payload
+        for h, payload in zip(hp, port_only):
+            assert jax.ctx.inventory[h].payload == payload
+        assert len(port.ctx.inventory) == len(jax.ctx.inventory) == 1400
+        # the port end dialed, so it opened the one catch-up
+        assert sum(port_sample("sync_rounds_total", {"outcome": o}) - b
+                   for o, b in zip(outcomes, before)) == 1
+        assert port_sample("trace_ctx_received_total",
+                           {"command": "tobject"}) - sent0 >= 200
+        from pybitmessage_tpu.observability import LIFECYCLE as JAX_LC
+        from pybitmessage_tpu_torch.observability import LIFECYCLE
+        for h in hj[:20]:
+            assert LIFECYCLE.trace_meta(h)["trace_id"] == \
+                JAX_LC.trace_meta(h)["trace_id"]
+        for h in hp[:20]:
+            assert JAX_LC.trace_meta(h)["trace_id"] == \
+                LIFECYCLE.trace_meta(h)["trace_id"]
+    finally:
+        await port.stop()
+        await jax.stop()
+
+
+def port_sample(name: str, labels: dict) -> float:
+    from pybitmessage_tpu_torch.observability import REGISTRY
+    return REGISTRY.sample(name, labels)
+
+
+@pytest.mark.parametrize("sender", ["port", "jax"])
+@limited
+async def test_cross_package_tobject_is_adopted(sender):
+    """An object pushed between the packages over a NODE_TRACE link
+    crosses as ``tobject``; the receiver's lifecycle adopts the
+    sender's trace id with the sender's span as its parent, and its
+    connection samples the sender's clock."""
+    from pybitmessage_tpu.observability import LIFECYCLE as JAX_LC
+    from pybitmessage_tpu_torch.observability import LIFECYCLE
+    port, jax = port_node(), jax_node()
+    src, dst = (port, jax) if sender == "port" else (jax, port)
+    src_lc, dst_lc = (LIFECYCLE, JAX_LC) if sender == "port" \
+        else (JAX_LC, LIFECYCLE)
+    payload = solved(b"a traced object from " + sender.encode())
+    h = hold(src.ctx, payload)
+    await port.start()
+    await jax.start()
+    try:
+        conn = await port.pool.connect_to(
+            Peer(LOOPBACK, jax.pool.listen_port))
+        await until(lambda: conn.fully_established and
+                    jax.pool.established(), "the handshake")
+        await until(lambda: h in dst.ctx.inventory, "the push")
+        mine, theirs = src_lc.trace_meta(h), dst_lc.trace_meta(h)
+        assert theirs["trace_id"] == mine["trace_id"]
+        assert theirs["parent_span"] == mine["span"]
+        link, = dst.pool.established()
+        assert link.skew.samples >= 1 and abs(link.skew.offset()) < 5.0
     finally:
         await port.stop()
         await jax.stop()

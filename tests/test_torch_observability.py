@@ -123,7 +123,8 @@ TWINS = [
     "resilience.policy", "network.connection", "network.pool",
     "network.bufpool", "network.ratelimit", "api.server",
     "resilience.chaos", "resilience.journal", "powfarm.scheduler",
-    "powfarm.server", "powfarm.client",
+    "powfarm.server", "powfarm.client", "sync.reconciler",
+    "observability.federation",
 ]
 
 #: families a JAX twin defines that the port leaves out or words apart
@@ -133,10 +134,6 @@ CATALOG_EXCEPTIONS = {
                                     "(the card): no native rung",
     "crypto_tpu_fallback_total": "the port's engine has one rung: a "
                                  "failed drain is settled, not re-run",
-    "trace_ctx_sent_total": "the wire trace waits for ROADMAP item 3",
-    "trace_ctx_received_total": "the wire trace waits for ROADMAP item 3",
-    "trace_ctx_invalid_total": "the wire trace waits for ROADMAP item 3",
-    "trace_clock_skew_seconds": "the wire trace waits for ROADMAP item 3",
     "device_mfu_ratio": "help differs: the port's ratio is the share of "
                         "the card's bound, not flops over a TPU peak",
     "device_memory_bytes": "help differs: read from torch.cuda, not a "

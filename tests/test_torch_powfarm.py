@@ -522,6 +522,54 @@ async def test_the_jax_client_against_the_port_farm():
             tier.close()
 
 
+@pytest.mark.parametrize("route", ["port-port", "jax-port", "port-jax"])
+async def test_a_delegated_job_joins_the_submitting_nodes_trace(route):
+    """A ``FarmSolverTier`` fills each submission's trace field from its
+    package's ``LIFECYCLE.trace_ctx_for``; the farm decodes it, so the
+    job carries the submitting node's trace id and the farm's lifecycle
+    adopts it, in either package (client-server)."""
+    from pybitmessage_tpu_torch.observability import LIFECYCLE
+    jax_farm, _, jax_dispatcher = _jax()
+    from pybitmessage_tpu.observability import LIFECYCLE as JAX_LC
+    client_pkg, server_pkg = route.split("-")
+    if server_pkg == "port":
+        solver, server_cls, server_lc = PowDispatcher(device="cpu"), \
+            FarmServer, LIFECYCLE
+    else:
+        solver = jax_dispatcher.PowDispatcher(use_tpu=False,
+                                              use_native=False)
+        server_cls, server_lc = jax_farm.FarmServer, JAX_LC
+    tier_cls, client_lc = (FarmSolverTier, LIFECYCLE) \
+        if client_pkg == "port" else (jax_farm.FarmSolverTier, JAX_LC)
+    ih = hashlib.sha512(b"traced job " + route.encode()).digest()
+    async with _farm(solver, server_cls=server_cls) as server:
+        jobs = []
+        push = server.scheduler.push
+
+        def spy(job):
+            jobs.append(job)
+            return push(job)
+        server.scheduler.push = spy
+        tier = tier_cls("127.0.0.1", server.listen_port, tenant="edge")
+        tier.breaker.reset()
+        try:
+            (nonce, _), = await _off_loop(tier.solve_batch,
+                                          [(ih, EASY_TARGET)])
+        finally:
+            tier.close()
+    assert nonce == python_solve(ih, EASY_TARGET)[0]
+    mine = client_lc.trace_meta(ih)
+    assert mine is not None
+    job, = jobs
+    assert job.trace_id == mine["trace_id"]
+    theirs = server_lc.trace_meta(ih)
+    assert theirs["trace_id"] == mine["trace_id"]
+    if server_lc is not client_lc:
+        assert theirs["parent_span"] == mine["span"]
+    for lc in (LIFECYCLE, JAX_LC):
+        lc.discard(ih)
+
+
 async def test_signed_submissions_auth():
     async with _farm(auth_required=True) as server:
         server.register_tenant("paid", TenantConfig(secret=b"s3cret"))
@@ -927,8 +975,8 @@ def test_a_chaos_spec_naming_an_unplanted_site_exits_1(tmp_path):
         [sys.executable, "-m", "pybitmessage_tpu_torch", "-d",
          str(tmp_path / "home"), "--device", "cpu", "-t", "--no-api",
          "--no-listen", "--set",
-         "chaos=farm.dispatch:0.5,net.send:1x2,sync.sketch_decode"],
+         "chaos=farm.dispatch:0.5,net.send:1x2,storage.slab_io"],
         env=_env(), cwd=ROOT, capture_output=True, timeout=START_TIMEOUT)
     assert run.returncode == 1
-    assert b"chaos names net.send, sync.sketch_decode" in run.stderr
+    assert b"chaos names net.send, storage.slab_io" in run.stderr
     assert b"node started" not in run.stderr

@@ -82,7 +82,7 @@ def daemon(tmp_path_factory):
          str(tmp / "home"), "--device", "cpu", "-t", "-p", "0",
          "--api-port", str(port), "--api-user", USER,
          "--api-password", PASS, "--set", "apinotifypath=%s" % hook,
-         "--set", "cryptobatch=false"],
+         "--set", "cryptobatch=false", "--set", "federation=off"],
         cwd=ROOT, stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
     try:
         deadline = time.monotonic() + START_TIMEOUT
@@ -211,7 +211,13 @@ def test_flight_recorder_and_client_status_blocks(daemon):
     for row in st["device"]["programs"].values():
         assert set(row) == {"launches", "compiles", "cacheHits",
                             "hashrateHps", "mfu"}
+    # the daemon runs set-reconciliation sync by default: the JAX
+    # block of a node with a reconciler carries its ``sync`` verdict
+    recon = types.SimpleNamespace(snapshot_state=lambda: {
+        "sessions": 0, "pending": 0, "controlBytes": 0,
+        "objectsDelivered": 0, "breakersOpen": 0})
     node = types.SimpleNamespace(
+        reconciler=recon,
         processor=types.SimpleNamespace(
             concurrency=8, active=0,
             crypto=types.SimpleNamespace(size=1, _exec=None),
