@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's send and receive paths, its node, daemon, PoW farm, role split, light-client tier and network plane on a card.
+"""Drive the PyTorch/CUDA port's send and receive paths, its node, daemon, PoW farm, role split, light-client tier, network plane, slab store and failure paths on a card.
 
     python3 chip_smoke.py [--seed N] [--report PATH]
 
@@ -57,7 +57,8 @@ Phases (any failure exits non-zero):
    (k) B dials A, the two-node flow and a broadcast as (i), then a raw
    socket sends A an object whose header ends in a truncated varint and
    A must close it; (l) a line A - R - B (A and B never meet) carrying
-   (j)'s flood and its acks through R, every inbox row and ack held to
+   half of (j)'s flood (128 + 32 messages, cut to keep the script within
+   950 s) and its acks through R, every inbox row and ack held to
    what was sent; kernels 1, 2, 4 and 5 must have been launched in the
    phase;
 7. the daemon (``phase_daemon``), ``python -m pybitmessage_tpu_torch``
@@ -157,6 +158,27 @@ Phases (any failure exits non-zero):
    /metrics/federated`` sums both daemons' counters.  (y) the port's
    ``sync/mesh.py`` at the JAX bench's sync-storm size (8 peers, 10,000
    objects, 2% missing) reduces announce bytes at least 5x with 0 lost;
+12. storage and the failure paths (``phase_storage``): (z) the port's
+   ``SlabStore`` on this machine's disk at 200,000 objects of 140 B
+   (cut from the JAX ``_bench_slab_store``'s full 10,000,000, and from
+   1,000,000, whose re-read of every payload took 166 s), preloaded,
+   then mixed ingest (add, contains, hot and cold reads) through two TTL
+   compaction cycles driven by its injected clock: per-operation p50
+   and p99, each part's wall, then a flush, a reopen (``recovery``) and
+   every payload re-read, 0 lost; (aa) relays R1 and R2 on the slab
+   store (``inventorystorage=slab``, 3,600 s buckets) behind edge E:
+   2,000 objects over 5 TTL buckets solved here by kernel 3, verified by
+   E, then ``shardShed 2`` to R2, whose reply must count the stream's
+   distinct buckets; R2 SIGKILLed, its slab directory opened here and
+   every stream-2 object hashlib-checked (0 lost), R2 restarted holding
+   every one; (ab) daemon A with ``chaos`` arming ``net.send``,
+   ``net.dial``, ``db.write`` and ``api.dispatch`` (p 0.5, capped,
+   seeded so each first call fires) sends B a 1 KB message that must
+   reach B's inbox, each site's fires equal in ``clientStatus`` and
+   ``chaos_injected_total``; then in this process one ``pow.readback``
+   fault and one stall on the card through ``PowService``: every nonce
+   hashlib-checked and proven lowest, ``pow_stall_total{site="pow.slab"}``
+   +1 and one recovery observed;
 4. times: each kernel at its main-path shape (CUDA events over warm
    launches) beside its plain version and its bound; the packed kernel
    on the storm's own targets and on targets that mostly miss, with the
@@ -178,9 +200,9 @@ host driver, and is not attributed.
 
 The receive phases draw their data from a second generator seeded from
 ``--seed``, so phases 1-4 keep their inputs.
-Phases 5 to 11 run before phase 4 and draw from a fourth, a fifth, a
-sixth, a seventh, an eighth, a ninth ((t)), a tenth ((u)) and an
-eleventh (phase 11) generator; each kernel's entry
+Phases 5 to 12 run before phase 4 and draw from a fourth, a fifth, a
+sixth, a seventh, an eighth, a ninth ((t)), a tenth ((u)), an eleventh
+(phase 11) and a twelfth (phase 12) generator; each kernel's entry
 in the kernels line carries its launches on the send or receive path
 (``launches``), in the node phase (``node_launches``), in the socket
 phase (``net_launches``), in phase 7's daemons (``daemon_launches``),
@@ -188,8 +210,12 @@ in the farm's daemons (``farm_launches``: F before the crash of (p)
 and after its restart, and E), in phase 9's six daemons
 (``roles_launches``, from their launch records at stop) and in phase 10
 (``clients_launches``: (t) in this process, C's launch record and this
-process's light client in (u)) and in phase 11 (``sync_launches``: its
-set-up's solves in this process and P's and Q's launch records).
+process's light client in (u)), in phase 11 (``sync_launches``: its
+set-up's solves in this process and P's and Q's launch records) and in
+phase 12 (``storage_launches``: (aa)'s and (ab)'s solves in this
+process and the launch records of R1, R2, E, A and B).  Each phase's
+wall is printed on a line of its own (``phase wall: ...``) before the
+kernels line.
 The second-to-last line of output is the ``{"kernels": [...]}`` record,
 the last ``{"ok": true, "device": {...}}``.  Exits non-zero without
 printing either when no CUDA device is present.
@@ -238,7 +264,7 @@ KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms", "node_launches", "net_launches",
                "daemon_launches", "farm_launches", "roles_launches",
-               "clients_launches", "sync_launches")
+               "clients_launches", "sync_launches", "storage_launches")
 MASK64 = (1 << 64) - 1
 ALWAYS_HIT = MASK64
 
@@ -4959,6 +4985,561 @@ def phase_times_secp(prng, env: dict, launches: dict, errs: dict) -> list:
     return kernels
 
 
+def _slab_key(i: int) -> bytes:
+    """A key of (z)'s store, distinct per index (the JAX bench's)."""
+    return b"SLAB" + i.to_bytes(12, "big") + i.to_bytes(16, "little")
+
+
+def _op_quantiles(samples: dict) -> dict:
+    """Per operation: samples, p50 and p99 in microseconds."""
+    out = {}
+    for op, xs in samples.items():
+        xs = sorted(xs)
+        p50, p99 = (xs[min(int(len(xs) * q), len(xs) - 1)] * 1e6
+                    for q in (0.50, 0.99))
+        out[op] = {"n": len(xs), "p50_us": p50, "p99_us": p99}
+    return out
+
+
+def _phase_z(rng, *, objects: int = 200_000, full: int = 10_000_000,
+             payload_bytes: int = 140, bucket_seconds: int = 600) -> dict:
+    """(z): the port's ``SlabStore`` in a temporary directory on this
+    machine's disk, ``objects`` objects of ``payload_bytes`` (the JAX
+    ``_bench_slab_store``'s payload; its full mode holds ``full``),
+    a quarter expiring in each of the first two bucket windows.  Preload,
+    then three parts of mixed ingest (add, contains, a hot read of a
+    just-added object every 7th, a cold read of a preloaded survivor
+    every 64th) around two TTL compaction cycles driven by the injected
+    clock; per-operation p50 and p99 and each part's wall.  (At
+    1,000,000 objects the H100 machine's disk took 166 s to re-read
+    560,000 payloads, a cold read opening its slab file each time, so
+    the default is cut to 200,000 to keep (z) under a minute.)  Flush, drop
+    the store, reopen the directory: ``recovery`` (slabs adopted from
+    their ``.idx``, slabs replayed, torn bytes), then every payload the
+    store should hold is re-read and compared: 0 lost."""
+    import gc
+
+    from pybitmessage_tpu_torch.models.constants import EXPIRES_GRACE
+    from pybitmessage_tpu_torch.storage import SlabStore
+
+    now = (int(time.time()) // bucket_seconds) * bucket_seconds
+    clock = [now]
+    expiries = (now + bucket_seconds // 2,
+                now + bucket_seconds + bucket_seconds // 2,
+                now + 12 * bucket_seconds, now + 18 * bucket_seconds)
+    ingest_n = max(objects // 50, 1000)
+    blob = rng.bytes((objects + 3 * ingest_n) * payload_bytes)
+
+    def payload(i: int) -> bytes:
+        return blob[i * payload_bytes:(i + 1) * payload_bytes]
+    # preloaded survivors: the two classes that expire after both cycles
+    picks = rng.integers(0, objects // 2, size=3 * ingest_n // 64 + 2)
+    survivors = [4 * (int(p) // 2) + 2 + int(p) % 2 for p in picks]
+    survivors = [i for i in survivors if i < objects]
+    walls: dict = {}
+    lat: dict = {"add": [], "contains": [], "hot_read": [],
+                 "cold_read": []}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="bm-slab-") as root:
+        store = SlabStore(root, slab_max_bytes=4 << 20,
+                          bucket_seconds=bucket_seconds,
+                          clock=lambda: clock[0])
+
+        def part(name: str, base: int) -> None:
+            t0 = time.perf_counter()
+            for j in range(base, base + ingest_n):
+                key = _slab_key(objects + j)
+                sample = j % 32 == 0
+                a0 = time.perf_counter()
+                store.add(key, 2, 1, payload(objects + j), clock[0] + 7200,
+                          b"")
+                a1 = time.perf_counter()
+                held = key in store
+                a2 = time.perf_counter()
+                require(held, "a just-added object is not in the store")
+                if sample:
+                    lat["add"].append(a1 - a0)
+                    lat["contains"].append(a2 - a1)
+                if j % 7 == 0:
+                    k = objects + max(base, j - 64)
+                    r0 = time.perf_counter()
+                    item = store[_slab_key(k)]
+                    lat["hot_read"].append(time.perf_counter() - r0)
+                    require(item.payload == payload(k), "a hot read differs")
+                if j % 64 == 0:
+                    k = survivors[(j // 64) % len(survivors)]
+                    r0 = time.perf_counter()
+                    item = store[_slab_key(k)]
+                    lat["cold_read"].append(time.perf_counter() - r0)
+                    require(item.payload == payload(k),
+                            "a cold read differs")
+            walls[name] = time.perf_counter() - t0
+
+        # collection off through the measured window, as the JAX bench
+        # runs it (a cyclic pass over a million index tuples stalls for
+        # hundreds of ms); reference counting still frees everything
+        gc.collect()
+        gc.disable()
+        try:
+            t0 = time.perf_counter()
+            for i in range(objects):
+                store.add(_slab_key(i), 2, 1, payload(i), expiries[i & 3],
+                          b"")
+            walls["preload_s"] = time.perf_counter() - t0
+            require(len(store) == objects, "the preload lost objects")
+            part("ingest_before_s", 0)
+            for cycle in (1, 2):
+                clock[0] = now + cycle * bucket_seconds + EXPIRES_GRACE + 20
+                t0 = time.perf_counter()
+                store.clean()
+                walls["compaction%d_s" % cycle] = time.perf_counter() - t0
+                part("ingest_after%d_s" % cycle, cycle * ingest_n)
+        finally:
+            gc.enable()
+        expected = objects - (objects + 3) // 4 - (objects + 2) // 4 \
+            + 3 * ingest_n
+        require(len(store) == expected, "the store holds %d objects, "
+                "expected %d" % (len(store), expected))
+        t0 = time.perf_counter()
+        store.flush()
+        walls["flush_s"] = time.perf_counter() - t0
+        disk_bytes = sum(os.path.getsize(os.path.join(d, f))
+                         for d, _, files in os.walk(root) for f in files)
+        del store
+        t0 = time.perf_counter()
+        again = SlabStore(root, slab_max_bytes=4 << 20,
+                          bucket_seconds=bucket_seconds,
+                          clock=lambda: clock[0])
+        walls["reopen_s"] = time.perf_counter() - t0
+        recovery = dict(again.recovery)
+        require(len(again) == expected, "the reopened store holds %d "
+                "objects, expected %d" % (len(again), expected))
+        t0 = time.perf_counter()
+        lost = 0
+        for i in [i for i in range(objects) if i & 3 >= 2] + \
+                list(range(objects, objects + 3 * ingest_n)):
+            try:
+                lost += again[_slab_key(i)].payload != payload(i)
+            except KeyError:
+                lost += 1
+        walls["reread_s"] = time.perf_counter() - t0
+        del again
+    require(lost == 0, "%d objects lost across the reopen" % lost)
+    ops = _op_quantiles(lat)
+    ingested = 3 * ingest_n
+    ingest_s = sum(walls[k] for k in walls if k.startswith("ingest"))
+    out = {"objects": objects, "cut_from": full,
+           "reduced": "objects %d of the JAX bench's full %d (and of "
+                      "1000000: its re-read took 166 s on the H100 "
+                      "machine's disk)" % (objects, full),
+           "payload_bytes": payload_bytes, "ingested": ingested,
+           "walls_s": walls, "ops": ops, "recovery": recovery,
+           "disk_bytes": disk_bytes, "held": expected, "lost": lost,
+           "preload_objects_per_s": objects / walls["preload_s"],
+           "ingest_objects_per_s": ingested / ingest_s,
+           "wall_s": time.perf_counter() - t_phase}
+    print("storage (z): %s; preload %d objects in %.3f s (%.1f/s), mixed "
+          "ingest %d at %.1f/s through 2 compaction cycles (%.3f, %.3f "
+          "s); per op %s" % (
+              out["reduced"], objects, walls["preload_s"],
+              out["preload_objects_per_s"], ingested,
+              out["ingest_objects_per_s"], walls["compaction1_s"],
+              walls["compaction2_s"],
+              {op: (round(v["p50_us"], 2), round(v["p99_us"], 2))
+               for op, v in ops.items()}))
+    print("storage (z): recovery %s (reopen %.3f s, %d bytes on disk); "
+          "%d objects re-read in %.3f s, lost %d; walls %s; phase %.1f s"
+          % (recovery, walls["reopen_s"], disk_bytes, expected,
+             walls["reread_s"], lost,
+             {k: round(v, 3) for k, v in walls.items()}, out["wall_s"]))
+    return out
+
+
+def _phase_aa(rng, *, device, flags: list, ntpb: int, objects: int,
+              ttl_buckets: int, clients: int, timeout: float) -> dict:
+    """(aa): relays on the slab store.  R1 (streams 1, 2) and R2
+    (stream 3), both ``inventorystorage=slab`` with 3,600 s buckets,
+    behind edge E as phase 9 (r) feeds R1; ``objects`` storm-shaped
+    objects (half on each stream), their TTLs over ``ttl_buckets``
+    buckets, each solved here by kernel 3 and PoW-checked by E's
+    verifier.  ``shardShed 2`` to R2: the reply's ``buckets`` must be
+    the stream's distinct expiry buckets.  R2 is then SIGKILLed, its
+    slab directory opened here (``recovery``) and every stream-2 object
+    re-checked: the same bytes, PoW valid by hashlib; R2 restarts and
+    its inventory holds every one."""
+    from pybitmessage_tpu_torch.models.pow_math import (pow_initial_hash,
+                                                        pow_target)
+    from pybitmessage_tpu_torch.storage import SlabStore
+    from pybitmessage_tpu_torch.utils.hashes import inventory_hash
+
+    report: dict = {}
+    daemons: list = []
+    slab = ["--set", "inventorystorage=slab",
+            "--set", "slabbucketseconds=3600"]
+
+    def held(d) -> int:
+        return json.loads(d.rpc("roleStatus"))["inventoryObjects"]
+
+    def until(pred, what: str) -> float:
+        t0 = time.perf_counter()
+        while not pred():
+            require(time.perf_counter() - t0 < timeout,
+                    "timed out after %.0f s waiting for %s" % (timeout, what))
+            time.sleep(0.05)
+        return time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory(prefix="bm-slab-relays-") as root:
+        ipc1, ipc2 = _free_port(), _free_port()
+        r1 = _Daemon(root, "R1", flags + slab + [
+            "--set", "role=relay", "--set", "rolestreams=1,2",
+            "--set", "roleipclisten=%s:%d" % (LOOPBACK, ipc1)], timeout)
+        r2 = _Daemon(root, "R2", flags + slab + [
+            "--set", "role=relay", "--set", "rolestreams=3",
+            "--set", "roleipclisten=%s:%d" % (LOOPBACK, ipc2)], timeout)
+        e = _Daemon(root, "E", flags + [
+            "--set", "role=edge", "--set", "rolestreams=1,2,3",
+            "--set", "roleipcconnect=%s:%d,%s:%d" % (LOOPBACK, ipc1,
+                                                     LOOPBACK, ipc2)],
+            timeout)
+        daemons += [r1, r2, e]
+        try:
+            t0 = time.perf_counter()
+            for d in daemons:
+                d.spawn()
+            # the objects, solved while the daemons start
+            before = _wrapper_launches()
+            sent: dict = {}
+            per = objects // ttl_buckets
+            for k in range(ttl_buckets):
+                ttl = 3600 * k + 1800
+                sans = _relay_objects(rng, per // 2, 1, ttl) + \
+                    _relay_objects(rng, per - per // 2, 2, ttl)
+                for payload in _solve_objects(sans, ttl, ntpb, device,
+                                              packed=True):
+                    sent[inventory_hash(payload)] = (
+                        payload, pow_initial_hash(payload[8:]),
+                        pow_target(len(payload), ttl, ntpb, ntpb,
+                                   clamp=False))
+            build_launches = _launch_delta(before)
+            report["build_s"] = time.perf_counter() - t0
+            starts = {d.dir.rsplit(os.sep, 1)[1]: d.ready()
+                      for d in daemons}
+            until(lambda: all(lk["connected"] for lk in json.loads(
+                e.rpc("roleStatus"))["ipc"]["links"]), "E's relay links")
+            payloads = [p for p, _, _ in sent.values()]
+            t0 = time.perf_counter()
+            offer = _Flood(e.p2p_port, payloads, clients, timeout)
+            until(lambda: held(r1) >= len(payloads), "R1 to hold the feed")
+            feed_s = time.perf_counter() - t0
+            offer.close()
+            stream2 = {h: v for h, v in sent.items() if v[0][21] == 2}
+            buckets = len({int.from_bytes(v[0][8:16], "big") // 3600
+                           for v in stream2.values()})
+            t0 = time.perf_counter()
+            shed = json.loads(r1.rpc("shardShed", 2,
+                                     "%s:%d" % (LOOPBACK, ipc2)))
+            shed_s = time.perf_counter() - t0
+            require(shed["buckets"] == buckets
+                    and shed["objectsDrained"] == len(stream2),
+                    "the shed drained %d objects in %d buckets, the "
+                    "stream holds %d in %d" % (
+                        shed["objectsDrained"], shed["buckets"],
+                        len(stream2), buckets))
+            until(lambda: held(r2) >= len(stream2),
+                  "R2 to hold the shed stream")
+            r2.kill()
+            t0 = time.perf_counter()
+            store = SlabStore(os.path.join(r2.dir, "slabs"), hot_bytes=0)
+            recovery = dict(store.recovery)
+            lost = 0
+            for h, (payload, ih, target) in stream2.items():
+                try:
+                    item = store[h]
+                except KeyError:
+                    lost += 1
+                    continue
+                got = item.payload
+                lost += got != payload
+                require(trial(int.from_bytes(got[:8], "big"), ih) <= target,
+                        "a stored object fails hashlib's PoW check")
+            check_s = time.perf_counter() - t0
+            del store
+            require(lost == 0, "%d stream-2 objects lost on R2" % lost)
+            restart_s = r2.start()
+            after_restart = held(r2)
+            require(after_restart >= len(stream2),
+                    "R2 holds %d objects after its restart, %d were shed"
+                    % (after_restart, len(stream2)))
+            codes = {}
+            for name, d in zip(("R1", "R2", "E"), daemons):
+                codes[name] = d.stop()
+                require(codes[name] == 0, "daemon %s exited %d on SIGTERM"
+                        % (name, codes[name]))
+        except BaseException:
+            for d in daemons:
+                print("--- daemon %s output (last lines):\n%s"
+                      % (d.dir, d.tail()), file=sys.stderr)
+            raise
+        finally:
+            for d in daemons:
+                d.kill()
+        records = {n: _launch_line(d) for n, d in zip(("R1", "R2", "E"),
+                                                      daemons)}
+    launches = {k: build_launches[k] + sum(r["wrappers"][k]
+                                           for r in records.values())
+                for k in PROGRAM_OF}
+    report.update(
+        starts_s=starts, objects=len(sent), feed_s=feed_s,
+        feed_objects_per_s=len(sent) / feed_s, shed=shed, shed_s=shed_s,
+        stream2=len(stream2), buckets=buckets, receiver_recovery=recovery,
+        receiver_check_s=check_s, lost=lost, restart_s=restart_s,
+        held_after_restart=after_restart, codes=codes, launches=launches)
+    print("storage (aa): %d objects over %d TTL buckets through E into R1 "
+          "in %.3f s (%.1f objects/s); shardShed 2 -> R2 in %.3f s: %s "
+          "(the stream: %d objects in %d buckets); R2 SIGKILLed: recovery "
+          "%s, %d objects hashlib-checked in %.3f s, lost %d; restarted in "
+          "%.2f s holding %d; launches %s"
+          % (len(sent), ttl_buckets, feed_s, len(sent) / feed_s, shed_s,
+             shed, len(stream2), buckets, recovery, len(stream2), check_s,
+             lost, restart_s, after_restart, launches))
+    return report
+
+
+def _chaos_seed(start: int, sites: dict) -> int:
+    """The first seed from ``start`` whose draw of the first call at
+    every site of ``sites`` (site -> probability) fires: each site's
+    fault then lands on its first call, whatever the traffic."""
+    seed = start
+    while any(random.Random("%d:%s" % (seed, site)).random() >= p
+              for site, p in sites.items()):
+        seed += 1
+    return seed
+
+
+def _rpc_through_faults(d, method: str, *params, tries: int = 8):
+    """``d.rpc`` retried while ``api.dispatch`` faults close the call;
+    (result, faults)."""
+    faults = 0
+    while True:
+        try:
+            return d.rpc(method, *params), faults
+        except (http.client.HTTPException, ConnectionError) as exc:
+            faults += 1
+            require(faults < tries, "%s failed %d times: %r"
+                    % (method, faults, exc))
+            time.sleep(0.1)
+
+
+def _phase_ab(rng, *, device, flags: list, ntpb: int, on_card: bool,
+              stall_timeout: float, timeout: float) -> dict:
+    """(ab): the failure paths.  Daemon A (``chaos`` arming ``net.send``,
+    ``net.dial``, ``db.write`` and ``api.dispatch`` at probability 0.5,
+    each capped: ``db.write`` at 2 fires, under the write retry's 3
+    attempts; seeded so each site's first call fires) dials daemon B and
+    sends a 1 KB message to B's identity; every API call to A is retried
+    through its faults.  B's inbox must hold the message; A's
+    ``chaos_injected_total`` (``GET /metrics``) must equal each site's
+    fires in ``clientStatus``, at least one each.  Then, in this
+    process, ``PowService(PowDispatcher())`` solves two 1 KB objects
+    through one ``pow.readback`` fault and two more through one stall
+    (``pow.readback`` armed once with a delay over the dispatcher's
+    ``stall_timeout``): every nonce is hashlib-checked and proven
+    lowest, ``pow_stall_total{site="pow.slab"}`` rises by 1 and
+    ``pow_stall_recovery_seconds`` has one observation more."""
+    from pybitmessage_tpu_torch.observability import REGISTRY
+    from pybitmessage_tpu_torch.pow.dispatcher import PowDispatcher
+    from pybitmessage_tpu_torch.pow.service import PowService
+    from pybitmessage_tpu_torch.resilience.chaos import CHAOS
+
+    probabilities = {"net.send": 0.5, "net.dial": 0.5, "db.write": 0.5,
+                     "api.dispatch": 0.5}
+    caps = {"net.send": 3, "net.dial": 2, "db.write": 2, "api.dispatch": 3}
+    seed = _chaos_seed(int(rng.integers(1 << 20)), probabilities)
+    spec = ",".join("%s:%gx%d" % (site, p, caps[site])
+                    for site, p in probabilities.items())
+    report: dict = {"spec": spec, "seed": seed}
+    daemons: list = []
+
+    def b64(text) -> str:
+        return base64.b64encode(text.encode()).decode()
+
+    def until(pred, what: str) -> float:
+        t0 = time.perf_counter()
+        while not pred():
+            require(time.perf_counter() - t0 < timeout,
+                    "timed out after %.0f s waiting for %s" % (timeout, what))
+            time.sleep(0.1)
+        return time.perf_counter() - t0
+
+    faults = {"api": 0}
+
+    def call(d, method, *params):
+        result, n = _rpc_through_faults(d, method, *params)
+        faults["api"] += n
+        return result
+
+    with tempfile.TemporaryDirectory(prefix="bm-chaos-") as root:
+        b = _Daemon(root, "B", flags, timeout)
+        a = _Daemon(root, "A", flags + ["--set", "chaos=" + spec,
+                                        "--set", "chaosseed=%d" % seed],
+                    timeout)
+        daemons += [a, b]
+        try:
+            report["b_start_s"] = b.start()
+            report["a_start_s"] = a.start(
+                "--trusted-peer", "%s:%d" % (LOOPBACK, b.p2p_port))
+            t0 = time.perf_counter()
+            z = call(b, "createRandomAddress", b64("Z"))
+            x = call(a, "createRandomAddress", b64("X"))
+            subject, body = _text(rng, 40), _text(rng, 1000)
+            call(a, "sendMessage", z, x, b64(subject), b64(body))
+
+            def delivered():
+                rows = [m for m in json.loads(call(
+                    b, "getAllInboxMessages"))["inboxMessages"]
+                    if m["toAddress"] == z]
+                return rows
+            until(delivered, "A's message in B's inbox under chaos")
+            report["delivery_s"] = time.perf_counter() - t0
+            [row] = delivered()
+            require(row["fromAddress"] == x
+                    and base64.b64decode(row["subject"]).decode() == subject
+                    and base64.b64decode(row["message"]).decode() == body,
+                    "B's inbox row differs from what A sent")
+            st = json.loads(call(a, "clientStatus"))
+            armed = st["resilience"]["chaos"]
+            code, text = _http_get(a, "/metrics")
+            require(code == 200, "A's GET /metrics answered %d" % code)
+            samples = _prometheus(text.decode())
+            injected = {site: int(_family(samples, "chaos_injected_total",
+                                          site=site))
+                        for site in probabilities}
+            fired = {site: armed[site]["fired"] for site in probabilities}
+            report.update(fired=fired, injected=injected,
+                          api_faults_seen=faults["api"],
+                          resilience={k: st["resilience"][k] for k in (
+                              "stallEvents", "handshakeTimeouts",
+                              "powRequeues")})
+            require(injected == fired and min(fired.values()) >= 1,
+                    "chaos fires: clientStatus %s, metrics %s"
+                    % (fired, injected))
+            for name, d in (("A", a), ("B", b)):
+                code = d.stop()
+                require(code == 0, "daemon %s exited %d on SIGTERM"
+                        % (name, code))
+        except BaseException:
+            for d in daemons:
+                print("--- daemon %s output (last lines):\n%s"
+                      % (d.dir, d.tail()), file=sys.stderr)
+            raise
+        finally:
+            for d in daemons:
+                d.kill()
+        records = {n: _launch_line(d) for n, d in (("A", a), ("B", b))}
+    print("storage (ab): A (chaos %s, seed %d) -> B's inbox in %.3f s; "
+          "fires %s = metrics %s; API faults met by this script %d; A's "
+          "resilience %s" % (spec, seed, report["delivery_s"], fired,
+                             injected, faults["api"],
+                             report["resilience"]))
+
+    # the PoW failure paths in this process
+    disp = PowDispatcher(device, stall_timeout=stall_timeout)
+    stalls = REGISTRY.sample("pow_stall_total", {"site": "pow.slab"})
+    recoveries = REGISTRY.sample("pow_stall_recovery_seconds")
+    before = _wrapper_launches()
+    paths = {}
+
+    async def drive():
+        svc = PowService(disp, window=0.01)
+        svc.start()
+        try:
+            for name, arm in (("readback", {}),
+                              ("stall", {"delay": stall_timeout + 1.0})):
+                items = [_msg(rng, 1024, 4 * 86400, ntpb, ntpb,
+                              clamp=ntpb == 1000) for _ in range(2)]
+                CHAOS.arm("pow.readback", 1.0, count=1, **arm)
+                t0 = time.perf_counter()
+                got = await asyncio.wait_for(asyncio.gather(
+                    *(svc.solve(ih, t) for ih, t in items)), timeout)
+                wall = time.perf_counter() - t0
+                fired_here = CHAOS.active()["pow.readback"]["fired"]
+                CHAOS.disarm("pow.readback")
+                require(fired_here == 1, "pow.readback fired %d times"
+                        % fired_here)
+                for (ih, target), (nonce, _) in zip(items, got):
+                    require(trial(nonce, ih) <= target,
+                            "a nonce after the %s fails hashlib" % name)
+                    _no_lower_nonce(ih, target, nonce,
+                                    "cuda" if on_card else "cpu")
+                paths[name] = {"wall_s": wall,
+                               "nonces": [n for n, _ in got]}
+        finally:
+            await svc.stop()
+    asyncio.run(drive())
+    pow_launches = _launch_delta(before)
+    stall_rise = REGISTRY.sample("pow_stall_total",
+                                 {"site": "pow.slab"}) - stalls
+    recovery_rise = REGISTRY.sample("pow_stall_recovery_seconds") - \
+        recoveries
+    require(stall_rise == 1 and recovery_rise == 1,
+            "pow_stall_total rose %d, pow_stall_recovery_seconds %d times"
+            % (stall_rise, recovery_rise))
+    launches = {k: pow_launches[k] + sum(r["wrappers"][k]
+                                         for r in records.values())
+                for k in PROGRAM_OF}
+    report.update(pow_paths=paths, stall_rise=stall_rise,
+                  recovery_rise=recovery_rise, records=records,
+                  launches=launches)
+    print("storage (ab): in process, a readback fault then a stall (%.1f s "
+          "deadline): %s; every nonce hashlib-checked and lowest; "
+          "pow_stall_total +%d, pow_stall_recovery_seconds +%d; launches "
+          "%s" % (stall_timeout, {k: round(v["wall_s"], 3)
+                                  for k, v in paths.items()},
+                  stall_rise, recovery_rise, launches))
+    return report
+
+
+def _wrapper_launches() -> dict:
+    """The kernel wrappers' ``LAUNCHES`` in this process."""
+    from pybitmessage_tpu_torch.ops import secp256k1_cuda as scc
+    from pybitmessage_tpu_torch.ops import sha512_cuda as sc
+    return {k: {**sc.LAUNCHES, **scc.LAUNCHES}[k] for k in PROGRAM_OF}
+
+
+def _launch_delta(before: dict) -> dict:
+    now = _wrapper_launches()
+    return {k: now[k] - before[k] for k in PROGRAM_OF}
+
+
+def phase_storage(rng, *, device=None, test_mode: bool = False,
+                  crypto_batch: bool = True, objects: int = 200_000,
+                  relay_objects: int = 2000, ttl_buckets: int = 5,
+                  clients: int = 8, stall_timeout: float = 2.0,
+                  timeout: float = 120.0) -> dict:
+    """Phase 12: the slab store (z), relays on it (aa) and the failure
+    paths (ab); each kernel's ``storage_launches`` is the launches of
+    this process's solves in (aa) and (ab) and of the daemons' launch
+    records.  (``device="cpu"``, ``test_mode=True``,
+    ``crypto_batch=False`` and small sizes rehearse it.)"""
+    flags = ["--device", device or "cuda"]
+    if test_mode:
+        flags.append("-t")
+    if not crypto_batch:
+        flags += ["--set", "cryptobatch=false"]
+    ntpb = 10 if test_mode else 1000
+    z = _phase_z(rng, objects=objects)
+    aa = _phase_aa(rng, device=device, flags=flags, ntpb=ntpb,
+                   objects=relay_objects, ttl_buckets=ttl_buckets,
+                   clients=clients, timeout=timeout)
+    ab = _phase_ab(rng, device=device or "cuda", flags=flags, ntpb=ntpb,
+                   on_card=device != "cpu", stall_timeout=stall_timeout,
+                   timeout=timeout)
+    launches = {k: aa["launches"][k] + ab["launches"][k]
+                for k in PROGRAM_OF}
+    print("storage launches: %s" % launches)
+    return {"z": z, "aa": aa, "ab": ab, "launches": launches}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4978,12 +5559,21 @@ def main() -> int:
     rng2 = np.random.default_rng([args.seed, 2])
     prng = random.Random(int(rng2.integers(1 << 62)))
     t_start = time.perf_counter()
+    walls: dict = {}
+    lap = [t_start]
+
+    def done(name: str) -> None:
+        now = time.perf_counter()
+        walls[name] = now - lap[0]
+        lap[0] = now
     env = phase_environment()
+    done("1 environment and build")
     # the packed kernel's edge cases: a third generator, so the later
     # phases' inputs do not depend on them
     errs = phase_compare(rng, np.random.default_rng([args.seed, 3]))
     selftest = phase_selftest_secp(prng)
     errs.update(phase_compare_secp(prng))
+    done("2, 2a, 2b kernels against their plain versions")
     # the phases through the host drivers: each kernel's registry
     # launches (device telemetry) must equal its wrapper's count
     attribution = {}
@@ -4991,40 +5581,55 @@ def main() -> int:
     main_path = phase_main_path(rng)
     attribution["main_path"] = check_attribution(
         "send path", before, main_path["launches"])
+    done("3 send path")
     before = registry_counts()
     receive = phase_receive(rng2, prng)
     attribution["receive"] = check_attribution(
         "receive path", before, receive["launches"])
+    done("3b receive path")
     # the node's data: a fourth generator
     before = registry_counts()
     node = phase_node(np.random.default_rng([args.seed, 4]))
     attribution["node"] = check_attribution("node", before,
                                             node["launches"])
-    # the node over sockets: a fifth generator
+    done("5 node")
+    # the node over sockets: a fifth generator; (l) carries half of
+    # (j)'s flood, 128 + 32 messages, to keep the script within 950 s
+    # with phase 12
     before = registry_counts()
     sockets = phase_sockets(np.random.default_rng([args.seed, 5]),
-                            bridge=node["phases"])
+                            bridge=node["phases"], flood=128, foreign=32)
     attribution["sockets"] = check_attribution("sockets", before,
                                                sockets["launches"])
     utilization = check_utilization()
+    done("6 sockets")
     # the daemon through its API: a sixth generator
     daemon = phase_daemon(np.random.default_rng([args.seed, 6]))
+    done("7 daemon")
     # the PoW farm's daemons: a seventh generator
     farm = phase_farm(np.random.default_rng([args.seed, 7]))
+    done("8 farm")
     # the role split's daemons: an eighth generator; phase 10 (u) inside
     # it draws from a tenth
     roles = phase_roles(np.random.default_rng([args.seed, 9]),
                         u_rng=np.random.default_rng([args.seed, 11]))
+    done("9 roles, 10 (u)")
     # phase 10 (t), the plane under a growing index: a ninth generator
     before = registry_counts()
     light = phase_light_clients(np.random.default_rng([args.seed, 10]))
     attribution["light_clients"] = check_attribution(
         "light clients (t)", before, {})
+    done("10 (t) light clients")
     # phase 11, the network plane: an eleventh generator
     plane = phase_plane(np.random.default_rng([args.seed, 12]))
     attribution["plane"] = plane["setup_attribution"]
+    done("11 network plane")
+    # phase 12, storage and the failure paths: a twelfth generator
+    storage = phase_storage(np.random.default_rng([args.seed, 13]))
+    done("12 storage and failure paths")
     kernels = phase_times(rng, env, main_path["launches"], errs)
     kernels += phase_times_secp(prng, env, receive["launches"], errs)
+    done("4 kernel times")
     for entry in kernels:
         entry["node_launches"] = node["launches"][entry["name"]]
         entry["net_launches"] = sockets["launches"][entry["name"]]
@@ -5034,6 +5639,9 @@ def main() -> int:
         entry["clients_launches"] = light["launches"][entry["name"]] + \
             roles["phases"]["u"]["launches"][entry["name"]]
         entry["sync_launches"] = plane["launches"][entry["name"]]
+        entry["storage_launches"] = storage["launches"][entry["name"]]
+    for name, seconds in walls.items():
+        print("phase wall: %s %.1f s" % (name, seconds))
     wall = time.perf_counter() - t_start
     print("chip_smoke wall %.1f s" % wall)
     if args.report:
@@ -5042,7 +5650,8 @@ def main() -> int:
                        "selftest": selftest, "receive": receive,
                        "node": node, "sockets": sockets, "daemon": daemon,
                        "farm": farm, "roles": roles, "light": light,
-                       "plane": plane,
+                       "plane": plane, "storage": storage,
+                       "phase_walls_s": walls,
                        "attribution": attribution,
                        "utilization": utilization, "kernels": kernels,
                        "wall_s": wall}, fh, indent=1)

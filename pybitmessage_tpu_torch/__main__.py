@@ -20,7 +20,9 @@ and ``powstalltimeout``, the ingest knobs (``cryptoworkers``,
 (``profiling``, ``profilehz``) are applied as the JAX daemon applies
 them, and so are the roles (``role=edge|relay|client``, ``rolestreams``,
 ``roleipclisten``, ``roleipcconnect``; ``edgeprocs`` above 1 shares the
-P2P port through ``SO_REUSEPORT``), the light-client tier
+P2P port through ``SO_REUSEPORT``), the inventory backend
+(``inventorystorage=sqlite|filesystem|slab``, ``slabmaxbytes``,
+``slabhotbytes``, ``slabbucketseconds``), the light-client tier
 (``clientplanelisten`` on an edge, ``clientconnect`` on a client,
 ``clientbuckets``) and the network plane the JAX daemon runs by
 default: set-reconciliation sync (``syncenabled``, ``syncinterval``,
@@ -86,7 +88,6 @@ REFUSED = {
     "smtpdenabled": ("false", _on),
     "smtpdeliver": ("", bool),
     "upnp": ("false", _on),
-    "inventorystorage": ("sqlite", lambda v: v != "sqlite"),
     # settings the JAX daemon applies that have nothing to set here: the
     # engine's coalescing window, the XLA tier's slab shape, the onion
     # peer the sender announces, the new-message sound
@@ -119,8 +120,6 @@ IGNORED_WHILE_OFF = {
     "onionservicekey": "sockstype", "onionservicekeytype": "sockstype",
     "smtpdport": "smtpdenabled", "smtpdusername": "smtpdenabled",
     "smtpdpassword": "smtpdenabled",
-    "slabmaxbytes": "inventorystorage", "slabhotbytes": "inventorystorage",
-    "slabbucketseconds": "inventorystorage",
     "cryptonativethreads": "cryptonative",
     "cryptotpubatchmin": "cryptotpu",
     "notifysoundfile": "notifysound",
@@ -305,7 +304,11 @@ async def run(args) -> int:
                 role_ipc_connect=settings.get("roleipcconnect") or None,
                 client_listen=settings.get("clientplanelisten") or None,
                 client_connect=settings.get("clientconnect") or None,
-                client_buckets=settings.getint("clientbuckets"))
+                client_buckets=settings.getint("clientbuckets"),
+                inventory_backend=settings.get("inventorystorage"),
+                slab_max_bytes=settings.getint("slabmaxbytes"),
+                slab_hot_bytes=settings.getint("slabhotbytes"),
+                slab_bucket_seconds=settings.getint("slabbucketseconds"))
     node.settings = settings
     # edgeprocs > 1: the listener shares its port via SO_REUSEPORT so
     # sibling edge processes can bind beside it

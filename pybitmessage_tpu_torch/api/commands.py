@@ -45,6 +45,7 @@ from ..crypto.keys import grind_deterministic_keys
 from ..observability import (FLIGHT_RECORDER, LIFECYCLE, PROFILER,
                              REGISTRY, HealthMonitor, capture_device_trace,
                              cost_status, device_status, render_prometheus)
+from ..resilience import breaker_snapshot
 from ..resilience.chaos import CHAOS
 from ..utils.addresses import AddressError, decode_address, encode_address
 from ..utils.hashes import inventory_hash
@@ -839,10 +840,22 @@ class CommandHandler:
         return health.health_block()
 
     def _resilience_stats(self) -> dict:
-        """The PoW journal's part of the JAX ``resilience`` block, and
-        the armed chaos sites."""
+        """The JAX ``resilience`` block: breaker states, the slab-stall
+        and handshake-timeout counters, requeues by reason, the PoW
+        journal's depth, and the armed chaos sites."""
+        requeues = {}
+        rq = REGISTRY.get("pow_requeue_total")
+        if rq is not None:
+            for values, child in rq.children():
+                requeues[values[0]] = int(child.value)
         journal = getattr(self.node, "pow_journal", None)
         return {
+            "breakers": breaker_snapshot(),
+            "stallEvents": int(REGISTRY.sample(
+                "pow_stall_total", {"site": "pow.slab"})),
+            "handshakeTimeouts": int(REGISTRY.sample(
+                "network_handshake_timeout_total")),
+            "powRequeues": requeues,
             "journal": {
                 "pending": (journal.pending_count()
                             if journal is not None else None),

@@ -1,6 +1,6 @@
 """Minimal asyncio HTTP RPC server with basic auth: JSON-RPC + XML-RPC
-(copy of ``pybitmessage_tpu.api.server``, without the fault-injection
-site).
+(copy of ``pybitmessage_tpu.api.server``; every command dispatch,
+JSON-RPC and XML-RPC alike, is the ``api.dispatch`` chaos site).
 
 Reference: src/api.py singleAPI — XML/JSON-RPC on 127.0.0.1:8442 with
 HTTP basic auth (api.py:437-457).  Both of the reference's apivariants
@@ -37,6 +37,7 @@ import xmlrpc.client
 from ..observability import (PROFILER, REGISTRY, capture_device_trace,
                              device_status, render_prometheus)
 from ..resilience import Deadline
+from ..resilience.chaos import inject
 from .commands import APIError, CommandHandler
 
 logger = logging.getLogger("pybitmessage_tpu_torch.api")
@@ -64,9 +65,11 @@ class APIServer:
         self._server: asyncio.AbstractServer | None = None
 
     async def _call(self, method: str, params: list):
-        """One command dispatch under the request deadline."""
+        """One command dispatch under the request deadline (also a
+        chaos injection site, ``api.dispatch``)."""
         t0 = time.monotonic()
         try:
+            inject("api.dispatch")
             with Deadline(DEFAULT_REQUEST_TIMEOUT):
                 result = await asyncio.wait_for(
                     self.handler.dispatch(method, params),

@@ -60,6 +60,14 @@ DEFAULTS: dict[str, str] = {
                                      # trial-decrypt drain
     "cryptoscreen": "true",          # object-keyed negative cache in
                                      # front of the trial-decrypt sweep
+    "inventorystorage": "sqlite",    # sqlite | filesystem | slab
+    # -- the slab store --
+    "slabmaxbytes": "4194304",       # slab seal threshold, bytes
+    "slabhotbytes": "8388608",       # pinned hot-set payload budget,
+                                     # bytes (fresh objects served
+                                     # without disk reads)
+    "slabbucketseconds": "3600",     # expiry bucket width: TTL purge
+                                     # drops whole buckets of slabs
     # -- set-reconciliation sync --
     "syncenabled": "true",           # sketch-based inventory sync
                                      # (negotiated; old peers keep
@@ -273,6 +281,10 @@ VALIDATORS: dict[str, Callable[[str], bool]] = {
     "cryptodrainmax": _validate_int_range(1, 1 << 20),
     "cryptobatch": _validate_bool,
     "cryptoscreen": _validate_bool,
+    "inventorystorage": lambda v: v in ("sqlite", "filesystem", "slab"),
+    "slabmaxbytes": _validate_int_range(1 << 12, 1 << 30),
+    "slabhotbytes": _validate_int_range(0, 1 << 32),
+    "slabbucketseconds": _validate_int_range(1, 28 * 24 * 3600),
     "syncenabled": _validate_bool,
     "syncinterval": _validate_float_range(0.5, 3600.0),
     "syncfanout": _validate_int_range(-1, 1000),

@@ -1,6 +1,7 @@
 """The Node application object: storage + network + workers, wired to
-the card (copy of ``pybitmessage_tpu.core.node``, with an SQLite
-inventory and the ``all``, ``edge`` and ``relay`` roles).
+the card (copy of ``pybitmessage_tpu.core.node``, with the JAX node's
+three inventory backends and the ``all``, ``edge``, ``relay`` and
+``client`` roles).
 
 Startup order mirrors the reference (bitmessagemain.py:85-287): storage
 first, key caches, workers, then networking; shutdown unwinds in
@@ -84,9 +85,11 @@ from ..powfarm import FarmJournal, FarmServer, FarmSolverTier
 from ..resilience.journal import PowJournal
 from ..roles import get_role
 from ..storage.db import Database
+from ..storage.fs_inventory import FilesystemInventory
 from ..storage.inventory import Inventory
 from ..storage.knownnodes import KnownNodes
 from ..storage.messages import MessageStore
+from ..storage.slabstore import SlabStore
 from ..sync import InventoryDigest, Reconciler
 from ..utils.addresses import decode_address
 from ..workers.cleaner import Cleaner
@@ -120,6 +123,16 @@ class Node:
     ``sync_enabled``, ``wiretrace_enabled`` and ``federation_enabled``
     (all on by default) run set-reconciliation sync, the wire trace and
     the metrics federation aggregator.
+
+    ``inventory_backend`` chooses the inventory of a role that owns
+    storage, as the JAX node does: ``"sqlite"`` (``messages.dat``),
+    ``"filesystem"`` (one file per object under ``inventory/``; SQLite
+    without a ``data_dir``, said in one log line) or ``"slab"`` (the
+    slab store under ``slabs/``, in RAM without a ``data_dir``; tuned
+    by ``slab_max_bytes``, ``slab_hot_bytes`` and
+    ``slab_bucket_seconds``).  The sync digest is attached only to a
+    backend that keeps one (``attach_digest``): a node on
+    ``filesystem`` reconciles without a digest, as in the JAX package.
     """
 
     def __init__(self, data_dir: str | None = None, *,
@@ -140,7 +153,11 @@ class Node:
                  role_ipc_connect: str | None = None,
                  client_listen: str | None = None,
                  client_connect: str | None = None,
-                 client_buckets: int = 64):
+                 client_buckets: int = 64,
+                 inventory_backend: str = "sqlite",
+                 slab_max_bytes: int = 4 << 20,
+                 slab_hot_bytes: int = 8 << 20,
+                 slab_bucket_seconds: int = 3600):
         self.role = role
         self.role_spec = spec = get_role(role)
         if role == "client" and not client_connect:
@@ -165,13 +182,27 @@ class Node:
         self.shutdown = asyncio.Event()
         self.db = Database(db_path)
         self.store = MessageStore(self.db)
-        if spec.owns_storage:
-            self.inventory = Inventory(self.db)
-        else:
+        if inventory_backend not in ("sqlite", "filesystem", "slab"):
+            raise ValueError("inventory backend %r: not sqlite, "
+                             "filesystem or slab" % (inventory_backend,))
+        if not spec.owns_storage:
             # edge: a bounded dedupe/serve cache; the shard's relay owns
             # the inventory
             from ..roles.edge import EdgeCache
             self.inventory = EdgeCache()
+        elif inventory_backend == "filesystem" and self.data_dir:
+            self.inventory = FilesystemInventory(self.data_dir / "inventory")
+        elif inventory_backend == "slab":
+            # memory-resident without a data_dir
+            self.inventory = SlabStore(
+                self.data_dir / "slabs" if self.data_dir else None,
+                slab_max_bytes=slab_max_bytes, hot_bytes=slab_hot_bytes,
+                bucket_seconds=slab_bucket_seconds)
+        else:
+            if inventory_backend == "filesystem":
+                logger.info("inventory: filesystem needs a data "
+                            "directory; using SQLite in memory")
+            self.inventory = Inventory(self.db)
         derive = None
         if crypto_batch:
             def derive(privkeys, _device=self.device):
@@ -202,9 +233,11 @@ class Node:
         if sync_enabled and spec.runs_sync:
             # a sharded relay's digest is restricted to its own streams
             # — the shard boundary
-            self.sync_digest = InventoryDigest(
-                streams=set(self.ctx.streams) if role == "relay" else None)
-            self.inventory.attach_digest(self.sync_digest)
+            if hasattr(self.inventory, "attach_digest"):
+                self.sync_digest = InventoryDigest(
+                    streams=set(self.ctx.streams) if role == "relay"
+                    else None)
+                self.inventory.attach_digest(self.sync_digest)
             self.reconciler = Reconciler(self.pool, digest=self.sync_digest)
             self.pool.reconciler = self.reconciler
             self.ctx.services |= NODE_SYNC
@@ -337,6 +370,7 @@ class Node:
         so an acquired stream's stored objects enter the announce view
         and a shed stream's leave it."""
         self.ctx.streams = tuple(sorted(set(streams)))
+        # a sync digest exists only over a backend that keeps one
         if self.sync_digest is not None:
             self.sync_digest.streams = set(self.ctx.streams)
             self.inventory.attach_digest(self.sync_digest)

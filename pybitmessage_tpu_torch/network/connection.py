@@ -1,6 +1,6 @@
 """One peer connection: framed packets, handshake, command dispatch
-(copy of ``pybitmessage_tpu.network.connection``, without TLS and
-chaos sites).
+(copy of ``pybitmessage_tpu.network.connection``, without TLS; every
+framed send is the ``net.send`` chaos site).
 Frames, framing errors and handshake timeouts go to the JAX
 connection's metric families.
 
@@ -51,6 +51,7 @@ from ..observability.lifecycle import LIFECYCLE
 from ..observability.tracing import (TRACE_CTX_INVALID, TRACE_CTX_LEN,
                                      TRACE_CTX_RECEIVED, TRACE_CTX_SENT,
                                      SkewEstimator, TraceContext)
+from ..resilience.chaos import inject
 from ..resilience.policy import ERRORS
 from ..models.packet import (HEADER_LEN, PacketError, pack_packet,
                              unpack_header, verify_payload)
@@ -358,6 +359,7 @@ class BMConnection:
             buf.release()
 
     async def send_packet(self, command: str, payload: bytes = b"") -> None:
+        inject("net.send")
         frame = pack_packet(command, payload)
         await self.ctx.upload_bucket.consume(len(frame))
         self.frames_tx += 1

@@ -1,6 +1,7 @@
 """Shared node state and the connection pool: dialer, listener, gossip
 cadences (copy of ``pybitmessage_tpu.network.pool``, without TLS,
-SOCKS, UDP discovery and chaos sites).  With a ``reconciler`` attached
+SOCKS and UDP discovery; every outbound dial is the ``net.dial`` chaos
+site).  With a ``reconciler`` attached
 (set-reconciliation sync), fluff announcements go through its flood /
 pending split and the inv loop drives its rounds.
 The roles' hooks are here: ``on_object`` and ``on_announce`` (a relay's
@@ -31,6 +32,7 @@ from ..observability import REGISTRY
 from ..observability.lifecycle import LIFECYCLE
 from ..observability.metrics import peer_bucket_label
 from ..resilience import CircuitBreaker
+from ..resilience.chaos import inject
 from ..resilience.policy import ERRORS
 from ..storage.knownnodes import KnownNodes, Peer
 from ..utils.queues import WatermarkQueue
@@ -260,6 +262,7 @@ class ConnectionPool:
             DIALS.labels(result="skipped").inc()
             return None
         try:
+            inject("net.dial")
             reader, writer = await asyncio.wait_for(
                 asyncio.open_connection(peer.host, peer.port),
                 timeout=self.dial_timeout)

@@ -21,7 +21,10 @@ batch and finally surfaces the error.  The native C++, multi-device
 and breaker tiers of the reference are not part of this dispatcher.
 ``pow.device_launch`` is a chaos site at the entry of the card tier;
 ``stall_timeout`` (the daemon's ``powstalltimeout``) is the pipeline's
-per-harvest stall deadline.
+per-harvest stall deadline.  A stalled harvest raises the watchdog's
+``SlabStallError`` out of the call; once the work ``PowService``
+requeued completes, the dispatcher observes the time since the stall in
+``pow_stall_recovery_seconds``, as the JAX dispatcher does.
 
 Timing attributes:
 
@@ -53,6 +56,7 @@ from ..ops import sha512_cuda
 from ..ops.pow_search import PowInterrupted
 from ..resilience.chaos import inject
 from ..resilience.policy import ERRORS
+from ..resilience.watchdog import STALL_RECOVERY_SECONDS, SlabStallError
 from .pipeline import AUTOTUNER, plan_batch, solve_batch_pipelined
 
 logger = logging.getLogger("pybitmessage_tpu_torch.pow")
@@ -134,6 +138,17 @@ class PowDispatcher:
         self.last_solve_seconds = 0.0
         self.last_solve_rate = 0.0
         self.last_verify_seconds = 0.0
+        #: monotonic time of the last slab stall; the recovery is
+        #: observed when the next call completes
+        self._stalled_at: float | None = None
+
+    def _record_recovery(self) -> None:
+        """A solve completed after a slab stall: how long the rescued
+        work took to land."""
+        if self._stalled_at is not None:
+            STALL_RECOVERY_SECONDS.observe(
+                time.monotonic() - self._stalled_at)
+            self._stalled_at = None
 
     @property
     def _backend(self) -> str:
@@ -208,6 +223,7 @@ class PowDispatcher:
         SOLVE_SECONDS.labels(backend=self.last_backend).observe(solve_dt)
         HOST_VERIFY_SECONDS.observe(verify_dt)
         TRIALS.labels(backend=self.last_backend).inc(trials)
+        self._record_recovery()
         return nonce, trials
 
     # keep the explicit name too
@@ -243,6 +259,7 @@ class PowDispatcher:
         self.last_rate = trials / dt
         SOLVE_SECONDS.labels(backend=self.last_backend).observe(dt)
         TRIALS.labels(backend=self.last_backend).inc(trials)
+        self._record_recovery()
         return results
 
     def _card_batch(self, items, should_stop, starts, progress):
@@ -250,10 +267,15 @@ class PowDispatcher:
             inject("pow.device_launch")
             self.last_backend = self._backend + "-batch"
             ATTEMPTS.labels(backend=self.last_backend).inc()
-            return solve_batch_pipelined(
-                items, device=self.device, should_stop=should_stop,
-                start_nonces=starts, progress=progress,
-                stall_timeout=self.stall_timeout)
+            try:
+                return solve_batch_pipelined(
+                    items, device=self.device, should_stop=should_stop,
+                    start_nonces=starts, progress=progress,
+                    stall_timeout=self.stall_timeout)
+            except SlabStallError:
+                if self._stalled_at is None:
+                    self._stalled_at = time.monotonic()
+                raise
         prog = None
         if progress is not None:
             prog = lambda n: progress(0, n)  # noqa: E731

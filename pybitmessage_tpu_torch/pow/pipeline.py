@@ -43,7 +43,6 @@ import torch
 from .. import resolve_device
 from ..observability import DEFAULT_SIZE_BUCKETS, REGISTRY
 from ..observability.devicetelemetry import record_launch
-from ..observability.flightrec import FLIGHT_RECORDER
 from ..observability.flightrec import record as _flight
 from ..ops.pow_search import PowInterrupted
 from ..ops.sha512 import trial_values
@@ -52,6 +51,8 @@ from ..ops.sha512_cuda import (BATCH_OBJS, BATCH_UNROLL, DEFAULT_ROWS,
                                cuda_batch_search, cuda_packed_search,
                                upload)
 from ..ops.u64 import ALWAYS_HIT, MASK64, le_u, to_i64, words_from_bytes
+from ..resilience.chaos import inject
+from ..resilience.watchdog import SlabStallError, note_stall
 
 logger = logging.getLogger("pybitmessage_tpu_torch.pow")
 
@@ -86,10 +87,6 @@ SLAB_SECONDS = REGISTRY.histogram(
 AUTOTUNE_CHUNKS = REGISTRY.gauge(
     "pow_slab_autotune_chunks",
     "Chunks-per-launch the autotuner currently suggests", ("kind",))
-
-
-class SlabStallError(RuntimeError):
-    """A slab's results did not reach the host within the stall deadline."""
 
 
 class SlabAutotuner:
@@ -266,6 +263,13 @@ def plan_batch(items, *, rows: int = DEFAULT_ROWS,
 # ---------------------------------------------------------------------------
 
 
+def _readback(copy: HostCopy):
+    """The default harvest fetch: a failed or poisoned device-to-host
+    transfer is the ``pow.readback`` chaos site."""
+    inject("pow.readback")
+    return copy.result()
+
+
 class _PipelineDriver:
     """Keep up to ``DEPTH`` slabs in flight, harvesting the oldest while
     newer ones run on the device.
@@ -274,7 +278,8 @@ class _PipelineDriver:
     no work remains; ``harvest(tag, host_result)`` consumes one finished
     slab; ``abandon(tag)`` is told of each slab left unread once
     ``done()``; ``fetch`` turns an in-flight result into host arrays (by
-    default ``HostCopy.result``: an event wait, never a stream sync).
+    default ``HostCopy.result``: an event wait, never a stream sync,
+    behind the ``pow.readback`` chaos site).
     ``last_wait`` is the wait of the slab being harvested.
     """
 
@@ -284,9 +289,10 @@ class _PipelineDriver:
     def __init__(self, *, should_stop: Callable[[], bool] | None = None,
                  fetch=None, stall_timeout: float = 0.0):
         self.should_stop = should_stop
-        self.fetch = fetch or (lambda copy: copy.result())
+        self.fetch = fetch or _readback
         #: per-harvest stall deadline (0 disables the guard); a wedged
-        #: fetch raises SlabStallError out of run()
+        #: fetch counts into ``pow_stall_total{site="pow.slab"}`` and
+        #: raises the watchdog's SlabStallError out of run()
         self.stall_timeout = stall_timeout
         self._guard_pool = None
         self.wait_seconds = 0.0
@@ -304,11 +310,7 @@ class _PipelineDriver:
         try:
             return fut.result(self.stall_timeout)
         except cf.TimeoutError:
-            # black box: dump the ring while the pre-stall context
-            # (launches, breaker flips) is still in it
-            FLIGHT_RECORDER.record("stall", site="pow.slab",
-                                   timeout=self.stall_timeout)
-            FLIGHT_RECORDER.dump("stall")
+            note_stall("pow.slab", self.stall_timeout)
             logger.error("pow.slab stalled: harvest exceeded %.1fs; "
                          "abandoning the launch", self.stall_timeout)
             # consume whatever the wedged worker eventually produces so
@@ -622,7 +624,7 @@ def _solve_single_sync(item, *, rows: int, chunks: int,
                                      lanes=step_trials, chunks=chunks)
         copy = HostCopy(out)
         t1 = time.monotonic()
-        (out,) = copy.result()
+        (out,) = _readback(copy)
         t2 = time.monotonic()
         AUTOTUNER.record("packed", chunks, t2 - t0)
         step1 = int(out[0, 0])

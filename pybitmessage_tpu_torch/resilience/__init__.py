@@ -7,9 +7,10 @@
 - :mod:`.chaos`: the fault-injection registry and the sites this
   package plants;
 - :mod:`.journal`: the crash-safe SQLite PoW job journal, so a solve
-  interrupted by a crash resumes from its checkpointed nonce offset.
-
-The JAX package's slab-stall watchdog (``watchdog.py``) is not here yet.
+  interrupted by a crash resumes from its checkpointed nonce offset;
+- :mod:`.watchdog`: slab-stall detection (``StallGuard``,
+  ``SlabStallError``, ``pow_stall_total``): an overdue launch or
+  readback is abandoned, counted, and its work requeued.
 """
 
 from .chaos import CHAOS, ChaosError, ChaosRegistry, inject  # noqa: F401
@@ -18,3 +19,4 @@ from .policy import (  # noqa: F401
     BREAKERS, CircuitBreaker, Deadline, RetryPolicy, breaker_snapshot,
     current_deadline,
 )
+from .watchdog import SlabStallError, StallGuard  # noqa: F401

@@ -10,7 +10,16 @@ The sites this package plants (:data:`SITES`):
 
 =====================  ==================================================
 ``pow.device_launch``  entering the dispatcher's card tier
-``db.write``           a PoW journal write (``resilience/journal.py``)
+``pow.readback``       pulling slab results to the host (the pipeline's
+                       fetch and the single-sync readback)
+``db.write``           a SQLite write (``storage/db.py`` and the PoW
+                       journal)
+``net.dial``           an outbound dial (``ConnectionPool.connect_to``)
+``net.send``           a framed packet send (``BMConnection.send_packet``)
+``api.dispatch``       an RPC command dispatch (the API server, JSON-RPC
+                       and XML-RPC alike)
+``storage.slab_io``    a slab drain or seal write
+                       (``storage/slabstore.py``)
 ``farm.accept``        a farm job submission accept (``powfarm/server.py``)
 ``farm.dispatch``      a farm batch launch through the dispatcher
 ``farm.result``        a farm result frame send back to a client
@@ -24,16 +33,16 @@ The sites this package plants (:data:`SITES`):
                        ``sync/reconciler.py``)
 =====================  ==================================================
 
-The JAX package's other sites (``pow.readback``, ``net.*``, ``api.*``,
-``crypto.*``, ``storage.*``) are not planted here; :func:`unplanted` names them in a spec so the daemon can
-refuse it.
+The JAX package's two other sites, ``crypto.native`` and ``crypto.tpu``,
+belong to batch-crypto rungs this package does not have;
+:func:`unplanted` names them in a spec so the daemon can refuse it.
 
 Arming, one of:
 
 - env: ``BMTPU_CHAOS="pow.device_launch:0.5,db.write:1.0x3"`` (+
   ``BMTPU_CHAOS_SEED=1234``): ``site:probability`` entries, optional
   ``xN`` capping total fires;
-- code: ``CHAOS.arm("farm.dispatch", probability=1.0, count=3)``.
+- code: ``CHAOS.arm("net.send", probability=1.0, count=3)``.
 
 Determinism: each site draws from its own ``random.Random`` seeded with
 ``(seed, site)``, so a given (seed, call sequence) fires the same calls
@@ -58,9 +67,10 @@ FAULTS = REGISTRY.counter(
     "Faults raised by the chaos registry", ("site",))
 
 #: the injection sites planted in this package
-SITES = ("pow.device_launch", "db.write", "farm.accept", "farm.dispatch",
-         "farm.result", "role.ipc", "role.handoff", "role.replica",
-         "role.client", "sync.sketch_decode")
+SITES = ("pow.device_launch", "pow.readback", "db.write", "net.dial",
+         "net.send", "api.dispatch", "storage.slab_io", "farm.accept",
+         "farm.dispatch", "farm.result", "role.ipc", "role.handoff",
+         "role.replica", "role.client", "sync.sketch_decode")
 
 
 class ChaosError(RuntimeError):
@@ -127,7 +137,7 @@ class ChaosRegistry:
             count: int | None = None, exc: type | None = None,
             delay: float = 0.0) -> None:
         """Arm one site.  ``count`` caps total fires; ``delay`` sleeps
-        before raising (a stalled launch)."""
+        before raising (a stalled launch for the watchdog)."""
         exc = exc or _DEFAULT_EXC.get(site, ChaosError)
         rng = random.Random("%d:%s" % (self._seed, site))
         with self._lock:

@@ -1,5 +1,6 @@
 """The relay role: stream-shard inventory authority behind role IPC
-(copy of ``pybitmessage_tpu.roles.relay``, over the SQLite inventory).
+(copy of ``pybitmessage_tpu.roles.relay``, over any of the node's
+inventory backends).
 
 A relay owns storage, the object processor and the sender for its shard
 of streams (``rolestreams``), and serves the role IPC channel edges hand
@@ -19,9 +20,15 @@ map changes, serves incoming ``HANDOFF`` drains (acquiring the stream on
 ``BEGIN``), and can itself :meth:`~RelayRuntime.shed_stream`: drain a
 stream to a new owner over acked OBJECTS frames (behind the
 ``role.handoff`` chaos site), then forward records that raced the epoch
-flip, stored and relayed onward, deduped at the destination.  The
-SQLite inventory has no expiry buckets, so a drain is one pseudo-bucket
-over ``Inventory.unexpired_hashes_by_stream``.
+flip, stored and relayed onward, deduped at the destination.  On the
+slab store a drain walks the store's expiry buckets
+(``SlabStore.export_buckets``); a backend without buckets drains as one
+pseudo-bucket over ``unexpired_hashes_by_stream``.  A bucket is the
+unit an interrupted drain re-sends whole; the receiver's hash dedupe
+absorbs the overlap.  The receiver makes its inventory durable
+(``flush``) before it acks the drain's ``END``, on which the sender
+sheds the stream: unlike the JAX relay, whose receiver acks with the
+drained records still in its write-behind buffer.
 
 :meth:`~RelayRuntime.stop` closes every connection it serves, the peer
 relays' handoff and forwarding connections as well as the edges',
@@ -340,7 +347,8 @@ class RelayRuntime:
         the stream (idempotent — an interrupted drain re-begins), so
         the drain's OBJECTS frames pass the shard check and this
         relay's edges learn the new map before the first record lands;
-        ``END`` just acks — the SENDER sheds on that ack."""
+        ``END`` flushes the inventory, then acks: the SENDER sheds on
+        that ack, so what it drained is durable here first."""
         kind, stream, epoch, bucket = ipc.decode_handoff(payload)
         if kind == ipc.HANDOFF_BEGIN:
             if self.acquire_stream(stream):
@@ -348,8 +356,9 @@ class RelayRuntime:
                             "(epoch %d)", stream, edge.edge_id[:8],
                             self.epoch)
         elif kind == ipc.HANDOFF_END:
-            logger.info("handoff: stream %d drain from %s complete",
-                        stream, edge.edge_id[:8])
+            await asyncio.to_thread(self.node.ctx.inventory.flush)
+            logger.info("handoff: stream %d drain from %s complete "
+                        "(inventory flushed)", stream, edge.edge_id[:8])
         await edge.send(ipc.pack_frame(ipc.MSG_HANDOFF, ipc.encode_handoff(
             ipc.HANDOFF_ACK, stream, self.epoch, bucket)))
 
@@ -444,9 +453,12 @@ class RelayRuntime:
                 "epoch": self.epoch}
 
     def _export_stream(self, stream: int):
-        """``(bucket, [hashes])`` pairs to drain: one pseudo-bucket, the
-        SQLite inventory having no expiry buckets."""
+        """``(bucket, [hashes])`` pairs to drain: the slab store's
+        expiry buckets, or one pseudo-bucket for a backend without
+        bucket sharding."""
         inv = self.node.ctx.inventory
+        if hasattr(inv, "export_buckets"):
+            return inv.export_buckets(stream)
         return iter([(-1, inv.unexpired_hashes_by_stream(stream))])
 
     async def _relay_hello(self, reader, writer) -> None:

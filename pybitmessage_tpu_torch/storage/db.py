@@ -1,5 +1,6 @@
-"""SQLite message store (copy of ``pybitmessage_tpu.storage.db``, without
-the write retry's fault-injection site and error counter).
+"""SQLite message store (copy of ``pybitmessage_tpu.storage.db``; each
+write attempt is the ``db.write`` chaos site, absorbed by the bounded
+retry as a locked database is).
 
 Schema matches the reference's v11 (src/class_sqlThread.py:49-84) so the
 data model carries over one-to-one: inbox, sent, subscriptions,
@@ -19,6 +20,7 @@ import threading
 import time
 from typing import Any, Iterable, Sequence
 
+from ..resilience.chaos import ChaosError, inject
 from ..resilience.policy import ERRORS, RetryPolicy
 
 logger = logging.getLogger("pybitmessage_tpu_torch.db")
@@ -144,12 +146,18 @@ class Database:
     WRITE_ATTEMPTS = 3
 
     def _write_retry(self, fn):
-        """Run one write with bounded backoff on transient failures."""
+        """Run one write with bounded backoff on transient failures;
+        each attempt is the ``db.write`` chaos site."""
+        def attempt():
+            inject("db.write")
+            return fn()
+
         try:
             return RetryPolicy(attempts=self.WRITE_ATTEMPTS,
                                base_delay=0.02, max_delay=0.5).call(
-                fn, site="db.write", retry_on=(sqlite3.OperationalError,))
-        except sqlite3.OperationalError:
+                attempt, site="db.write",
+                retry_on=(sqlite3.OperationalError, ChaosError))
+        except (sqlite3.OperationalError, ChaosError):
             ERRORS.labels(site="db.write").inc()
             logger.exception("SQLite write failed after %d attempts",
                              self.WRITE_ATTEMPTS)

@@ -552,13 +552,16 @@ async def test_client_status_keys_are_the_jax_keys_the_port_fills():
                     "health"):
             assert key in pst
         assert "lifecycle" not in pst
-        # the farm and client-tier blocks, and the journal and chaos
-        # parts of the resilience block
+        # the farm and client-tier blocks, and the resilience block
+        # whole (breakers, stall, handshake-timeout and requeue
+        # counters, the journal, the chaos sites)
         assert pst["farm"] == jst["farm"] == {"serving": False,
                                               "delegating": False}
         assert pst["clients"] == jst["clients"] == {"serving": False,
                                                     "lightClient": False}
-        assert set(pst["resilience"]) == {"journal", "chaos"}
+        assert set(pst["resilience"]) == set(jst["resilience"]) == {
+            "breakers", "stallEvents", "handshakeTimeouts", "powRequeues",
+            "journal", "chaos"}
         assert set(pst["resilience"]["journal"]) == \
             set(jst["resilience"]["journal"])
         assert pst["resilience"]["journal"]["pending"] == \

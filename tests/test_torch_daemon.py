@@ -202,6 +202,42 @@ def test_no_card_and_no_device_exits_1(tmp_path):
     assert b"node started" not in run.stderr
 
 
+#: what each inventory backend keeps in the data directory
+BACKEND_FILES = {"sqlite": "messages.dat", "filesystem": "inventory",
+                 "slab": "slabs"}
+
+
+@pytest.mark.parametrize("backend", sorted(BACKEND_FILES))
+def test_the_daemon_starts_with_each_inventory_backend(tmp_path, backend):
+    """``inventorystorage`` and the slab knobs are applied, not refused:
+    the daemon starts on each backend, keeps its files where the JAX
+    daemon keeps them, and stops on SIGTERM with rc 0."""
+    assert "inventorystorage" not in daemon.REFUSED
+    home = tmp_path / "home"
+    proc = subprocess.Popen(
+        _port_daemon(home, "--device", "cpu", "-t", "--no-api",
+                     "--no-listen", "--set", "cryptobatch=false",
+                     "--set", "profiling=false",
+                     "--set", "inventorystorage=%s" % backend,
+                     "--set", "slabbucketseconds=600",
+                     "--set", "slabhotbytes=65536"),
+        env=_env(), cwd=ROOT, stdout=subprocess.DEVNULL,
+        stderr=subprocess.DEVNULL)
+    log = home / "debug.log"
+    try:
+        _wait_for(lambda: log.exists() and "node started" in
+                  log.read_text(), START_TIMEOUT, "node started", proc)
+        assert (home / BACKEND_FILES[backend]).exists()
+        for other in ("filesystem", "slab"):
+            if other != backend:
+                assert not (home / BACKEND_FILES[other]).exists()
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=STOP_TIMEOUT)
+    assert rc == 0
+    assert "node stopped" in log.read_text()
+
+
 # ---------------------------------------------------------------------------
 # the settings, in process
 # ---------------------------------------------------------------------------
@@ -215,7 +251,7 @@ def test_each_refused_setting_is_off_by_the_jax_default(key):
     assert not turns_on(default)
     settings = port_config.Settings()
     assert daemon.refused_options(settings) == []
-    on = {"sockstype": "SOCKS5", "inventorystorage": "slab",
+    on = {"sockstype": "SOCKS5",
           "smtpdenabled": "true", "upnp": "true",
           "notifysound": "true"}.get(key, "127.0.0.1:9")
     settings.set(key, on)

@@ -306,8 +306,8 @@ def test_the_port_names_the_sites_it_does_not_plant():
         "farm.result:0.1x2,role.ipc:1,role.handoff,role.replica:0.5,"
         "role.client:1,sync.sketch_decode:0.5") == []
     assert port_chaos.unplanted(
-        "net.send:1, farm.accept:1,storage.slab_io:0.5") \
-        == ["net.send", "storage.slab_io"]
+        "net.send:1, farm.accept:1,crypto.native:0.5,crypto.tpu") \
+        == ["crypto.native", "crypto.tpu"]
     # every planted site is in the JAX catalog
     import inspect
     catalog = inspect.getdoc(_jax()[0].chaos)

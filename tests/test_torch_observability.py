@@ -124,7 +124,7 @@ TWINS = [
     "network.bufpool", "network.ratelimit", "api.server",
     "resilience.chaos", "resilience.journal", "powfarm.scheduler",
     "powfarm.server", "powfarm.client", "sync.reconciler",
-    "observability.federation",
+    "observability.federation", "storage.slabstore", "resilience.watchdog",
 ]
 
 #: families a JAX twin defines that the port leaves out or words apart

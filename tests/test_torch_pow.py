@@ -87,8 +87,9 @@ def test_the_import_scan_covers_the_farm_and_the_journal(tmp_path):
     farm = {"powfarm/%s.py" % m for m in
             ("__init__", "client", "journal", "protocol", "scheduler",
              "server")}
-    assert farm | {"resilience/journal.py", "resilience/chaos.py"} \
-        <= scanned
+    assert farm | {"resilience/journal.py", "resilience/chaos.py",
+                   "resilience/watchdog.py", "storage/slabstore.py",
+                   "storage/fs_inventory.py"} <= scanned
     # the scan sees a dynamic import of the reference
     probe = tmp_path / "probe.py"
     probe.write_text('import importlib\n'
