@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's send and receive paths, its node, daemon, PoW farm, role split, light-client tier, network plane, slab store and failure paths on a card.
+"""Drive the PyTorch/CUDA port's send and receive paths, its node, daemon, PoW farm, role split, light-client tier, network plane, slab store, failure paths, TLS, SOCKS, UDP, UPnP and crypto rungs on a card.
 
     python3 chip_smoke.py [--seed N] [--report PATH]
 
@@ -44,8 +44,11 @@ Phases (any failure exits non-zero):
    plus 64 to a node the receiver does not hold, each inbox row held to
    what was sent and each ack to its message; every nonce re-checked
    with hashlib (a sample also proven lowest), every crypto check on
-   the batch engine, no drain failed; kernels 1, 2, 4 and 5 must have
-   been launched in the phase (kernel 3 when the planner packs).  A
+   the batch engine, no drain failed, none on its pure tier, every
+   drain under ``cryptotpubatchmin`` (64 checks and ECDH pairs) on the
+   native rung and every other on the card (``check_rungs``); kernels 1
+   and 2 must have been launched in the phase (kernel 3 when the planner
+   packs), and kernel 4 or 5 when a drain reached the card.  A
    ``torch.profiler`` trace (``DeviceTrace``, spans mirrored into it)
    wraps (j)'s ingest: each kernel of the window is found in it by name
    as often as the registry and the wrappers counted it, and the card's
@@ -59,16 +62,19 @@ Phases (any failure exits non-zero):
    A must close it; (l) a line A - R - B (A and B never meet) carrying
    half of (j)'s flood (128 + 32 messages, cut to keep the script within
    950 s) and its acks through R, every inbox row and ack held to
-   what was sent; kernels 1, 2, 4 and 5 must have been launched in the
-   phase;
+   what was sent; the engines' routing as in phase 5; kernels 1 and 2
+   must have been launched in the phase, and kernel 4 or 5 when a drain
+   reached the card;
 7. the daemon (``phase_daemon``), ``python -m pybitmessage_tpu_torch``
    processes on the card at network difficulty, driven only through
    their API (JSON-RPC and XML-RPC): the single-instance lock and basic
    auth, a self-send on daemon A to its inbox, a message from A to
    daemon B (B dials A) until ``ackreceived``, SIGTERM and a restart of
-   A that keeps its identities and inbox; kernels 1, 4 and 5 must have
-   been launched in the daemons (their ``clientStatus`` launch
-   counters), no crypto check on host threads, and every object of both
+   A that keeps its identities and inbox; kernel 1 must have been
+   launched in the daemons (their ``clientStatus`` launch counters),
+   kernel 4 or 5 when a drain reached the card, no crypto check on host
+   threads, the engines' routing as in phase 5 (``clientStatus``
+   ``crypto``), and every object of both
    daemons' inventories passes hashlib's PoW check.  While A sends to B,
    ``profileDevice 3`` on A returns a trace naming ``bm_search_kernel``;
    B's ``objectTimeline`` of the msg runs from ``received`` to
@@ -110,8 +116,10 @@ Phases (any failure exits non-zero):
    (``SO_REUSEPORT``) and linked to both relays over role IPC, a fused
    daemon A dialing the shared port and a fused daemon F0 alone.  (q) A
    sends one ~1 KB message to an identity R1 made, until
-   ``ackreceived``: R1's inbox holds it, R1 launched kernels 4 and 5 and
-   kernel 1 or 2, the edges' verifier checked on the card only; (r)
+   ``ackreceived``: R1's inbox holds it, R1 drained its checks (on the
+   native rung under ``cryptotpubatchmin``, kernel 4 on the card above)
+   and launched kernel 1 or 2, the edges' verifier checked on the card
+   only; (r)
    2,000 objects (1,800 storm-shaped 116 B ones solved here by kernel 3,
    100 ~1 KB msgs to R1's identities and 100 to nobody by kernel 2,
    streams 1 and 2) offered by 8 wire clients to the edges, then to F0:
@@ -129,7 +137,8 @@ Phases (any failure exits non-zero):
    network difficulty through that edge to F0 (each nonce
    hashlib-checked and proven lowest, no search kernel launched on the
    edge), C subscribes to A's address through its API, A broadcasts,
-   and C decrypts the broadcast with kernel 5 (the in-process client's
+   and C decrypts the broadcast on its engine (one key: the native
+   rung; kernel 5 when a drain reaches the card; the in-process client's
    plaintext equal to what A sent); (t) in this process, a relay and an
    edge ``Node()`` with a 64-bucket plane whose index holds 1,000, then
    10,000, then 100,000 simulated clients, 8 real ``LightClient``s on
@@ -140,13 +149,14 @@ Phases (any failure exits non-zero):
 11. the network plane the daemon runs by default (``phase_plane``):
    set-reconciliation sync, the wire trace and metrics federation, two
    ``python -m pybitmessage_tpu_torch`` daemons P and Q at network
-   difficulty.  (v) 10,000 storm-shaped objects (kernel 3) and 100 ~1 KB
+   difficulty, with ``tls=false`` (the wire tap reads each command).  (v) 10,000 storm-shaped objects (kernel 3) and 100 ~1 KB
    msgs to Q's identities (kernel 2), solved here; P holds the base less
    a seeded 2% and the msgs, Q the base less a disjoint 2%, written into
    their inventories before they start.  Q dials P through a wire tap
    that counts the bytes of each command: the wall until both hold all
    10,100 objects and Q's inbox the 100 msgs (each equal to what was
-   sent, decrypted and verified by kernels 5 and 4 on Q), the announce
+   sent, decrypted and verified on Q's engine, by kernels 5 and 4 for
+   the drains that reach the card), the announce
    bytes per delivered object, the sync rounds and fallbacks; then the
    same with ``syncenabled=false`` (the classic big inv) side by side;
    no object lost, every one hashlib-checked.  (w) With sync off, P
@@ -179,6 +189,20 @@ Phases (any failure exits non-zero):
    fault and one stall on the card through ``PowService``: every nonce
    hashlib-checked and proven lowest, ``pow_stall_total{site="pow.slab"}``
    +1 and one recovery observed;
+13. the rest of the network and the crypto rungs (``phase_network``),
+   ``Node()``s on the card over loopback: (ac) A and B with TLS (the
+   default), both ends upgraded after the veracks, A's 1 KB msg to B
+   until ``ackreceived``; (ad) node C dials A through an in-script
+   SOCKS5 proxy with a login and a SOCKS4a proxy, by address and by an
+   ``.onion`` name, each proxy's connects equal to its dials and TLS up
+   through each tunnel; (ae) A's directed UDP announce heard by C, which
+   dials the discovered peer; (af) ``UPnPClient`` maps and unmaps A's
+   port on an in-script gateway; (ag) verify and ECDH drains of 1, 4,
+   16, 64, 256, 1,024 and 4,096 lanes through the native rung
+   (``cryptonativethreads`` 1 and the machine's CPU count) and through
+   the card: byte-equal to each other, to the lanes' known answers and
+   to ``crypto/fallback.py`` (every lane up to 64, 64 seeded lanes of a
+   larger drain), each wall printed;
 4. times: each kernel at its main-path shape (CUDA events over warm
    launches) beside its plain version and its bound; the packed kernel
    on the storm's own targets and on targets that mostly miss, with the
@@ -189,7 +213,11 @@ Phases (any failure exits non-zero):
    own two-thread design and of the first port's double-and-add ladder
    (``ladder_field_ops``) printed beside it.
 
-Over phases 3, 3b, 5, 6 and 10 (t), the ones that go through the host
+Every daemon runs with ``--no-udp``: each deployment here has a fixed
+topology, and edges sharing a P2P port would hear each other's LAN
+announce.
+
+Over phases 3, 3b, 5, 6, 10 (t) and 13, the ones that go through the host
 drivers, and phase 8's in-process solve and phase 11's set-up, each
 kernel's ``device_launches_total``
 delta in the registry must equal its wrapper's ``LAUNCHES`` delta, and
@@ -200,9 +228,10 @@ host driver, and is not attributed.
 
 The receive phases draw their data from a second generator seeded from
 ``--seed``, so phases 1-4 keep their inputs.
-Phases 5 to 12 run before phase 4 and draw from a fourth, a fifth, a
+Phases 5 to 13 run before phase 4 and draw from a fourth, a fifth, a
 sixth, a seventh, an eighth, a ninth ((t)), a tenth ((u)), an eleventh
-(phase 11) and a twelfth (phase 12) generator; each kernel's entry
+(phase 11), a twelfth (phase 12) and a thirteenth (phase 13) generator;
+each kernel's entry
 in the kernels line carries its launches on the send or receive path
 (``launches``), in the node phase (``node_launches``), in the socket
 phase (``net_launches``), in phase 7's daemons (``daemon_launches``),
@@ -213,7 +242,8 @@ and after its restart, and E), in phase 9's six daemons
 process's light client in (u)), in phase 11 (``sync_launches``: its
 set-up's solves in this process and P's and Q's launch records) and in
 phase 12 (``storage_launches``: (aa)'s and (ab)'s solves in this
-process and the launch records of R1, R2, E, A and B).  Each phase's
+process and the launch records of R1, R2, E, A and B) and in phase 13
+(``network_launches``).  Each phase's
 wall is printed on a line of its own (``phase wall: ...``) before the
 kernels line.
 The second-to-last line of output is the ``{"kernels": [...]}`` record,
@@ -264,7 +294,8 @@ KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms", "node_launches", "net_launches",
                "daemon_launches", "farm_launches", "roles_launches",
-               "clients_launches", "sync_launches", "storage_launches")
+               "clients_launches", "sync_launches", "storage_launches",
+               "network_launches")
 MASK64 = (1 << 64) - 1
 ALWAYS_HIT = MASK64
 
@@ -272,6 +303,57 @@ ALWAYS_HIT = MASK64
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError("chip_smoke check failed: " + what)
+
+
+def check_rungs(what: str, blocks: dict) -> dict:
+    """The engine routing's gates over crypto routing blocks
+    (``BatchCryptoEngine.snapshot()``, or ``clientStatus``'s ``crypto``
+    block, which holds it), by name: no item on the pure tier, every
+    drain under the card rung's threshold (``cryptotpubatchmin``) on the
+    native rung and every other on the card.  Returns the drains of each
+    rung, summed."""
+    total = {"gpu": 0, "native": 0, "pure": 0}
+    for name, block in blocks.items():
+        rungs, floor = block["rungs"], block["batchMin"]
+        require(block["items"]["pure"] == 0,
+                "%s: %s ran %d checks on the pure tier" % (
+                    what, name, block["items"]["pure"]))
+        native, gpu = rungs["native"]["fan"], rungs["gpu"]["fan"]
+        require(native is None or floor is None or native[1] < floor,
+                "%s: %s ran a drain of fan %s on the native rung (card "
+                "from %s)" % (what, name, native, floor))
+        require(gpu is None or gpu[0] >= floor,
+                "%s: %s ran a drain of fan %s on the card (from %s)"
+                % (what, name, gpu, floor))
+        for rung in total:
+            total[rung] += rungs[rung]["drains"]
+    print("%s crypto drains by rung: %s" % (what, total))
+    return total
+
+
+def _routing_blocks(statuses: dict) -> dict:
+    """The crypto blocks of the daemons' ``clientStatus`` (as read by a
+    phase, by name) whose node runs a batch engine."""
+    return {name: st["crypto"] for name, st in statuses.items()
+            if "rungs" in st["crypto"]}
+
+
+def _require_path_kernels(what: str, launches: dict, rungs: dict,
+                          pow_kernels=()) -> None:
+    """The kernels a path must have launched: each of ``pow_kernels``,
+    and a secp kernel when the engines gave the card rung a drain
+    (drains under the threshold run on the native rung, which launches
+    none; key derivations launch kernel 5 besides); and crypto drains
+    on one rung or the other."""
+    for kernel in pow_kernels:
+        require(launches[kernel] > 0,
+                "kernel %s not launched on the %s" % (kernel, what))
+    require(rungs["gpu"] + rungs["native"] > 0,
+            "the %s drained no crypto" % what)
+    if rungs["gpu"]:
+        require(launches["secp_verify"] + launches["secp_ecdh"] > 0,
+                "the %s launched no secp kernel for %d card drains"
+                % (what, rungs["gpu"]))
 
 
 #: the device-telemetry program of each kernel wrapper's launch counter
@@ -1584,6 +1666,7 @@ class _NodeKit:
         engine = node.crypto.batch
         return {"drains": engine.drains, "drain_pairs": engine.drain_pairs,
                 "engine_items": engine.gpu_items,
+                "routing": engine.snapshot(),
                 "failed_drains": engine.failed_drains,
                 "host_verifies": node.crypto.host_verifies,
                 "host_decrypts": node.crypto.host_decrypts,
@@ -1919,6 +2002,9 @@ def phase_node(rng, *, device=None, test_mode: bool = False,
             require(s["failed_drains"] == 0, "a crypto drain failed")
             require(s["host_verifies"] == s["host_decrypts"] == 0,
                     "a node checked crypto on host threads")
+    rungs = check_rungs("node", {"%s%d" % (name, i): s["routing"]
+                                 for name, per_node in stats.items()
+                                 for i, s in enumerate(per_node)})
     for per_node in stats.values():
         for s in per_node:
             require(s["pow_device_checked"] + s["pow_host_checked"]
@@ -1929,9 +2015,8 @@ def phase_node(rng, *, device=None, test_mode: bool = False,
     print("node crypto (per node, (i) then (j)): %s" % json.dumps(stats))
     print("node PoW routes: %s" % json.dumps(routes))
     print("node launches: %s" % node_launches)
-    for kernel in ("search", "batch_search", "secp_verify", "secp_ecdh"):
-        require(node_launches[kernel] > 0,
-                "kernel %s not launched on the node path" % kernel)
+    _require_path_kernels("node path", node_launches, rungs,
+                          ("search", "batch_search"))
     return {"phases": report, "launches": node_launches, "routes": routes,
             "crypto": stats, "solves": len(solves)}
 
@@ -2258,13 +2343,15 @@ def phase_sockets(rng, *, device=None, test_mode: bool = False,
                     "a node checked crypto on host threads")
             require(st["pow_device_checked"] + st["pow_host_checked"]
                     >= st["accepted"], "an object skipped the verifier")
+    rungs = check_rungs("sockets", {"%s%d" % (name, i): st["routing"]
+                                    for name, per_node in stats.items()
+                                    for i, st in enumerate(per_node)})
     print("sockets per node ((k), then (l)): %s"
           % json.dumps(stats))
     print("sockets PoW routes: %s" % json.dumps(kit.routes))
     print("sockets launches: %s" % net_launches)
-    for kernel in ("search", "batch_search", "secp_verify", "secp_ecdh"):
-        require(net_launches[kernel] > 0,
-                "kernel %s not launched on the socket path" % kernel)
+    _require_path_kernels("socket path", net_launches, rungs,
+                          ("search", "batch_search"))
     return {"phases": report, "launches": net_launches,
             "routes": kit.routes, "nodes": stats,
             "solves": len(kit.solves)}
@@ -2290,8 +2377,10 @@ class _Daemon:
         self.proc = None
 
     def argv(self, *extra) -> list:
+        # --no-udp: every deployment here has a fixed topology, and
+        # edges sharing a P2P port would hear each other's LAN announce
         return [sys.executable, "-m", "pybitmessage_tpu_torch", "-d",
-                self.dir, *self.flags, *extra]
+                self.dir, "--no-udp", *self.flags, *extra]
 
     def start(self, *extra) -> float:
         """Start and wait for the hook's ``apiEnabled``; the seconds."""
@@ -2827,6 +2916,9 @@ def phase_daemon(rng, *, device=None, test_mode: bool = False,
         host = report[side]["crypto"]["hostChecks"]
         require(host["verifies"] == host["decrypts"] == 0,
                 "daemon %s checked crypto on host threads" % side.upper())
+    rungs = check_rungs("daemon", {side: report[side]["crypto"]
+                                   for side in ("a", "b")}) \
+        if crypto_batch else None
     print("daemon: A start to apiEnabled %.2f s, self-send %.3f s, B start "
           "%.2f s, A -> B until ackreceived %.3f s, restart %.2f s; %d "
           "objects in the two inventories pass hashlib's check"
@@ -2836,10 +2928,8 @@ def phase_daemon(rng, *, device=None, test_mode: bool = False,
     print("daemon A: %s" % json.dumps(report["a"]))
     print("daemon B: %s" % json.dumps(report["b"]))
     print("daemon launches: %s" % launches)
-    if device != "cpu":
-        for kernel in ("search", "secp_verify", "secp_ecdh"):
-            require(launches[kernel] > 0,
-                    "kernel %s not launched in the daemons" % kernel)
+    if device != "cpu" and rungs is not None:
+        _require_path_kernels("daemons", launches, rungs, ("search",))
     return {"phases": report, "launches": launches}
 
 
@@ -3743,9 +3833,15 @@ def _phase_u(rng, *, root, flags, a, x, edges, planes, f0, status, until,
         require(out["session"]["decrypted"] == 1,
                 "C decrypted %d objects" % out["session"]["decrypted"])
         if on_card:
-            require(c_rise["secp_ecdh"] >= 1,
-                    "C launched no kernel 5 for its trial decrypt")
-            host = json.loads(c.rpc("clientStatus"))["crypto"]["hostChecks"]
+            crypto = json.loads(c.rpc("clientStatus"))["crypto"]
+            c_rungs = check_rungs("clients (u)",
+                                  {"C": crypto["clientEngine"]})
+            require(c_rungs["gpu"] + c_rungs["native"] >= 1,
+                    "C's engine ran no drain for its trial decrypt")
+            if c_rungs["gpu"]:
+                require(c_rise["secp_ecdh"] >= 1,
+                        "C launched no kernel 5 for its trial decrypt")
+            host = crypto["hostChecks"]
             require(host["verifies"] == host["decrypts"] == 0,
                     "C checked crypto on host threads")
     finally:
@@ -3985,9 +4081,16 @@ def phase_roles(rng, *, device=None, test_mode: bool = False,
                   "%.3f s; launches risen %s; edges' verifier %s"
                   % (q_wall, rise, edge_verify))
             if on_card:
-                require(rise["R1"]["secp_verify"] > 0
-                        and rise["R1"]["secp_ecdh"] > 0,
-                        "R1 launched no kernel 4 or 5 for A's message")
+                r1_drains = {
+                    rung: s1["R1"]["crypto"]["rungs"][rung]["drains"]
+                    - s0["R1"]["crypto"]["rungs"][rung]["drains"]
+                    for rung in ("gpu", "native")}
+                require(sum(r1_drains.values()) > 0,
+                        "R1 drained no crypto for A's message")
+                require(not r1_drains["gpu"]
+                        or rise["R1"]["secp_verify"] > 0,
+                        "R1 launched no kernel 4 for its card drains")
+                check_rungs("roles (q)", _routing_blocks(s1))
                 require(rise["R1"]["search"] + rise["R1"]["batch_search"]
                         > 0, "R1 launched no kernel 1 or 2 for its pubkey")
                 require(sum(v["device"] + v["host"]
@@ -4072,6 +4175,8 @@ def phase_roles(rng, *, device=None, test_mode: bool = False,
                 require(r1_crypto["drains"]["count"] > 0
                         and r1_crypto["drains"]["failed"] == 0,
                         "R1's engine drained nothing or failed")
+                report["rungs"] = check_rungs("roles (r)",
+                                              _routing_blocks(s2))
                 for name in ("E1", "E2", "F0"):
                     require(s2[name]["powVerify"]["deviceBatches"]
                             > s1[name]["powVerify"]["deviceBatches"],
@@ -4176,9 +4281,7 @@ def phase_roles(rng, *, device=None, test_mode: bool = False,
              missing))
     print("roles launches: %s" % launches)
     if on_card:
-        for kernel in ("secp_verify", "secp_ecdh"):
-            require(launches[kernel] > 0,
-                    "kernel %s not launched in the role daemons" % kernel)
+        _require_path_kernels("role daemons", launches, report["rungs"])
     return {"phases": report, "launches": launches}
 
 
@@ -4520,8 +4623,9 @@ def phase_plane(rng, *, device=None, test_mode: bool = False,
     data directories' inventories before the daemons start.
 
     (v) Q dials P through a wire tap in this process that counts each
-    direction's bytes per command.  With the defaults (sync, wire trace,
-    federation on), the wall from Q's ``apiEnabled`` (its first dial)
+    direction's bytes per command, so both run with ``tls=false`` (TLS
+    would hide the commands).  With the other defaults (sync, wire
+    trace, federation on), the wall from Q's ``apiEnabled`` (its first dial)
     until both inventories hold every object, and until Q's inbox holds
     the ``msgs`` msgs, each equal to what was sent; announce-layer bytes
     (inv, sketchreq, sketch, recondiff) per delivered object; both
@@ -4620,8 +4724,11 @@ def phase_plane(rng, *, device=None, test_mode: bool = False,
     daemon_launches = {name: 0 for name in names}
 
     for mode in ("sync", "flood"):
-        extra = ["--set", "federationinterval=1"] if mode == "sync" \
-            else ["--set", "syncenabled=false"]
+        # tls=false: the tap reads each frame's command, which TLS after
+        # the veracks would hide
+        extra = ["--set", "tls=false"] + (
+            ["--set", "federationinterval=1"] if mode == "sync"
+            else ["--set", "syncenabled=false"])
         daemons: list = []
         tap = None
         run: dict = {}
@@ -4662,6 +4769,7 @@ def phase_plane(rng, *, device=None, test_mode: bool = False,
                 wire = tap.snapshot()
                 pm, qm = metrics(p), metrics(q)
                 run["q_launches"] = launches_of(q)
+                run["q_crypto"] = json.loads(q.rpc("clientStatus"))["crypto"]
                 run["wire_bytes"] = wire
                 # the announcement layer, what reconciliation shrinks
                 # (a dandelion stem's dinv announces too)
@@ -4691,11 +4799,11 @@ def phase_plane(rng, *, device=None, test_mode: bool = False,
                          run["announce_bytes"],
                          run["announce_bytes_per_delivered"], wire,
                          run["sync"], run["q_launches"]))
-                if on_card:
-                    require(run["q_launches"]["secp_ecdh"] > 0
-                            and run["q_launches"]["secp_verify"] > 0,
-                            "Q launched no kernel 4 or 5 on the msgs (%s)"
-                            % mode)
+                if on_card and crypto_batch:
+                    _require_path_kernels(
+                        "plane (%s), Q" % mode, run["q_launches"],
+                        check_rungs("plane (%s)" % mode,
+                                    {"Q": run["q_crypto"]}))
                 # Q's clock-offset estimate for P: each sample is P's
                 # send time less Q's read time, so the time a frame
                 # waited in Q's socket while Q's verify window was full
@@ -5540,6 +5648,429 @@ def phase_storage(rng, *, device=None, test_mode: bool = False,
     return {"z": z, "aa": aa, "ab": ab, "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the rest of the network and the crypto rungs
+# ---------------------------------------------------------------------------
+
+
+class _Tunnel:
+    """An in-script SOCKS5 (with a login) or SOCKS4a proxy on loopback
+    that tunnels every CONNECT to ``target`` and keeps what each asked
+    for (the name or address, the port)."""
+
+    def __init__(self, kind: str, target, user: bytes = b"",
+                 password: bytes = b""):
+        self.kind, self.target = kind, target
+        self.user, self.password = user, password
+        self.connects: list = []
+        self.server = None
+        self.tasks: set = set()
+
+    async def start(self) -> int:
+        self.server = await asyncio.start_server(self._serve, LOOPBACK, 0)
+        return self.server.sockets[0].getsockname()[1]
+
+    async def stop(self) -> None:
+        self.server.close()
+        for task in list(self.tasks):
+            task.cancel()
+
+    async def _serve(self, reader, writer) -> None:
+        self.tasks.add(asyncio.current_task())
+        try:
+            if self.kind == "SOCKS5":
+                head = await reader.readexactly(2)
+                await reader.readexactly(head[1])
+                writer.write(b"\x05\x02")
+                _, ulen = await reader.readexactly(2)
+                user = await reader.readexactly(ulen)
+                plen = (await reader.readexactly(1))[0]
+                ok = (user, await reader.readexactly(plen)) == \
+                    (self.user, self.password)
+                writer.write(b"\x01" + (b"\x00" if ok else b"\x01"))
+                if not ok:
+                    return
+                _, _, _, atyp = await reader.readexactly(4)
+                if atyp == 3:
+                    n = (await reader.readexactly(1))[0]
+                    host = (await reader.readexactly(n)).decode()
+                else:
+                    host = ".".join(map(str, await reader.readexactly(4)))
+                port = int.from_bytes(await reader.readexactly(2), "big")
+                reply = b"\x05\x00\x00\x01" + bytes(6)
+            else:
+                head = await reader.readexactly(8)
+                user = (await reader.readuntil(b"\x00"))[:-1]
+                port = int.from_bytes(head[2:4], "big")
+                if head[4:7] == b"\x00\x00\x00" and head[7]:
+                    host = (await reader.readuntil(b"\x00"))[:-1].decode()
+                else:
+                    host = ".".join(map(str, head[4:8]))
+                reply = b"\x00\x5a" + bytes(6)
+            self.connects.append((host, port, user))
+            tr, tw = await asyncio.open_connection(*self.target)
+            writer.write(reply)
+            await writer.drain()
+
+            async def pump(src, dst):
+                try:
+                    while True:
+                        data = await src.read(65536)
+                        if not data:
+                            break
+                        dst.write(data)
+                        await dst.drain()
+                except (ConnectionError, asyncio.CancelledError):
+                    pass
+                finally:
+                    dst.close()
+            await asyncio.gather(pump(reader, tw), pump(tr, writer))
+        except (asyncio.IncompleteReadError, ConnectionError):
+            pass
+        finally:
+            writer.close()
+            self.tasks.discard(asyncio.current_task())
+
+
+class _FakeGateway:
+    """An in-script UPnP gateway on loopback: an SSDP responder and its
+    HTTP server, keeping every M-SEARCH and request."""
+
+    DESCRIPTION = (
+        '<?xml version="1.0"?><root><device><serviceList><service>'
+        "<serviceType>urn:schemas-upnp-org:service:WANIPConnection:1"
+        "</serviceType><controlURL>/ctl/ip</controlURL>"
+        "</service></serviceList></device></root>").encode()
+
+    def __init__(self):
+        self.searches: list = []
+        self.requests: list = []
+
+    async def start(self):
+        loop = asyncio.get_running_loop()
+        self.http = await asyncio.start_server(self._http, LOOPBACK, 0)
+        http_port = self.http.sockets[0].getsockname()[1]
+        gateway = self
+
+        class SSDP(asyncio.DatagramProtocol):
+            def connection_made(self, transport):
+                self.transport = transport
+
+            def datagram_received(self, data, addr):
+                gateway.searches.append(data)
+                self.transport.sendto(
+                    b"HTTP/1.1 200 OK\r\nLOCATION: http://127.0.0.1:%d"
+                    b"/desc.xml\r\n\r\n" % http_port, addr)
+        self.ssdp, _ = await loop.create_datagram_endpoint(
+            SSDP, local_addr=(LOOPBACK, 0))
+        return LOOPBACK, self.ssdp.get_extra_info("sockname")[1]
+
+    async def _http(self, reader, writer):
+        head = await reader.readuntil(b"\r\n\r\n")
+        length = int(head.lower().split(b"content-length: ")[1]
+                     .split(b"\r\n")[0])
+        self.requests.append(head + await reader.readexactly(length))
+        payload = self.DESCRIPTION if head.startswith(b"GET") else b"<ok/>"
+        writer.write(b"HTTP/1.1 200 OK\r\nContent-Length: %d\r\n\r\n"
+                     % len(payload) + payload)
+        await writer.drain()
+        writer.close()
+
+    def stop(self):
+        self.ssdp.close()
+        self.http.close()
+
+
+def _rung_lanes(native, prng, n: int):
+    """``n`` verify lanes (u1, u2, Q, r packed; every 7th r off by one)
+    and ``n`` ECDH lanes (P, k packed) made with the native library's
+    fixed-base multiplication: Q = q G, so u1 G + u2 Q = (u1 + u2 q) G
+    and each r is known without a two-point walk.  Returns the packed
+    arguments and the expected verify booleans."""
+    from pybitmessage_tpu_torch.crypto import fallback
+    order = fallback.N
+    u1s, u2s, pubs, rs, want = [], [], [], [], []
+    points, scalars = [], []
+    for i in range(n):
+        q, u1, u2 = (prng.randrange(1, order) for _ in range(3))
+        x = int.from_bytes(native.base_mult(
+            ((u1 + u2 * q) % order).to_bytes(32, "big"))[:32], "big")
+        r = x % order
+        if i % 7 == 6:
+            r = (r + 1) % order
+        want.append(i % 7 != 6)
+        u1s.append(u1.to_bytes(32, "big"))
+        u2s.append(u2.to_bytes(32, "big"))
+        pubs.append(native.base_mult(q.to_bytes(32, "big")))
+        rs.append(r.to_bytes(32, "big"))
+        points.append(native.base_mult(
+            prng.randrange(1, order).to_bytes(32, "big")))
+        scalars.append(prng.randrange(1, order).to_bytes(32, "big"))
+    verify = (n, b"".join(u1s), b"".join(u2s), b"".join(pubs), b"".join(rs))
+    ecdh = (n, b"".join(points), b"".join(scalars))
+    return verify, ecdh, want
+
+
+def _fallback_sample(verify, ecdh, sample) -> tuple:
+    """``crypto/fallback.py``'s answers on the lanes ``sample``."""
+    from pybitmessage_tpu_torch.crypto import fallback
+
+    def word(buf, width, i, off=0):
+        return int.from_bytes(buf[width * i + off:width * i + off + 32],
+                              "big")
+    _, u1s, u2s, pubs, rs = verify
+    _, points, scalars = ecdh
+    oks, xs = [], []
+    for i in sample:
+        q = (word(pubs, 64, i), word(pubs, 64, i, 32))
+        pt = fallback._jac_to_affine(fallback._jac_add(
+            fallback._as_jac(fallback.base_mult(word(u1s, 32, i))),
+            fallback._as_jac(fallback.point_mult(word(u2s, 32, i), q))))
+        oks.append(pt is not None and pt[0] % fallback.N == word(rs, 32, i))
+        p = fallback.point_mult(word(scalars, 32, i),
+                                (word(points, 64, i), word(points, 64, i, 32)))
+        xs.append(p[0].to_bytes(32, "big"))
+    return oks, xs
+
+
+def _rung_sweep(prng, device, sizes, reps: int = 3) -> list:
+    """Verify and ECDH drains of each size through the native rung at 1
+    thread and at the machine's CPU count and through the card rung:
+    every answer byte-equal across the three and to the lanes' known
+    answers, ``crypto/fallback.py``'s on every lane up to 64 and on 64
+    seeded lanes of a larger drain; the median wall of ``reps`` calls of
+    each."""
+    from pybitmessage_tpu_torch.crypto.gpu import CudaSecp
+    from pybitmessage_tpu_torch.crypto.native import NativeSecp
+    cpus = os.cpu_count() or 1
+    rungs = {"native_1": NativeSecp(1), "native_%d" % cpus: NativeSecp(cpus),
+             "card": CudaSecp(device)}
+    one = _rung_lanes(rungs["native_1"], prng, 1)
+    for backend in rungs.values():        # warm: the comb table, threads
+        backend.verify_prepared(*one[0])
+        backend.ecdh_batch(*one[1])
+    rows = []
+    for n in sizes:
+        verify, ecdh, want = _rung_lanes(rungs["native_1"], prng, n)
+        row = {"n": n}
+        answers = {}
+        for name, backend in rungs.items():
+            for op, fn, args in (("verify", backend.verify_prepared, verify),
+                                 ("ecdh", backend.ecdh_batch, ecdh)):
+                walls = []
+                for _ in range(reps):
+                    t0 = time.perf_counter()
+                    out = fn(*args)
+                    walls.append(time.perf_counter() - t0)
+                answers[name, op] = out
+                row["%s_%s_ms" % (op, name)] = \
+                    1e3 * sorted(walls)[len(walls) // 2]
+        for op in ("verify", "ecdh"):
+            first = answers["native_1", op]
+            for name in rungs:
+                require(answers[name, op] == first,
+                        "(ag) %s at %d lanes: %s differs from native_1"
+                        % (op, n, name))
+        require(answers["native_1", "verify"] == want,
+                "(ag) verify at %d lanes differs from the lanes' answers" % n)
+        sample = range(n) if n <= 64 else sorted(prng.sample(range(n), 64))
+        oks, xs = _fallback_sample(verify, ecdh, sample)
+        require(oks == [answers["native_1", "verify"][i] for i in sample]
+                and xs == [answers["native_1", "ecdh"][i] for i in sample],
+                "(ag) %d lanes differ from crypto/fallback.py" % n)
+        row["fallback_lanes"] = len(sample)
+        rows.append(row)
+        print("network (ag) %5d lanes: %s" % (n, json.dumps(
+            {k: v for k, v in row.items() if k.endswith("_ms")})))
+    return rows
+
+
+def phase_network(rng, prng, *, device=None, test_mode: bool = False,
+                  body_bytes: int = 1024,
+                  sizes=(1, 4, 16, 64, 256, 1024, 4096), reps: int = 3,
+                  timeout: float = 120.0) -> dict:
+    """Phase 13: the rest of the network and the crypto rungs, in this
+    process on loopback.  (ac) ``Node()``s A and B with TLS (the
+    default): B dials A, both ends upgrade after the veracks, B's pubkey
+    reaches A, then A's 1 KB msg to B until ``ackreceived``; (ad) node C
+    dials A through an in-script SOCKS5 proxy with a login and through a
+    SOCKS4a proxy, by address and by an ``.onion`` name the proxies
+    tunnel to A: each link up (and TLS through the tunnel), each proxy's
+    connects equal to its dials; (ae) A announces itself over UDP to C's
+    endpoint (``announce(to=...)``), C hears it and dials the
+    discovered peer; (af) ``UPnPClient`` maps A's port on an in-script
+    gateway and unmaps it; (ag) ``_rung_sweep`` over ``sizes``.  The
+    certificate each node makes at its start is timed first.
+    (``device="cpu"``, ``test_mode=True`` and small sizes rehearse it.)"""
+    from pybitmessage_tpu_torch.network.udp import UDPDiscovery
+    from pybitmessage_tpu_torch.network.upnp import UPnPClient
+    from pybitmessage_tpu_torch.ops import secp256k1_cuda as scc
+    from pybitmessage_tpu_torch.ops import sha512_cuda as sc
+    from pybitmessage_tpu_torch.storage.knownnodes import Peer
+    from pybitmessage_tpu_torch.storage.messages import ACKRECEIVED
+
+    from pybitmessage_tpu_torch.network.tls import generate_self_signed_cert
+
+    kit = _NodeKit(device, test_mode)
+    report: dict = {}
+    # a node's certificate, made once per start: P-256 on plain integers
+    with tempfile.TemporaryDirectory(prefix="bm-tls-") as tdir:
+        cert_walls = []
+        for i in range(5):
+            t0 = time.perf_counter()
+            generate_self_signed_cert(os.path.join(tdir, str(i)))
+            cert_walls.append(time.perf_counter() - t0)
+    report["cert_s"] = sorted(cert_walls)[2]
+    print("network: a node's certificate in %.4f s (median of 5 on this "
+          "host's CPU)" % report["cert_s"])
+
+    async def established(conn, what):
+        require(conn is not None, "%s: the dial failed" % what)
+        await _until(lambda: conn.fully_established, what, timeout)
+        return conn
+
+    async def run():
+        a, b, c = kit.make(), kit.make(), kit.make(listen=False)
+        for node in (a, b, c):
+            await node.start()
+        udp = []
+        tunnels = []
+        try:
+            # (ac) TLS between two port nodes
+            t0 = time.perf_counter()
+            link = await established(await b.pool.connect_to(
+                Peer(LOOPBACK, a.pool.listen_port)), "(ac) the handshake")
+            handshake = time.perf_counter() - t0
+            [theirs] = a.pool.inbound
+            require(link.tls_established and theirs.tls_established,
+                    "(ac) TLS not established on both ends")
+            cipher = link.writer.get_extra_info("cipher")
+            alice = kit.identity(a, "alice")
+            bob = kit.identity(b, "bob")
+            await b.sender.send_my_pubkey(bob.address)
+            await _until(lambda: a.pool.objects_received >= 1,
+                         "(ac) B's pubkey at A", timeout)
+            subject, body = _text(rng, 40), _text(rng, body_bytes)
+            t0 = time.perf_counter()
+            ack = await a.send_message(bob.address, alice.address, subject,
+                                       body)
+            await _until(lambda: a.message_status(ack) == ACKRECEIVED,
+                         "(ac) the ack over TLS", timeout)
+            wall = time.perf_counter() - t0
+            rows = b.store.inbox()
+            require(len(rows) == 1 and (rows[0].subject, rows[0].message)
+                    == (subject, body), "(ac) B's inbox differs")
+            report["ac"] = {"handshake_s": handshake, "msg_ack_s": wall,
+                            "cipher": list(cipher or ()),
+                            "tls": [link.tls_established,
+                                    theirs.tls_established]}
+            print("network (ac): TLS on both ends (%s), handshake %.3f s; "
+                  "A's 1 KB msg -> B's ack %.3f s"
+                  % (cipher, handshake, wall))
+            # (ad) SOCKS5 and SOCKS4a dials
+            target = (LOOPBACK, a.pool.listen_port)
+            dials = {}
+            for kind in ("SOCKS5", "SOCKS4a"):
+                tunnel = _Tunnel(kind, target, b"smoke", b"tunnel-pass")
+                tunnels.append(tunnel)
+                c.ctx.proxy = {"type": kind, "host": LOOPBACK,
+                               "port": await tunnel.start(),
+                               "username": "smoke",
+                               "password": "tunnel-pass"}
+                walls = []
+                for host in (LOOPBACK, "smoke%sa.onion" % kind.lower()):
+                    t0 = time.perf_counter()
+                    conn = await established(await c.pool.connect_to(
+                        Peer(host, a.pool.listen_port)),
+                        "(ad) %s to %s" % (kind, host))
+                    walls.append(time.perf_counter() - t0)
+                    require(conn.tls_established,
+                            "(ad) no TLS through the %s tunnel" % kind)
+                    await conn.close()
+                require([h for h, _, _ in tunnel.connects]
+                        == [LOOPBACK, "smoke%sa.onion" % kind.lower()]
+                        and {p for _, p, _ in tunnel.connects}
+                        == {a.pool.listen_port},
+                        "(ad) the %s proxy saw %s" % (kind, tunnel.connects))
+                dials[kind] = {"dials": 2, "connects": len(tunnel.connects),
+                               "walls_s": walls}
+            c.ctx.proxy = None
+            report["ad"] = dials
+            print("network (ad): %s" % json.dumps(dials))
+            # (ae) UDP discovery, announce to a given address
+            a_udp = UDPDiscovery(a.pool, port=0, bind_host=LOOPBACK,
+                                 broadcast_host=LOOPBACK,
+                                 announce_interval=3600)
+            c_udp = UDPDiscovery(c.pool, port=0, bind_host=LOOPBACK,
+                                 broadcast_host=LOOPBACK,
+                                 announce_interval=3600)
+            for endpoint in (a_udp, c_udp):
+                udp.append(endpoint)
+                await endpoint.start()
+            t0 = time.perf_counter()
+            a_udp.announce(to=(LOOPBACK, c_udp.listen_port))
+            await _until(lambda: Peer(LOOPBACK, a.pool.listen_port)
+                         in c.pool.lan_peers, "(ae) the announce", timeout)
+            heard = time.perf_counter() - t0
+            conn = await established(await c.pool.connect_to(
+                next(p for p in c.pool.lan_peers
+                     if p.port == a.pool.listen_port)), "(ae) the dial")
+            report["ae"] = {"heard_s": heard,
+                            "dialed_s": time.perf_counter() - t0,
+                            "lan_peers": len(c.pool.lan_peers),
+                            "tls": conn.tls_established}
+            print("network (ae): C heard A's announce in %.4f s and dialed "
+                  "it in %.4f s" % (heard, report["ae"]["dialed_s"]))
+            # (af) UPnP on an in-script gateway
+            gateway = _FakeGateway()
+            ssdp = await gateway.start()
+            try:
+                t0 = time.perf_counter()
+                client = UPnPClient(ssdp_addr=ssdp)
+                await client.discover(timeout=5)
+                mapped = await client.add_port_mapping(a.pool.listen_port)
+                await client.delete_port_mapping()
+                upnp_s = time.perf_counter() - t0
+            finally:
+                gateway.stop()
+            soap = gateway.requests[1:]
+            require(mapped == a.pool.listen_port and len(soap) == 2
+                    and b"#AddPortMapping" in soap[0]
+                    and b"<NewInternalPort>%d</NewInternalPort>"
+                    % a.pool.listen_port in soap[0]
+                    and b"#DeletePortMapping" in soap[1],
+                    "(af) the gateway saw %s" % soap)
+            report["af"] = {"wall_s": upnp_s, "searches":
+                            len(gateway.searches), "soap": len(soap)}
+            print("network (af): UPnP discover, map and unmap %.4f s"
+                  % upnp_s)
+            for name, node in zip("abc", (a, b, c)):
+                report.setdefault("crypto", {})[name] = \
+                    node.crypto.batch.snapshot()
+        finally:
+            for endpoint in udp:
+                await endpoint.stop()
+            for tunnel in tunnels:
+                await tunnel.stop()
+            for node in (a, b, c):
+                await node.stop()
+
+    sc.reset_launches()
+    scc.reset_launches()
+    asyncio.run(run())
+    check_rungs("network (ac)", report["crypto"])
+    report["ag"] = _rung_sweep(prng, device or "cuda", sizes, reps)
+    launches = _NodeKit.launches()
+    kit.check_nonces(rng, "network phase")
+    print("network launches: %s" % launches)
+    if device != "cpu":
+        for kernel in ("secp_verify", "secp_ecdh"):
+            require(launches[kernel] >= len(sizes),
+                    "(ag) kernel %s launched %d times for %d sizes"
+                    % (kernel, launches[kernel], len(sizes)))
+    return {"phases": report, "launches": launches}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5627,6 +6158,15 @@ def main() -> int:
     # phase 12, storage and the failure paths: a twelfth generator
     storage = phase_storage(np.random.default_rng([args.seed, 13]))
     done("12 storage and failure paths")
+    # phase 13, the rest of the network and the crypto rungs: a
+    # thirteenth generator
+    rng13 = np.random.default_rng([args.seed, 14])
+    before = registry_counts()
+    network = phase_network(rng13,
+                            random.Random(int(rng13.integers(1 << 62))))
+    attribution["network"] = check_attribution("network", before,
+                                               network["launches"])
+    done("13 network and crypto rungs")
     kernels = phase_times(rng, env, main_path["launches"], errs)
     kernels += phase_times_secp(prng, env, receive["launches"], errs)
     done("4 kernel times")
@@ -5640,6 +6180,7 @@ def main() -> int:
             roles["phases"]["u"]["launches"][entry["name"]]
         entry["sync_launches"] = plane["launches"][entry["name"]]
         entry["storage_launches"] = storage["launches"][entry["name"]]
+        entry["network_launches"] = network["launches"][entry["name"]]
     for name, seconds in walls.items():
         print("phase wall: %s %.1f s" % (name, seconds))
     wall = time.perf_counter() - t_start
@@ -5651,6 +6192,7 @@ def main() -> int:
                        "node": node, "sockets": sockets, "daemon": daemon,
                        "farm": farm, "roles": roles, "light": light,
                        "plane": plane, "storage": storage,
+                       "network": network,
                        "phase_walls_s": walls,
                        "attribution": attribution,
                        "utilization": utilization, "kernels": kernels,

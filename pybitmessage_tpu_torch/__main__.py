@@ -11,9 +11,21 @@ The node runs on the CUDA device unless ``--device cpu`` asks for the
 kernels' plain torch versions; without a card and without that flag the
 daemon exits 1.  A setting that turns on a subsystem this package does
 not have (``REFUSED``) stops the start with exit 1, as does a ``chaos``
-spec naming an injection site this package does not plant; the
-subsystems the JAX package runs by default and this one does not yet
-(``NOT_RUN``) are named in one warning line at startup.  The PoW farm
+spec naming an injection site outside the JAX catalog; a subsystem the
+JAX package runs by default and this one does not would be named in one
+warning line at startup (``NOT_RUN``, empty: every JAX default runs).
+The rest of the network is applied as the JAX daemon applies it:
+opportunistic TLS (``tls``), UDP LAN discovery (``udp``; ``--no-udp``
+and ``--no-listen`` turn it off), SOCKS5 and SOCKS4a dials
+(``sockstype``, ``sockshostname``, ``socksport``, ``socksusername``,
+``sockspassword``; a proxy plugin name is refused) and the UPnP mapping
+of the listening port (``upnp``, deleted at stop; a gateway that does
+not answer costs a warning).  So are the receive-side crypto rungs:
+``cryptotpu`` (``auto`` and ``on`` run the card rung on the node's
+device, ``off`` never) for drains of at least ``cryptotpubatchmin``
+checks and ECDH pairs, ``cryptonative`` and ``cryptonativethreads``
+(the native library, built at start) for smaller ones, and the
+coalescing window ``cryptobatchwindow``.  The PoW farm
 (``powfarmlisten``, ``powfarmconnect`` and their knobs), ``powmaxretries``
 and ``powstalltimeout``, the ingest knobs (``cryptoworkers``,
 ``cryptodrainmax``, ``ingestqueuehigh``) and the sampling profiler
@@ -66,14 +78,6 @@ def _on(value: str) -> bool:
     return value.lower() in ("true", "1", "yes")
 
 
-def _nonzero(value: str) -> bool:
-    """A number other than 0 (or no number at all)."""
-    try:
-        return float(value) != 0.0
-    except ValueError:
-        return True
-
-
 def _changed(default: str):
     """Set to anything but the JAX package's default."""
     return lambda value: value != default
@@ -84,14 +88,13 @@ def _changed(default: str):
 #: without the subsystem would not be what the setting asked for
 #: (proxied traffic must never go out unproxied)
 REFUSED = {
-    "sockstype": ("none", lambda v: v != "none"),
+    # a proxyconfig plugin name (the JAX ``core/plugins.py``, e.g. "stem")
+    "sockstype": ("none", lambda v: v not in ("none", "SOCKS5", "SOCKS4a")),
     "smtpdenabled": ("false", _on),
     "smtpdeliver": ("", bool),
-    "upnp": ("false", _on),
     # settings the JAX daemon applies that have nothing to set here: the
-    # engine's coalescing window, the XLA tier's slab shape, the onion
-    # peer the sender announces, the new-message sound
-    "cryptobatchwindow": ("0.0", _nonzero),
+    # XLA tier's slab shape, the onion peer the sender announces, the
+    # new-message sound
     "powlanes": ("131072", _changed("131072")),
     "powchunks": ("32", _changed("32")),
     "onionhostname": ("", bool),
@@ -100,28 +103,19 @@ REFUSED = {
 }
 
 #: option -> (the JAX package's default, "on"): subsystems the JAX
-#: package runs by default and this package does not run yet
-NOT_RUN = {
-    "tls": ("true", _on),
-    "udp": ("true", _on),
-    "cryptonative": ("true", _on),
-    "cryptotpu": ("auto", lambda v: v.lower() not in ("off", "false",
-                                                      "0", "no")),
-}
+#: package runs by default and this package does not run (none left)
+NOT_RUN: dict = {}
 
 #: option -> the switch (a key of :data:`REFUSED` or :data:`NOT_RUN`)
 #: of the subsystem it tunes: that subsystem does not run here, so the
 #: option has nothing to tune and, set alone, neither refuses the start
-#: nor warns (the switch does either)
+#: nor warns (the switch does either).  The first four are read only by
+#: the JAX ``plugins/proxyconfig_stem.py``.
 IGNORED_WHILE_OFF = {
-    "sockshostname": "sockstype", "socksport": "sockstype",
-    "socksusername": "sockstype", "sockspassword": "sockstype",
     "sockslisten": "sockstype", "torcontrolport": "sockstype",
     "onionservicekey": "sockstype", "onionservicekeytype": "sockstype",
     "smtpdport": "smtpdenabled", "smtpdusername": "smtpdenabled",
     "smtpdpassword": "smtpdenabled",
-    "cryptonativethreads": "cryptonative",
-    "cryptotpubatchmin": "cryptotpu",
     "notifysoundfile": "notifysound",
 }
 
@@ -167,8 +161,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="connect only to this peer")
     p.add_argument("--no-dandelion", action="store_true")
     p.add_argument("--no-udp", action="store_true",
-                   help="disable UDP LAN discovery (not run by this "
-                        "package yet)")
+                   help="disable UDP LAN discovery")
     p.add_argument("--seed-defaults", action="store_true",
                    help="seed the bootstrap nodes into knownnodes")
     p.add_argument("--set", action="append", default=[],
@@ -287,6 +280,8 @@ async def run(args) -> int:
                 listen=not args.no_listen,
                 test_mode=args.test_mode,
                 dandelion_enabled=settings.getint("dandelion") > 0,
+                tls_enabled=settings.getbool("tls"),
+                udp_enabled=settings.getbool("udp"),
                 pow_window=settings.getfloat("powbatchwindow"),
                 device=device,
                 sync_enabled=settings.getbool("syncenabled"),
@@ -389,8 +384,18 @@ async def run(args) -> int:
     node.processor.concurrency = settings.getint("ingestworkers")
     if settings.getint("cryptoworkers"):
         node.crypto.size = settings.getint("cryptoworkers")
-    if node.crypto.batch is not None:
-        node.crypto.batch.drain_max = settings.getint("cryptodrainmax")
+    # the receive-side crypto rungs of every engine (the ingest path's
+    # and a light client's)
+    for engine in (node.crypto.batch, node.client_crypto):
+        if engine is None:
+            continue
+        engine.drain_max = settings.getint("cryptodrainmax")
+        engine.use_gpu = settings.get("cryptotpu").lower() not in (
+            "off", "false", "0", "no")
+        engine.gpu_batch_min = settings.getint("cryptotpubatchmin")
+        engine.use_native = settings.getbool("cryptonative")
+        engine.num_threads = settings.getint("cryptonativethreads")
+        engine.window = settings.getfloat("cryptobatchwindow")
     queue = node.ctx.object_queue
     queue.high = settings.getint("ingestqueuehigh")
     queue.low = max(1, queue.high // 4)
@@ -420,6 +425,15 @@ async def run(args) -> int:
         "maxacceptablenoncetrialsperbyte")
     node.sender.max_acceptable_extra = settings.getint(
         "maxacceptablepayloadlengthextrabytes")
+    sockstype = settings.get("sockstype", REFUSED["sockstype"][0])
+    if sockstype in ("SOCKS5", "SOCKS4a"):
+        node.ctx.proxy = {
+            "type": sockstype,
+            "host": settings.get("sockshostname"),
+            "port": settings.getint("socksport"),
+            "username": settings.get("socksusername"),
+            "password": settings.get("sockspassword"),
+        }
     if args.trusted_peer:
         host, _, port = args.trusted_peer.rpartition(":")
         node.pool.trusted_peer = Peer(host, int(port))
@@ -431,6 +445,17 @@ async def run(args) -> int:
     except BaseException:
         PROFILER.stop()
         raise
+
+    upnp_client = None
+    if settings.getbool("upnp") and not args.no_listen:
+        from .network.upnp import UPnPClient
+        upnp_client = UPnPClient()
+        try:
+            await upnp_client.discover(timeout=5)
+            await upnp_client.add_port_mapping(node.pool.listen_port)
+        except Exception as exc:
+            logging.warning("UPnP port mapping unavailable: %r", exc)
+            upnp_client = None
 
     notifier = None
     if settings.get("apinotifypath"):
@@ -473,6 +498,11 @@ async def run(args) -> int:
         notifier.stop()
     if api is not None:
         await api.stop()
+    if upnp_client is not None:
+        try:
+            await upnp_client.delete_port_mapping()
+        except Exception as exc:
+            logging.warning("UPnP unmap failed: %r", exc)
     await node.stop()
     PROFILER.stop()
     logging.info("kernel launches at stop: %s",

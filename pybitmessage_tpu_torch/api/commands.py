@@ -794,16 +794,29 @@ class CommandHandler:
                           "window": svc.window}}
 
     def _crypto_stats(self) -> dict:
-        """Receive-side crypto block: whether the batch engine runs, its
-        drains and their ECDH pairs; ``hostChecks`` (the port's own
-        key) counts verifies and decrypts run on host threads."""
+        """Receive-side crypto block: whether the batch engine runs, the
+        engine's routing (``BatchCryptoEngine.snapshot``: the rung of
+        its last drain, the card rung's threshold, the items each rung
+        settled; ``native`` and ``rungs``, each rung's drains and fans,
+        are the port's own keys), the native breaker and fallbacks, its
+        drains and their ECDH pairs.  ``hostChecks`` (the port's own
+        key) counts verifies and decrypts run on the crypto pool's host
+        threads (no engine); ``clientEngine`` is a light client's engine
+        routing."""
         crypto = self.node.crypto
         engine = crypto.batch
         out: dict = {"batchEngine": engine is not None and engine.running,
                      "hostChecks": {"verifies": crypto.host_verifies,
                                     "decrypts": crypto.host_decrypts}}
+        client = getattr(self.node, "client_crypto", None)
+        if client is not None:
+            out["clientEngine"] = client.snapshot()
         if engine is not None:
-            out["items"] = {"gpu": engine.gpu_items}
+            out.update(engine.snapshot())
+            out["breakers"] = {
+                "native": engine.breaker.snapshot()["state"]}
+            out["fallbacks"] = {"native": int(REGISTRY.sample(
+                "crypto_native_fallback_total"))}
             out["drains"] = {
                 "budget": engine.drain_max,
                 "count": engine.drains,

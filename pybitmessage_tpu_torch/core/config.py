@@ -44,6 +44,15 @@ DEFAULTS: dict[str, str] = {
     "apiusername": "",
     "apipassword": "",
     "apinotifypath": "",
+    "udp": "true",                   # LAN discovery
+    "upnp": "false",                 # map the P2P port on the gateway
+    "tls": "true",                   # opportunistic NODE_SSL
+    # "sockstype" (none | SOCKS5 | SOCKS4a | a plugin name) has its JAX
+    # default in the daemon's REFUSED table, which refuses plugin names
+    "sockshostname": "",
+    "socksport": "9050",
+    "socksusername": "",
+    "sockspassword": "",
     "powbatchwindow": "0.05",        # PoW coalescing window, seconds
                                      # (0 = launch immediately)
     "ingestworkers": "8",            # concurrent objects in the
@@ -56,6 +65,21 @@ DEFAULTS: dict[str, str] = {
     "cryptobatch": "true",           # decrypts and signature checks
                                      # through the batch engine on the
                                      # device (off = host threads)
+    "cryptonative": "true",          # the native secp256k1 rung for
+                                     # drains under cryptotpubatchmin
+                                     # (off = the pure per-item tier)
+    "cryptobatchwindow": "0.0",      # batch coalescing window, seconds
+                                     # (0 = drain immediately; batching
+                                     # emerges from load)
+    "cryptonativethreads": "1",      # std::thread fan-out inside each
+                                     # native batch call (0 = all
+                                     # hardware threads)
+    "cryptotpu": "auto",             # the card rung: auto and on run it
+                                     # on the node's device, off never
+    "cryptotpubatchmin": "64",       # min effective drain fan (checks
+                                     # + ECDH candidate pairs) worth a
+                                     # launch; smaller drains run on
+                                     # the native rung
     "cryptodrainmax": "4096",        # ECDH pair budget per
                                      # trial-decrypt drain
     "cryptoscreen": "true",          # object-keyed negative cache in
@@ -280,6 +304,20 @@ VALIDATORS: dict[str, Callable[[str], bool]] = {
     "ingestqueuehigh": _validate_int_range(0, 1 << 20),
     "cryptodrainmax": _validate_int_range(1, 1 << 20),
     "cryptobatch": _validate_bool,
+    "cryptonative": _validate_bool,
+    "cryptobatchwindow": _validate_float_range(0.0, 10.0),
+    "cryptonativethreads": _validate_int_range(0, 256),
+    "cryptotpu": lambda v: v.lower() in ("auto", "on", "off", "true",
+                                         "false", "0", "1", "yes",
+                                         "no"),
+    "cryptotpubatchmin": _validate_int_range(1, 1 << 20),
+    "udp": _validate_bool,
+    "upnp": _validate_bool,
+    "tls": _validate_bool,
+    "socksport": _validate_int_range(1, 65535),
+    # besides the literal protocols, any identifier names a proxyconfig
+    # plugin (reference socksproxytype convention, e.g. "stem")
+    "sockstype": lambda v: v.replace("_", "").isalnum() or v == "none",
     "cryptoscreen": _validate_bool,
     "inventorystorage": lambda v: v in ("sqlite", "filesystem", "slab"),
     "slabmaxbytes": _validate_int_range(1 << 12, 1 << 30),

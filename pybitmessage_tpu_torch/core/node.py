@@ -58,8 +58,17 @@ rounds carry trace contexts to peers that advertise it too; and
 own ``FederationPublisher`` pushing into it (``GET
 /metrics/federated``, ``federatedStatus``).  ``mean_skew`` (the mean of
 the connections' clock-offset estimates) feeds the pushes and the
-flight recorder's dumps.  TLS, SOCKS, UDP discovery, UPnP and the email
-gateway are not part of this package yet.
+flight recorder's dumps.
+
+``tls_enabled`` (on by default, as in the JAX node) writes a self-signed
+certificate (``data_dir/tls``, or a temporary directory) and advertises
+NODE_SSL, so connections to peers that advertise it too upgrade to TLS
+after the veracks.  ``udp_enabled`` (off by default, as in the JAX node;
+the daemon turns it on from ``udp``) runs LAN discovery
+(``network/udp.py``) on the listening port.  Before the engine's first
+drain, ``start`` builds and loads its native rung's library off the
+event loop.  A SOCKS proxy is ``ctx.proxy``; UPnP is the daemon's.  The
+email gateway is not part of this package yet.
 """
 
 from __future__ import annotations
@@ -67,6 +76,7 @@ from __future__ import annotations
 import asyncio
 import logging
 import os
+import shutil
 from pathlib import Path
 
 from .. import resolve_device
@@ -122,7 +132,8 @@ class Node:
     ``client_connect``, the ``host:port`` of an edge's plane.
     ``sync_enabled``, ``wiretrace_enabled`` and ``federation_enabled``
     (all on by default) run set-reconciliation sync, the wire trace and
-    the metrics federation aggregator.
+    the metrics federation aggregator; ``tls_enabled`` (on) NODE_SSL and
+    ``udp_enabled`` (off) LAN discovery.
 
     ``inventory_backend`` chooses the inventory of a role that owns
     storage, as the JAX node does: ``"sqlite"`` (``messages.dat``),
@@ -140,6 +151,7 @@ class Node:
                  dandelion_enabled: bool = True,
                  allow_private_peers: bool = False,
                  stream: int = 1, test_mode: bool = False,
+                 tls_enabled: bool = True, udp_enabled: bool = False,
                  pow_window: float | None = None, device=None,
                  sync_enabled: bool = True,
                  wiretrace_enabled: bool = True,
@@ -245,6 +257,16 @@ class Node:
             # NODE_TRACE: sync rounds and object pushes carry trace
             # contexts to negotiating peers; legacy peers see nothing
             self.ctx.services |= NODE_TRACE
+        if tls_enabled:
+            # opportunistic NODE_SSL: an ephemeral, unverified
+            # certificate — confidentiality only
+            self.ctx.enable_tls(
+                self.data_dir / "tls" if self.data_dir else None)
+        self.udp = None
+        if udp_enabled and self.listen:
+            # a node that does not listen has nothing to announce
+            from ..network.udp import UDPDiscovery
+            self.udp = UDPDiscovery(self.pool)
         self.solver = PowDispatcher(self.device)
         #: crash-safe PoW job journal: queued and in-flight solves
         #: survive a restart and resume from their checkpointed offset
@@ -395,9 +417,16 @@ class Node:
         self.sender.start()
         self.processor.start()
         self.cleaner.start()
+        for engine in (self.crypto.batch, self.client_crypto):
+            if engine is not None:
+                await engine.load_native()
         await self.pool.start(listen=self.listen)
         if self.role_runtime is not None:
             await self.role_runtime.start()
+        if self.udp is not None:
+            # discovery shares the port the pool listens on
+            self.udp.port = self.pool.listen_port
+            await self.udp.start()
         self._pump_task = asyncio.create_task(self._pump_objects())
         # one structured log line a minute with the metrics that changed
         self._metrics_task = asyncio.create_task(log_snapshot_task(60.0))
@@ -454,6 +483,8 @@ class Node:
                 except asyncio.CancelledError:
                     pass
         self._pump_task = self._metrics_task = None
+        if self.udp is not None:
+            await self.udp.stop()
         await self.pool.stop()
         if self.role_runtime is not None:
             await self.role_runtime.stop()
@@ -475,6 +506,11 @@ class Node:
             self.farm_journal.close()
         self.pow_journal.close()
         self.db.close()
+        if self.data_dir is None and self.ctx.tls_files is not None:
+            # the certificate of a node without a data directory lives
+            # in a temporary directory of its own
+            shutil.rmtree(os.path.dirname(self.ctx.tls_files[0]),
+                          ignore_errors=True)
         logger.info("node stopped")
 
     # -- high-level API ------------------------------------------------------

@@ -1,12 +1,33 @@
 """Coalescing batch dispatcher for receive-side crypto (twin of
-``pybitmessage_tpu.crypto.batch``, with one rung).
+``pybitmessage_tpu.crypto.batch``).
 
 ECDSA checks and ECIES trial decryptions queue up; whatever accumulated
 while the previous drain was in flight, across objects and connections,
-becomes the next drain: one executor hop and one backend call per drain
-and op.  The backend is ``CudaSecp`` (``crypto/gpu.py``), whose calls
-are single kernel launches on the card, or any object speaking its drain
-ABI (``backend=``).
+becomes the next drain: one executor hop per drain and one backend call
+per drain and op.  Each drain goes to one of three rungs, routed as the
+JAX engine routes it by its effective fan (verify checks plus ECDH
+candidate pairs):
+
+1. **gpu** - a drain whose fan is at least ``gpu_batch_min``
+   (``cryptotpubatchmin``, 64) runs on the card: ``CudaSecp``
+   (``crypto/gpu.py``), single kernel launches, or any object speaking
+   its drain ABI (``backend=``).  The ``crypto.tpu`` chaos site sits at
+   its launch.  A failure here is a failed drain, logged, counted in
+   ``failed_drains`` and settled conservatively (verify False, decrypt
+   no-match), as a failed launch is: the card rung never walks down to
+   the host, which would hide the kernel.  ``use_gpu=False``
+   (``cryptotpu=off``) sends every drain to the host rungs.
+2. **native** - smaller drains run in the native library
+   (``crypto/native.py``, ``cryptonative``), under the ``crypto.native``
+   breaker and chaos site.  A failed native drain re-runs on the pure
+   tier, counted in ``crypto_native_fallback_total`` and logged, as in
+   the JAX engine (host to host: no device is hidden).  A library that
+   cannot be built or fails its self-test raises.
+3. **pure** - the per-item Python checks (``crypto/signing.py``,
+   ``crypto/ecies.py``) across a small thread pool, when the native rung
+   is off, its breaker open or its drain failed.
+
+The two batch rungs share the scalar work:
 
 - **verify** - the s^-1 of a drain's signatures collapse into one
   modular inversion (Montgomery's trick); scalars u1 = e/s and u2 = r/s
@@ -21,28 +42,30 @@ ABI (``backend=``).
   matched objects prune their remaining pairs between drains.  AES runs
   only for the real match.
 
-A drain that raises is logged, counted in ``failed_drains`` and settled
-conservatively (verify False, decrypt no-match), as the reference's
-drain loop does; there is no lower rung to walk down to.  Drain sizes,
-seconds, items and ECDH drain widths go to the JAX engine's metric
-families under the rung name ``gpu``; its fallback families have
-nothing to count here.
+Drain sizes, seconds, items per rung (``crypto_batch_ops_total{path}``,
+``crypto_rung_seconds_total{rung}``) and ECDH drain widths go to the JAX
+engine's metric families under the rung names ``gpu``, ``native`` and
+``pure``.
 """
 
 from __future__ import annotations
 
 import asyncio
 import logging
+import os
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Sequence
 
 from ..observability import DEFAULT_SIZE_BUCKETS, REGISTRY
+from ..resilience import CircuitBreaker
+from ..resilience.chaos import inject
 from ..resilience.policy import ERRORS
 from . import ecies, fallback
 from .keys import priv_scalar32, pub_point64
 from .signing import _HASHERS, digest_order, note_digest
+from .signing import verify as pure_verify
 
 logger = logging.getLogger("pybitmessage_tpu_torch.crypto")
 
@@ -65,6 +88,10 @@ RUNG_SECONDS = REGISTRY.counter(
     "Drain work seconds accumulated per crypto-ladder rung "
     "(tpu/native/pure) — the per-rung half of the costStatus "
     "attribution plane", ("rung",))
+NATIVE_FALLBACKS = REGISTRY.counter(
+    "crypto_native_fallback_total",
+    "Drains whose native batch attempt failed and re-ran on the pure "
+    "per-item tier (breaker-counted; no check is lost)")
 SHUTDOWN_SETTLED = REGISTRY.counter(
     "crypto_batch_shutdown_settled_total",
     "Checks still pending at engine shutdown, settled deterministically "
@@ -77,8 +104,8 @@ DRAIN_WIDTH = REGISTRY.histogram(
     "clear cryptotpubatchmin for the tpu rung to earn its launch",
     buckets=DEFAULT_SIZE_BUCKETS)
 
-#: the engine's one rung, as its metric label
-RUNG = "gpu"
+#: the rungs, as their metric labels
+RUNGS = ("gpu", "native", "pure")
 
 _N = fallback.N
 
@@ -103,29 +130,51 @@ class _DecryptJob:
 class BatchCryptoEngine:
     """Coalesces verify / trial-decrypt calls into batch drains.
 
-    ``device``: where the default backend runs (``None``: the CUDA card,
-    raising without one).  ``drain_max`` caps the ECDH pairs of one trial-decrypt drain
-    (``cryptodrainmax``).  ``backend`` replaces ``CudaSecp`` (tests pass
-    a recording stub).  ``screen`` (optional) records genuinely
-    completed no-match sweeps of tagged jobs: ``screen.insert(tag,
-    epoch)``; conservative settlements never insert.
+    ``device``: where the card rung runs (``None``: the CUDA card,
+    raising without one; ``"cpu"``: the kernels' plain versions).
+    ``backend`` replaces its ``CudaSecp`` (tests pass a recording stub).
+    ``use_gpu`` and ``gpu_batch_min`` (``cryptotpu``,
+    ``cryptotpubatchmin``) gate the card rung; ``use_native`` and
+    ``num_threads`` (``cryptonative``, ``cryptonativethreads``) the
+    native one; ``window`` (``cryptobatchwindow``) sleeps after a
+    drain's first item to let it grow; ``drain_max`` caps the ECDH pairs
+    of one trial-decrypt drain (``cryptodrainmax``).  ``screen``
+    (optional) records genuinely completed no-match sweeps of tagged
+    jobs: ``screen.insert(tag, epoch)``; conservative settlements never
+    insert.
     """
 
     def __init__(self, device=None, *, drain_max: int = 4096,
-                 backend=None):
+                 backend=None, use_gpu: bool = True,
+                 gpu_batch_min: int = 64, use_native: bool = True,
+                 num_threads: int = 1, window: float = 0.0):
         if backend is None:
             from .gpu import CudaSecp
             backend = CudaSecp(device)
         self.backend = backend
+        self.use_gpu = use_gpu
+        self.gpu_batch_min = gpu_batch_min
+        self.use_native = use_native
+        self.num_threads = num_threads
+        self.window = window
         self.drain_max = drain_max
         self.screen = None
         self.queue: asyncio.Queue = asyncio.Queue()
+        self.breaker = CircuitBreaker("crypto.native", threshold=3,
+                                      cooldown=60.0)
+        self._native = None
         self._task: asyncio.Task | None = None
         self._exec: ThreadPoolExecutor | None = None
+        self._fan: ThreadPoolExecutor | None = None
         self._lock = threading.Lock()
-        #: checks settled by the backend, trial-decrypt drains and their
-        #: ECDH pairs, and drains settled conservatively after a failure
-        self.gpu_items = 0
+        #: checks settled per rung, the rung of the last drain, each
+        #: rung's drains and the least and most fan it took
+        self.gpu_items = self.native_items = self.pure_items = 0
+        self.last_path: str | None = None
+        self.rung_drains = dict.fromkeys(RUNGS, 0)
+        self.rung_fans: dict[str, list[int]] = {}
+        #: trial-decrypt drains and their ECDH pairs, and drains settled
+        #: conservatively after a failure
         self.drains = 0
         self.drain_pairs = 0
         self.failed_drains = 0
@@ -140,6 +189,23 @@ class BatchCryptoEngine:
         self._task = asyncio.create_task(self._run())
         return self._task
 
+    def native(self):
+        """The native rung's library (built and self-tested at first
+        use; raises when it cannot be)."""
+        if self._native is None:
+            from .native import NativeSecp
+            self._native = NativeSecp(self.num_threads)
+        self._native.num_threads = self.num_threads
+        return self._native
+
+    async def load_native(self) -> None:
+        """Build and load the native library off the event loop, on the
+        drain thread, before the first drain needs it (a no-op with the
+        rung off)."""
+        if self.use_native:
+            await asyncio.get_running_loop().run_in_executor(
+                self._executor(), self.native)
+
     async def stop(self) -> None:
         if self._task:
             self._task.cancel()
@@ -153,9 +219,10 @@ class BatchCryptoEngine:
         while not self.queue.empty():
             self._settle(self.queue.get_nowait(), shutdown=True)
         with self._lock:
-            if self._exec is not None:
-                self._exec.shutdown(wait=False, cancel_futures=True)
-                self._exec = None
+            for pool in (self._exec, self._fan):
+                if pool is not None:
+                    pool.shutdown(wait=False, cancel_futures=True)
+            self._exec = self._fan = None
 
     @staticmethod
     def _settle(job, *, shutdown: bool = False) -> None:
@@ -172,6 +239,29 @@ class BatchCryptoEngine:
                 self._exec = ThreadPoolExecutor(
                     max_workers=1, thread_name_prefix="bmtpu-cryptobatch")
             return self._exec
+
+    def _fanout(self) -> ThreadPoolExecutor:
+        """The small pool the pure tier fans per-item work across."""
+        with self._lock:
+            if self._fan is None:
+                self._fan = ThreadPoolExecutor(
+                    max_workers=max(2, min(8, os.cpu_count() or 2)),
+                    thread_name_prefix="bmtpu-cryptofan")
+            return self._fan
+
+    def snapshot(self) -> dict:
+        """The routing's state: the rung of the last drain, the card
+        rung's threshold (None with the card rung off), the items each
+        rung settled, and each rung's drains with the least and most fan
+        it took (None before its first)."""
+        return {"activeRung": self.last_path,
+                "batchMin": self.gpu_batch_min if self.use_gpu else None,
+                "native": self.use_native,
+                "items": {rung: getattr(self, rung + "_items")
+                          for rung in RUNGS},
+                "rungs": {rung: {"drains": self.rung_drains[rung],
+                                 "fan": self.rung_fans.get(rung)}
+                          for rung in RUNGS}}
 
     # -- public API ----------------------------------------------------------
 
@@ -206,6 +296,8 @@ class BatchCryptoEngine:
             batch: list = []
             try:
                 batch.append(await self.queue.get())
+                if self.window > 0:
+                    await asyncio.sleep(self.window)
                 while not self.queue.empty():
                     batch.append(self.queue.get_nowait())
                 verifies = [j for j in batch if isinstance(j, _VerifyJob)]
@@ -236,25 +328,91 @@ class BatchCryptoEngine:
     # -- execution (worker thread) -------------------------------------------
 
     def _execute(self, verifies, decrypts):
-        """One drain's work; returns (verify bools, decrypt matches)."""
+        """One drain's work on its rung; returns (verify bools, decrypt
+        matches).  A card-rung failure propagates (a failed drain); a
+        native failure re-runs the drain on the pure tier."""
+        fan = len(verifies) + sum(len(j.candidates) for j in decrypts)
+        if self.use_gpu and fan >= self.gpu_batch_min:
+            try:
+                inject("crypto.tpu")
+                return self._run_rung("gpu", self.backend, verifies,
+                                      decrypts, fan)
+            except Exception:
+                ERRORS.labels(site="crypto.tpu").inc()
+                raise
+        if self.use_native and self.breaker.allow():
+            native = self.native()
+            try:
+                inject("crypto.native")
+                out = self._run_rung("native", native, verifies,
+                                     decrypts, fan)
+                self.breaker.record_success()
+                return out
+            except Exception:
+                self.breaker.record_failure()
+                ERRORS.labels(site="crypto.native").inc()
+                NATIVE_FALLBACKS.inc()
+                logger.exception("native crypto batch failed; re-running "
+                                 "the drain on the pure per-item tier")
+        return self._run_rung("pure", None, verifies, decrypts, fan)
+
+    def _run_rung(self, rung: str, backend, verifies, decrypts, fan: int):
+        """The drain on ``backend`` (None: the pure tier), counted under
+        ``rung``."""
         t0 = time.monotonic()
-        v_res = self._backend_verify(self.backend, verifies)
-        tv = time.monotonic()
-        d_res = self._backend_decrypt(self.backend, decrypts)
+        if backend is None:             # the pure tier
+            v_res = self._map(lambda j: pure_verify(j.data, j.sig, j.pub),
+                              verifies)
+            tv = time.monotonic()
+            d_res = self._map(self._pure_sweep, decrypts)
+        else:
+            v_res = self._backend_verify(backend, verifies)
+            tv = time.monotonic()
+            d_res = self._backend_decrypt(backend, decrypts)
         if verifies:
             BATCH_SECONDS.labels(op="verify").observe(tv - t0)
             BATCH_SIZE.labels(op="verify").observe(len(verifies))
-            BATCH_OPS.labels(op="verify", path=RUNG).inc(len(verifies))
+            BATCH_OPS.labels(op="verify", path=rung).inc(len(verifies))
         if decrypts:
             BATCH_SECONDS.labels(op="decrypt").observe(
                 time.monotonic() - tv)
             BATCH_SIZE.labels(op="ecdh").observe(
                 sum(len(j.candidates) for j in decrypts))
-            BATCH_OPS.labels(op="decrypt", path=RUNG).inc(len(decrypts))
-        RUNG_SECONDS.labels(rung=RUNG).inc(time.monotonic() - t0)
+            BATCH_OPS.labels(op="decrypt", path=rung).inc(len(decrypts))
+        RUNG_SECONDS.labels(rung=rung).inc(time.monotonic() - t0)
         self._screen_note(decrypts, d_res)
-        self.gpu_items += len(verifies) + len(decrypts)
+        setattr(self, rung + "_items", getattr(self, rung + "_items")
+                + len(verifies) + len(decrypts))
+        self.rung_drains[rung] += 1
+        lo_hi = self.rung_fans.setdefault(rung, [fan, fan])
+        lo_hi[0], lo_hi[1] = min(lo_hi[0], fan), max(lo_hi[1], fan)
+        self.last_path = rung
         return v_res, d_res
+
+    def _map(self, fn, items) -> list:
+        """``fn`` over items on the pure tier's pool, in order."""
+        if len(items) <= 1:
+            return [fn(item) for item in items]
+        return list(self._fanout().map(fn, items))
+
+    @staticmethod
+    def _pure_sweep(job) -> list:
+        """One object's trial decrypt on the pure tier: the first
+        candidate whose ECDH passes the MAC and unpads wins."""
+        try:
+            pp = ecies.parse_payload(job.payload)
+        except ValueError:
+            return []
+        for priv, handle in job.candidates:
+            try:
+                key_e, key_m = ecies.kdf(
+                    fallback.ecdh_x(priv, pp.ephem_pub))
+                if not ecies.mac_ok(key_m, pp.macdata, pp.tag):
+                    continue
+                return [(ecies.finish_decrypt(key_e, pp), handle)]
+            except ValueError:
+                continue            # bad key or point: a miss
+        return []
 
     def _screen_note(self, decrypts, d_res) -> None:
         """Record genuinely completed no-match sweeps in the negative

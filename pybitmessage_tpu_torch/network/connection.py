@@ -1,6 +1,7 @@
 """One peer connection: framed packets, handshake, command dispatch
-(copy of ``pybitmessage_tpu.network.connection``, without TLS; every
-framed send is the ``net.send`` chaos site).
+(copy of ``pybitmessage_tpu.network.connection``; every framed send is
+the ``net.send`` chaos site).  When both ends advertise NODE_SSL the
+stream upgrades to TLS right after the veracks (``_upgrade_tls``).
 Frames, framing errors and handshake timeouts go to the JAX
 connection's metric families.
 
@@ -43,7 +44,7 @@ from collections import deque
 from typing import TYPE_CHECKING
 
 from ..models.constants import (MAGIC, MAX_OBJECT_COUNT, MAX_TIME_OFFSET,
-                                NODE_SYNC, NODE_TRACE)
+                                NODE_SSL, NODE_SYNC, NODE_TRACE)
 from ..models.objects import (ObjectError, ObjectHeader, check_by_type,
                               extract_tag)
 from ..observability import REGISTRY
@@ -182,6 +183,7 @@ class BMConnection:
         self.verack_received = False
         self.verack_sent = False
         self.fully_established = False
+        self.tls_established = False
         self.last_activity = time.time()
         self._closed = False
         self.pending_upload: deque[bytes] = deque()
@@ -405,8 +407,11 @@ class BMConnection:
             self.port = ver.my_port
         # the OUTBOUND side veracks as soon as it has the peer's
         # version; the INBOUND side answers with its version and defers
-        # its verack until the peer's verack has arrived (the JAX
-        # package's order, which its TLS upgrade relies on)
+        # its verack until the peer's verack has arrived.  The inbound
+        # verack is then the last plaintext packet on the wire: when the
+        # outbound side reads it and sends its ClientHello, the inbound
+        # side has already swapped its transport, so no handshake byte
+        # can strand in a plaintext buffer (the JAX package's order)
         if self.outbound:
             await self.send_packet("verack")
             self.verack_sent = True
@@ -427,9 +432,28 @@ class BMConnection:
         if self.verack_sent:
             await self._establish()
 
+    async def _upgrade_tls(self) -> None:
+        """Mid-stream TLS after the verack exchange (reference
+        tls.py:62-220, bmproto.py:552-560).  The handlers run inline in
+        the read loop and a verack has no payload, so neither the
+        stream reader nor a pooled receive buffer holds a byte past the
+        verack when the transport is swapped."""
+        from .tls import make_client_context, make_server_context
+        if self.outbound:
+            tls_ctx = make_client_context()
+        else:
+            tls_ctx = make_server_context(*self.ctx.tls_files)
+        await self.writer.start_tls(tls_ctx, ssl_handshake_timeout=10)
+        self.tls_established = True
+        logger.debug("TLS established with %s:%s (%s)", self.host,
+                     self.port, self.writer.get_extra_info("cipher"))
+
     async def _establish(self) -> None:
         if self.fully_established:
             return
+        if self.ctx.tls_files is not None and self.services & NODE_SSL \
+                and self.ctx.services & NODE_SSL:
+            await self._upgrade_tls()
         self.fully_established = True
         if self._handshake_task is not None:
             self._handshake_task.cancel()

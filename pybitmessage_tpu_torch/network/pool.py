@@ -1,7 +1,10 @@
 """Shared node state and the connection pool: dialer, listener, gossip
-cadences (copy of ``pybitmessage_tpu.network.pool``, without TLS,
-SOCKS and UDP discovery; every outbound dial is the ``net.dial`` chaos
-site).  With a ``reconciler`` attached
+cadences (copy of ``pybitmessage_tpu.network.pool``; every outbound dial
+is the ``net.dial`` chaos site).  ``NodeContext.enable_tls`` writes the
+node's certificate and advertises NODE_SSL; a set ``ctx.proxy`` sends
+every dial through a SOCKS5 or SOCKS4a proxy (``network/socks.py``);
+peers heard over UDP discovery (``lan_peer_discovered``) are dialled
+first half of the time.  With a ``reconciler`` attached
 (set-reconciliation sync), fluff announcements go through its flood /
 pending split and the inv loop drives its rounds.
 The roles' hooks are here: ``on_object`` and ``on_announce`` (a relay's
@@ -23,11 +26,12 @@ from __future__ import annotations
 import asyncio
 import logging
 import random
+import socket
 import time
 from collections import deque
 from typing import Callable, Optional
 
-from ..models.constants import NODE_DANDELION, NODE_NETWORK
+from ..models.constants import NODE_DANDELION, NODE_NETWORK, NODE_SSL
 from ..observability import REGISTRY
 from ..observability.lifecycle import LIFECYCLE
 from ..observability.metrics import peer_bucket_label
@@ -43,6 +47,21 @@ from .ratelimit import TokenBucket
 from .tracker import ANNOUNCE_BUCKETS, GlobalTracker
 
 logger = logging.getLogger("pybitmessage_tpu_torch.network")
+
+
+def _is_local_address(host: str) -> bool:
+    """True when ``host`` is one of this machine's own addresses: a UDP
+    connect (no packet sent) to a local address picks that same address
+    as its source."""
+    if host in ("127.0.0.1", "::1", "localhost"):
+        return True
+    try:
+        family = socket.AF_INET6 if ":" in host else socket.AF_INET
+        with socket.socket(family, socket.SOCK_DGRAM) as s:
+            s.connect((host, 9))
+            return s.getsockname()[0] == host
+    except OSError:
+        return False
 
 DEFAULT_MAX_OUTBOUND = 8
 DEFAULT_MAX_TOTAL = 200
@@ -108,6 +127,21 @@ class NodeContext:
         #: edge role: payload fetch for getdata hashes known relay-side
         #: but not cached here, ``(hash, conn) -> bool``, or None
         self.payload_fetcher = None
+        #: opportunistic TLS (NODE_SSL): (certfile, keyfile) or None,
+        #: set by :meth:`enable_tls`
+        self.tls_files: tuple[str, str] | None = None
+        #: SOCKS proxy for outbound dials: None or {type: "SOCKS5" |
+        #: "SOCKS4a", host, port, username, password}
+        self.proxy: dict | None = None
+
+    def enable_tls(self, directory=None) -> None:
+        """Write this node's self-signed certificate (under
+        ``directory``, or a temporary directory) and advertise NODE_SSL.
+        A certificate that cannot be made raises: TLS is never switched
+        off here."""
+        from .tls import generate_self_signed_cert
+        self.tls_files = generate_self_signed_cert(directory)
+        self.services |= NODE_SSL
 
 
 class ConnectionPool:
@@ -144,6 +178,8 @@ class ConnectionPool:
         #: set-reconciliation subsystem (``sync/reconciler.py``); None
         #: keeps the classic flooding-only paths
         self.reconciler = None
+        #: LAN peers heard over UDP discovery -> last-heard time
+        self.lan_peers: dict[Peer, float] = {}
         #: (AddrEntry, due_time) queue for ongoing addr relay
         self._addr_gossip: list = []
         #: peers that asked us to verify their reachability
@@ -263,9 +299,19 @@ class ConnectionPool:
             return None
         try:
             inject("net.dial")
-            reader, writer = await asyncio.wait_for(
-                asyncio.open_connection(peer.host, peer.port),
-                timeout=self.dial_timeout)
+            if self.ctx.proxy is not None:
+                from .socks import open_via_proxy
+                p = self.ctx.proxy
+                reader, writer = await asyncio.wait_for(
+                    open_via_proxy(
+                        p["type"], p["host"], p["port"], peer.host,
+                        peer.port, username=p.get("username", ""),
+                        password=p.get("password", ""), timeout=30),
+                    timeout=max(self.dial_timeout, 30))
+            else:
+                reader, writer = await asyncio.wait_for(
+                    asyncio.open_connection(peer.host, peer.port),
+                    timeout=self.dial_timeout)
         except (OSError, asyncio.TimeoutError) as exc:
             logger.debug("dial %s failed: %r", peer, exc)
             DIALS.labels(result="failed").inc()
@@ -305,6 +351,14 @@ class ConnectionPool:
         """Queue a reachability-verification dial (cmd_portcheck)."""
         if peer not in self._portcheck_queue:
             self._portcheck_queue.append(peer)
+
+    def lan_peer_discovered(self, peer: Peer, stream: int = 1) -> None:
+        """A peer announced itself over LAN UDP: heard from its own
+        source address, so the dialer prefers it half of the time
+        (reference connectionchooser.py:57-62)."""
+        if peer.port == self.listen_port and _is_local_address(peer.host):
+            return  # our own broadcast echoed back from a local interface
+        self.lan_peers[peer] = time.time()
 
     def peer_discovered(self, entry: AddrEntry) -> None:
         # Reject unroutable addresses from gossip — loopback/private/
@@ -394,6 +448,12 @@ class ConnectionPool:
                                  for c in self.outbound]:
                 peer = candidate
                 break
+        # 50% preference for LAN-discovered peers heard in the last 3 h
+        # (connectionchooser.py)
+        fresh_lan = [p for p, ts in self.lan_peers.items()
+                     if time.time() - ts < 10800]
+        if peer is None and fresh_lan and random.random() < 0.5:
+            peer = random.choice(fresh_lan)
         if peer is None:
             peer = self.ctx.knownnodes.choose()
         if peer is None:

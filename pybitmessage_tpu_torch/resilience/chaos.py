@@ -31,11 +31,14 @@ The sites this package plants (:data:`SITES`):
                        session writer and the client's (``roles/``)
 ``sync.sketch_decode`` sketch subtract/peel (reconciler gossip/catch-up,
                        ``sync/reconciler.py``)
+``crypto.native``      a native-rung drain of the batch crypto engine
+                       (``crypto/batch.py``; re-run on the pure tier)
+``crypto.tpu``         a card-rung drain's launch (a failed drain,
+                       settled conservatively, never re-run on the host)
 =====================  ==================================================
 
-The JAX package's two other sites, ``crypto.native`` and ``crypto.tpu``,
-belong to batch-crypto rungs this package does not have;
-:func:`unplanted` names them in a spec so the daemon can refuse it.
+That is the JAX catalog whole.  :func:`unplanted` names a spec's sites
+outside it, so the daemon can refuse a spec that would arm nothing.
 
 Arming, one of:
 
@@ -70,7 +73,8 @@ FAULTS = REGISTRY.counter(
 SITES = ("pow.device_launch", "pow.readback", "db.write", "net.dial",
          "net.send", "api.dispatch", "storage.slab_io", "farm.accept",
          "farm.dispatch", "farm.result", "role.ipc", "role.handoff",
-         "role.replica", "role.client", "sync.sketch_decode")
+         "role.replica", "role.client", "sync.sketch_decode",
+         "crypto.native", "crypto.tpu")
 
 
 class ChaosError(RuntimeError):

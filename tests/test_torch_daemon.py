@@ -63,8 +63,11 @@ def _env(**extra):
 
 
 def _port_daemon(home, *extra):
+    """The daemon's command line; ``--no-udp``: its LAN announce would
+    broadcast beyond this host (in process, the tests point discovery at
+    127.0.0.1)."""
     return [sys.executable, "-m", "pybitmessage_tpu_torch", "-d",
-            str(home), *extra]
+            str(home), "--no-udp", *extra]
 
 
 def _free_port() -> int:
@@ -140,11 +143,9 @@ def test_port_daemon_lifecycle_driven_by_the_jax_cli(tmp_path):
         assert (home / "settings.dat").exists()
         assert (home / "keys.dat").exists()
         assert (home / "messages.dat").exists()
-        warning = [line for line in (home / "debug.log").read_text()
-                   .splitlines() if "not run by this package yet" in line]
-        assert len(warning) == 1 and "tls, udp, cryptonative" in warning[0]
-        for switch in ("syncenabled", "wiretrace", "federation"):
-            assert switch not in warning[0]
+        # every subsystem of the JAX defaults runs: no warning names one
+        assert "not run by this package" not in \
+            (home / "debug.log").read_text()
 
         proc.send_signal(signal.SIGTERM)
         assert proc.wait(timeout=STOP_TIMEOUT) == 0
@@ -186,10 +187,10 @@ def test_the_port_lock_refuses_a_jax_instance(tmp_path):
 def test_a_refused_setting_exits_1_naming_it(tmp_path):
     run = subprocess.run(
         _port_daemon(tmp_path / "home", "--device", "cpu", "-t",
-                     "--no-api", "-p", "0", "--set", "sockstype=SOCKS5"),
+                     "--no-api", "-p", "0", "--set", "sockstype=stem"),
         env=_env(), cwd=ROOT, capture_output=True, timeout=START_TIMEOUT)
     assert run.returncode == 1
-    assert b"refusing to start: sockstype=SOCKS5" in run.stderr
+    assert b"refusing to start: sockstype=stem" in run.stderr
 
 
 def test_no_card_and_no_device_exits_1(tmp_path):
@@ -251,24 +252,79 @@ def test_each_refused_setting_is_off_by_the_jax_default(key):
     assert not turns_on(default)
     settings = port_config.Settings()
     assert daemon.refused_options(settings) == []
-    on = {"sockstype": "SOCKS5",
-          "smtpdenabled": "true", "upnp": "true",
+    on = {"sockstype": "stem",
+          "smtpdenabled": "true",
           "notifysound": "true"}.get(key, "127.0.0.1:9")
     settings.set(key, on)
     assert daemon.refused_options(settings) == ["%s=%s" % (key, on)]
+    if key == "sockstype":
+        # the two proxy protocols are applied, not refused
+        for proto in ("SOCKS5", "SOCKS4a"):
+            settings.set(key, proto)
+            assert daemon.refused_options(settings) == []
 
 
-def test_not_run_settings_are_on_by_the_jax_defaults():
+def _run_port_daemon(tmp_path, monkeypatch, *extra, start=None,
+                     stop=None):
+    """The port daemon's ``run`` in process over a ``Node`` whose
+    ``start`` is ``start`` (default: raise ``_Stop`` before anything
+    runs) and whose ``stop`` is ``stop`` (default: nothing); returns the
+    node it built, its journal and database closed by the caller."""
+    import asyncio
+    import pybitmessage_tpu_torch.__main__ as main
+    import pybitmessage_tpu_torch.core as core
+    built = []
+
+    class Recorded(core.Node):
+        async def start(self):
+            built.append(self)
+            if start is None:
+                raise _Stop
+            await start(self)
+
+        async def stop(self):
+            if stop is not None:
+                stop()
+
+    monkeypatch.setattr(core, "Node", Recorded)
+    args = main.build_parser().parse_args(
+        ["-d", str(tmp_path / "home"), "-t", "-p", "0", "--no-api",
+         "--device", "cpu", "--set", "profiling=false", *extra])
+    if start is None:
+        with pytest.raises(_Stop):
+            asyncio.run(main.run(args))
+    else:
+        assert asyncio.run(main.run(args)) == 0
+    [node] = built
+    return node
+
+
+def test_not_run_settings_are_on_by_the_jax_defaults(tmp_path, monkeypatch,
+                                                     caplog):
+    """Every subsystem the JAX daemon runs on its defaults runs here: a
+    daemon started on them warns of nothing, and its node has TLS, UDP
+    discovery and both crypto rungs on."""
     _, _, config = _jax()
-    for key, (default, on) in daemon.NOT_RUN.items():
-        assert config.DEFAULTS[key] == default and on(default), key
+    assert daemon.NOT_RUN == {}
     settings = port_config.Settings()
-    assert daemon.not_run_options(settings) == sorted(
-        daemon.NOT_RUN, key=list(daemon.NOT_RUN).index)
-    settings.set("tls", "false")
-    settings.set_temp("udp", False)
-    assert "tls" not in daemon.not_run_options(settings)
-    assert "udp" not in daemon.not_run_options(settings)
+    assert daemon.not_run_options(settings) == []
+    assert daemon.refused_options(settings) == []
+    for key in ("tls", "udp", "cryptonative", "cryptotpu"):
+        assert port_config.DEFAULTS[key] == config.DEFAULTS[key]
+    caplog.set_level("INFO")
+    node = _run_port_daemon(tmp_path, monkeypatch)
+    try:
+        assert not [r for r in caplog.records
+                    if r.levelname in ("WARNING", "ERROR")]
+        assert node.ctx.services & 2 and node.ctx.tls_files is not None
+        assert node.udp is not None
+        engine = node.crypto.batch
+        assert engine.use_gpu and engine.use_native
+        assert engine.gpu_batch_min == 64 and engine.window == 0.0
+        assert node.ctx.proxy is None
+    finally:
+        node.pow_journal.close()
+        node.db.close()
     # the network plane runs by default: its switches never warn
     for key in ("syncenabled", "wiretrace", "federation"):
         assert key not in daemon.NOT_RUN and key in port_config.DEFAULTS
@@ -289,6 +345,100 @@ def test_each_knob_of_an_unported_subsystem_is_ignored_alone(key):
     settings.set(key, value)
     assert daemon.refused_options(settings) == []
     assert daemon.not_run_options(settings) == warned
+
+
+#: each setting this slice moved out of ``REFUSED``, ``NOT_RUN`` or
+#: ``IGNORED_WHILE_OFF``: (the ``--set`` values, what the node must hold)
+MOVED = {
+    "tls": (("tls=false",),
+            lambda n: not n.ctx.services & 2 and n.ctx.tls_files is None),
+    "udp": (("udp=false",), lambda n: n.udp is None),
+    "sockstype": (("sockstype=SOCKS4a",),
+                  lambda n: n.ctx.proxy == {
+                      "type": "SOCKS4a", "host": "", "port": 9050,
+                      "username": "", "password": ""}),
+    "sockshostname": (("sockstype=SOCKS5", "sockshostname=127.0.0.9"),
+                      lambda n: n.ctx.proxy["host"] == "127.0.0.9"),
+    "socksport": (("sockstype=SOCKS5", "socksport=9150"),
+                  lambda n: n.ctx.proxy["port"] == 9150),
+    "socksusername": (("sockstype=SOCKS5", "socksusername=tor"),
+                      lambda n: n.ctx.proxy["username"] == "tor"),
+    "sockspassword": (("sockstype=SOCKS5", "sockspassword=s3cret"),
+                      lambda n: n.ctx.proxy["password"] == "s3cret"),
+    "cryptonative": (("cryptonative=false",),
+                     lambda n: not n.crypto.batch.use_native),
+    "cryptonativethreads": (("cryptonativethreads=3",),
+                            lambda n: n.crypto.batch.num_threads == 3),
+    "cryptotpu": (("cryptotpu=off",), lambda n: not n.crypto.batch.use_gpu),
+    "cryptotpubatchmin": (("cryptotpubatchmin=16",),
+                          lambda n: n.crypto.batch.gpu_batch_min == 16),
+    "cryptobatchwindow": (("cryptobatchwindow=0.25",),
+                          lambda n: n.crypto.batch.window == 0.25),
+}
+
+
+async def _map_through(igd_cls, node, seen: dict):
+    """A ``Node.start`` that serves a fake gateway for the daemon's UPnP
+    client and SIGTERMs the process once the daemon waits for it."""
+    import asyncio
+    import functools
+    from pybitmessage_tpu_torch.network import upnp
+    igd = igd_cls()
+    ssdp = await igd.start()
+    upnp.UPnPClient = functools.partial(seen["client"], ssdp_addr=ssdp)
+    seen["igd"] = igd
+
+    async def stop_when_waiting():
+        while signal.getsignal(signal.SIGTERM) is seen["handler"]:
+            await asyncio.sleep(0.02)
+        os.kill(os.getpid(), signal.SIGTERM)
+    seen["task"] = asyncio.create_task(stop_when_waiting())
+
+
+@pytest.mark.parametrize("key", sorted([*MOVED, "upnp"]))
+def test_each_moved_setting_reaches_its_subsystem(tmp_path, monkeypatch, key):
+    """Set to a value other than the JAX default, each setting that
+    this package once refused, warned of or ignored is applied: the node
+    the daemon builds carries it (``upnp``: the listening port is mapped
+    on a fake gateway after the start and unmapped at the stop)."""
+    _, _, config = _jax()
+    assert key in port_config.DEFAULTS or key == "sockstype"
+    assert key not in daemon.NOT_RUN and key not in daemon.IGNORED_WHILE_OFF
+    if key != "upnp":
+        sets, holds = MOVED[key]
+        for kv in sets:
+            k, _, v = kv.partition("=")
+            assert config.DEFAULTS[k] != v
+        flags = [f for kv in sets for f in ("--set", kv)]
+        node = _run_port_daemon(tmp_path, monkeypatch, *flags)
+        try:
+            assert holds(node)
+        finally:
+            node.pow_journal.close()
+            node.db.close()
+        return
+    from pybitmessage_tpu_torch.network import upnp
+    from tests.test_torch_udp import FakeIGD
+    monkeypatch.setattr(upnp, "UPnPClient", upnp.UPnPClient)
+    seen = {"client": upnp.UPnPClient,
+            "handler": signal.getsignal(signal.SIGTERM)}
+    try:
+        node = _run_port_daemon(
+            tmp_path, monkeypatch, "--set", "upnp=true", "-p", "18444",
+            start=lambda n: _map_through(FakeIGD, n, seen),
+            stop=lambda: seen["igd"].stop())
+    finally:
+        signal.signal(signal.SIGTERM, seen["handler"])
+    try:
+        actions = [r.split(b"SOAPAction: ")[1].split(b"\r\n")[0]
+                   for r in seen["igd"].requests[1:]]
+        assert [a.rsplit(b"#", 1)[1] for a in actions] == [
+            b'AddPortMapping"', b'DeletePortMapping"']
+        assert b"<NewInternalPort>18444</NewInternalPort>" in \
+            seen["igd"].requests[1]
+    finally:
+        node.pow_journal.close()
+        node.db.close()
 
 
 class _Stop(Exception):

@@ -304,10 +304,13 @@ def test_the_port_names_the_sites_it_does_not_plant():
     assert port_chaos.unplanted(
         "pow.device_launch:0.5,db.write:1x3,farm.accept,farm.dispatch:1,"
         "farm.result:0.1x2,role.ipc:1,role.handoff,role.replica:0.5,"
-        "role.client:1,sync.sketch_decode:0.5") == []
+        "role.client:1,sync.sketch_decode:0.5,crypto.native:0.5,"
+        "crypto.tpu") == []
+    # a site outside the JAX catalog: the JAX registry would arm it to
+    # no effect; the port names it (its daemon refuses the spec)
     assert port_chaos.unplanted(
-        "net.send:1, farm.accept:1,crypto.native:0.5,crypto.tpu") \
-        == ["crypto.native", "crypto.tpu"]
+        "net.send:1, farm.accept:1,crypto.gpu:0.5,net.bogus") \
+        == ["crypto.gpu", "net.bogus"]
     # every planted site is in the JAX catalog
     import inspect
     catalog = inspect.getdoc(_jax()[0].chaos)

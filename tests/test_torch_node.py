@@ -599,8 +599,10 @@ async def test_two_node_getpubkey_pubkey_msg_ack():
 
 async def test_broadcast_to_a_subscriber_through_the_engine():
     """B's trial decrypt and signature check run in the batch engine
-    (kernels 5 and 4 in their plain versions here)."""
+    (kernels 5 and 4 in their plain versions here; ``gpu_batch_min``
+    1 puts these one-item drains on the card rung)."""
     a, b = port_node(), port_node(crypto_batch=True)
+    b.crypto.batch.gpu_batch_min = 1
     bridge = Bridge()
     bridge.link(a, b)
     await a.start()

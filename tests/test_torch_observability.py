@@ -130,10 +130,8 @@ TWINS = [
 #: families a JAX twin defines that the port leaves out or words apart
 CATALOG_EXCEPTIONS = {
     "pow_mesh_compiles_total": "no device mesh until multi-GPU is ported",
-    "crypto_native_fallback_total": "the port's engine has one rung "
-                                    "(the card): no native rung",
-    "crypto_tpu_fallback_total": "the port's engine has one rung: a "
-                                 "failed drain is settled, not re-run",
+    "crypto_tpu_fallback_total": "a failed card drain is settled, never "
+                                 "re-run on the host rungs",
     "device_mfu_ratio": "help differs: the port's ratio is the share of "
                         "the card's bound, not flops over a TPU peak",
     "device_memory_bytes": "help differs: read from torch.cuda, not a "
@@ -521,7 +519,7 @@ async def test_verifier_and_engine_drains_are_attributed():
     assert len(got) == 5 and verifier.device_batches == 1
     priv = (12345).to_bytes(32, "big")
     pub = fallback.priv_to_pub(priv)
-    engine = BatchCryptoEngine("cpu")
+    engine = BatchCryptoEngine("cpu", gpu_batch_min=1)   # the card rung
     engine.start()
     try:
         ok = await engine.verify(b"data", sign(b"data", priv), pub)

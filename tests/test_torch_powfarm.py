@@ -975,8 +975,8 @@ def test_a_chaos_spec_naming_an_unplanted_site_exits_1(tmp_path):
         [sys.executable, "-m", "pybitmessage_tpu_torch", "-d",
          str(tmp_path / "home"), "--device", "cpu", "-t", "--no-api",
          "--no-listen", "--set",
-         "chaos=farm.dispatch:0.5,crypto.native:1x2,crypto.tpu"],
+         "chaos=farm.dispatch:0.5,crypto.gpu:1x2,net.bogus"],
         env=_env(), cwd=ROOT, capture_output=True, timeout=START_TIMEOUT)
     assert run.returncode == 1
-    assert b"chaos names crypto.native, crypto.tpu" in run.stderr
+    assert b"chaos names crypto.gpu, net.bogus" in run.stderr
     assert b"node started" not in run.stderr

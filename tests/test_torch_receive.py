@@ -273,8 +273,10 @@ async def _run_engine(engine, signed=(), sealed=None):
 async def test_engine_matches_reference_engine(signed, sealed):
     """One coalesced drain of signature checks and trial decrypts through
     ``CudaSecp(device="cpu")``, against the reference engine (host rungs)
-    on the same inputs."""
-    engine = batch.BatchCryptoEngine(device="cpu")
+    on the same inputs.  ``gpu_batch_min=1``: the drain (45 checks and
+    pairs) is under the default threshold, which would route it to the
+    native rung."""
+    engine = batch.BatchCryptoEngine(device="cpu", gpu_batch_min=1)
     calls = []
     inner = engine.backend.verify_prepared
 
@@ -302,10 +304,14 @@ class FailingBackend(RecordingBackend):
 
 
 async def test_failed_drain_settles_conservatively(signed, sealed):
-    engine = batch.BatchCryptoEngine(backend=FailingBackend())
+    """A failed card drain is settled conservatively, never re-run on a
+    host rung."""
+    engine = batch.BatchCryptoEngine(backend=FailingBackend(),
+                                     gpu_batch_min=1)
     got = await _run_engine(engine, signed[:2], (sealed[0][:1], sealed[1]))
     assert got == [False, False, []]
     assert engine.failed_drains == 1
+    assert engine.native_items == engine.pure_items == 0
     # the loop keeps draining after a failure
     engine.backend = RecordingBackend()
     got = await _run_engine(engine, signed[:1])

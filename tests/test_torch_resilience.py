@@ -9,9 +9,9 @@ seal writes: each fires in the same module and function as in the JAX
 package (a probe exception records where it was raised) and, armed with
 its defaults, ends as the JAX site ends (the same exception class, the
 same absorbed outcome, the same counters).  ``SITES`` is the JAX
-catalog less the two batch-crypto rungs, and ``unplanted`` names only
-those.  The watchdog: ``StallGuard`` counts as the JAX guard does, the
-pipeline's guard over a fetch held by the test counts into
+catalog, the two batch-crypto rungs included, and ``unplanted`` names
+only sites outside it.  The watchdog: ``StallGuard`` counts as the JAX
+guard does, the pipeline's guard over a fetch held by the test counts into
 ``pow_stall_total{site="pow.slab"}`` and raises the watchdog's
 ``SlabStallError``, and ``PowService`` over the dispatcher returns the
 lowest nonce after a readback fault and after a stall, with the
@@ -304,18 +304,20 @@ def _jax_catalog() -> list:
 
 
 def test_sites_are_the_jax_catalog_less_the_crypto_rungs():
+    """The port's sites are the JAX catalog whole: ``crypto.native`` and
+    ``crypto.tpu`` are planted in ``crypto/batch.py``."""
     catalog = _jax_catalog()
     assert len(catalog) == 17
-    assert set(port_chaos.SITES) == set(catalog) - {"crypto.native",
-                                                    "crypto.tpu"}
-    assert port_chaos.unplanted(",".join(catalog)) == ["crypto.native",
-                                                       "crypto.tpu"]
+    assert sorted(port_chaos.SITES) == sorted(catalog)
+    assert port_chaos.unplanted(",".join(catalog)) == []
+    assert port_chaos.unplanted(",".join(catalog) + ",crypto.gpu") == \
+        ["crypto.gpu"]
 
 
 def test_a_spec_naming_every_planted_site_starts_the_daemon(tmp_path,
                                                              monkeypatch):
     """The daemon's ``run`` accepts a ``chaos`` spec naming every JAX
-    site but the two crypto rungs, and arms each (seeded, p < 1)."""
+    site, the two crypto rungs too, and arms each (seeded, p < 1)."""
     import pybitmessage_tpu_torch.__main__ as main
     import pybitmessage_tpu_torch.core as core
 

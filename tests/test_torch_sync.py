@@ -469,7 +469,7 @@ def _nodes(**kw):
     from pybitmessage_tpu_torch.core import Node
     port = Node(device="cpu", listen=False, crypto_batch=False,
                 test_mode=True, **kw)
-    jax = JaxNode(None, listen=False, test_mode=True, tls_enabled=False,
+    jax = JaxNode(None, listen=False, test_mode=True,
                   solver=lambda ih, t, should_stop=None: python_solve(ih, t),
                   **kw)
     return port, jax

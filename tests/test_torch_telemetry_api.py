@@ -79,7 +79,7 @@ def daemon(tmp_path_factory):
     port = _free_port()
     proc = subprocess.Popen(
         [sys.executable, "-m", "pybitmessage_tpu_torch", "-d",
-         str(tmp / "home"), "--device", "cpu", "-t", "-p", "0",
+         str(tmp / "home"), "--device", "cpu", "-t", "-p", "0", "--no-udp",
          "--api-port", str(port), "--api-user", USER,
          "--api-password", PASS, "--set", "apinotifypath=%s" % hook,
          "--set", "cryptobatch=false", "--set", "federation=off"],
