@@ -18,9 +18,18 @@ The rest of the network is applied as the JAX daemon applies it:
 opportunistic TLS (``tls``), UDP LAN discovery (``udp``; ``--no-udp``
 and ``--no-listen`` turn it off), SOCKS5 and SOCKS4a dials
 (``sockstype``, ``sockshostname``, ``socksport``, ``socksusername``,
-``sockspassword``; a proxy plugin name is refused) and the UPnP mapping
-of the listening port (``upnp``, deleted at stop; a gateway that does
-not answer costs a warning).  So are the receive-side crypto rungs:
+``sockspassword``), a ``sockstype`` naming a proxyconfig plugin (the
+shipped ``stem``: adopt or launch a Tor, ``sockslisten``,
+``torcontrolport`` and ``onionservicekey*`` for its hidden service; a
+plugin that fails exits 1 before anything starts, since proxied traffic
+must never go out unproxied), the onion endpoint the sender announces
+as an ONIONPEER object (``onionhostname``, lowercased, ``onionport``,
+after the plugin) and the UPnP mapping of the listening port (``upnp``,
+deleted at stop; a gateway that does not answer costs a warning).  So
+are the email gateway's SMTP server (``smtpdenabled``, ``smtpdport``,
+``smtpdusername``, ``smtpdpassword``) and deliverer (``smtpdeliver``),
+the new-message sound (``notifysound``, ``notifysoundfile``) and
+``--populate-test-data``.  So are the receive-side crypto rungs:
 ``cryptotpu`` (``auto`` and ``on`` run the card rung on the node's
 device, ``off`` never) for drains of at least ``cryptotpubatchmin``
 checks and ECDH pairs, ``cryptonative`` and ``cryptonativethreads``
@@ -74,10 +83,6 @@ import sys
 from pathlib import Path
 
 
-def _on(value: str) -> bool:
-    return value.lower() in ("true", "1", "yes")
-
-
 def _changed(default: str):
     """Set to anything but the JAX package's default."""
     return lambda value: value != default
@@ -85,21 +90,11 @@ def _changed(default: str):
 
 #: option -> (the JAX package's default, "turns on a subsystem the port
 #: lacks"): any of these set so refuses the start, since running
-#: without the subsystem would not be what the setting asked for
-#: (proxied traffic must never go out unproxied)
+#: without the subsystem would not be what the setting asked for.  Left:
+#: the JAX XLA tier's slab shape, which has nothing to set on the card
 REFUSED = {
-    # a proxyconfig plugin name (the JAX ``core/plugins.py``, e.g. "stem")
-    "sockstype": ("none", lambda v: v not in ("none", "SOCKS5", "SOCKS4a")),
-    "smtpdenabled": ("false", _on),
-    "smtpdeliver": ("", bool),
-    # settings the JAX daemon applies that have nothing to set here: the
-    # XLA tier's slab shape, the onion peer the sender announces, the
-    # new-message sound
     "powlanes": ("131072", _changed("131072")),
     "powchunks": ("32", _changed("32")),
-    "onionhostname": ("", bool),
-    "onionport": ("8444", _changed("8444")),
-    "notifysound": ("false", _on),
 }
 
 #: option -> (the JAX package's default, "on"): subsystems the JAX
@@ -109,15 +104,9 @@ NOT_RUN: dict = {}
 #: option -> the switch (a key of :data:`REFUSED` or :data:`NOT_RUN`)
 #: of the subsystem it tunes: that subsystem does not run here, so the
 #: option has nothing to tune and, set alone, neither refuses the start
-#: nor warns (the switch does either).  The first four are read only by
-#: the JAX ``plugins/proxyconfig_stem.py``.
-IGNORED_WHILE_OFF = {
-    "sockslisten": "sockstype", "torcontrolport": "sockstype",
-    "onionservicekey": "sockstype", "onionservicekeytype": "sockstype",
-    "smtpdport": "smtpdenabled", "smtpdusername": "smtpdenabled",
-    "smtpdpassword": "smtpdenabled",
-    "notifysoundfile": "notifysound",
-}
+#: nor warns (the switch does either).  None left: the knobs of the
+#: proxy plugin, the SMTP server and the sound are applied
+IGNORED_WHILE_OFF: dict = {}
 
 #: the JAX package's settings that no daemon code of it reads: the
 #: front-ends' (``ttl``, ``userlocale``) and the reference settings
@@ -162,6 +151,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-dandelion", action="store_true")
     p.add_argument("--no-udp", action="store_true",
                    help="disable UDP LAN discovery")
+    p.add_argument("--populate-test-data", action="store_true",
+                   help="seed a deterministic identity + sample inbox "
+                        "message (reference testmode_init role)")
     p.add_argument("--seed-defaults", action="store_true",
                    help="seed the bootstrap nodes into knownnodes")
     p.add_argument("--set", action="append", default=[],
@@ -270,6 +262,18 @@ async def run(args) -> int:
     except RuntimeError as exc:
         logging.error("%s (--device cpu)", exc)
         return 1
+    sockstype = settings.get("sockstype")
+    if sockstype not in ("none", "SOCKS5", "SOCKS4a"):
+        # a plugin name (e.g. "stem"): let it launch/adopt a proxy and
+        # rewrite the socks settings (reference start_proxyconfig).
+        # FAIL CLOSED: the user asked for proxied traffic; starting up
+        # unproxied after a plugin failure would deanonymize them
+        from .core.plugins import start_proxyconfig
+        if not start_proxyconfig(settings):
+            logging.error(
+                "proxy configuration %r failed; refusing to start "
+                "unproxied", sockstype)
+            return 1
     not_run = not_run_options(settings)
     if not_run:
         logging.warning("not run by this package yet, on in the JAX "
@@ -425,7 +429,8 @@ async def run(args) -> int:
         "maxacceptablenoncetrialsperbyte")
     node.sender.max_acceptable_extra = settings.getint(
         "maxacceptablepayloadlengthextrabytes")
-    sockstype = settings.get("sockstype", REFUSED["sockstype"][0])
+    # the plugin rewrote the settings to the protocol it set up
+    sockstype = settings.get("sockstype")
     if sockstype in ("SOCKS5", "SOCKS4a"):
         node.ctx.proxy = {
             "type": sockstype,
@@ -434,6 +439,35 @@ async def run(args) -> int:
             "username": settings.get("socksusername"),
             "password": settings.get("sockspassword"),
         }
+    # AFTER proxyconfig: a plugin may have just created the hidden
+    # service and set onionhostname.  Publish our endpoint as an
+    # ONIONPEER object at worker startup (reference sendOnionPeerObj);
+    # lowercase because the wire codec round-trips onion hosts in
+    # lowercase and the self-recognition check compares exactly
+    if settings.get("onionhostname"):
+        node.sender.onion_peer = (settings.get("onionhostname").lower(),
+                                  settings.getint("onionport"))
+    # the email gateway's SMTP server and deliverer, started after the
+    # API (a bad smtpdeliver URL raises here, before the node starts)
+    if settings.getbool("smtpdenabled"):
+        from .gateways import SMTPGateway
+        node.smtp_gateway = SMTPGateway(
+            node, port=settings.getint("smtpdport"),
+            username=settings.get("smtpdusername", ""),
+            password=settings.get("smtpdpassword", ""))
+    if settings.get("smtpdeliver"):
+        from .gateways import SMTPDeliverer
+        node.smtp_deliverer = SMTPDeliverer(node, settings.get("smtpdeliver"))
+    if settings.getbool("notifysound"):
+        # new-message sound through the notification.sound plugin group
+        # (reference sound_* plugins driven from the UISignal stream)
+        from .core.plugins import get_plugin
+        sound = get_plugin("notification.sound")
+        if sound is not None:
+            soundfile = settings.get("notifysoundfile", "")
+            node.ui.subscribe(
+                lambda cmd, data: sound(soundfile)
+                if cmd == "displayNewInboxMessage" else None)
     if args.trusted_peer:
         host, _, port = args.trusted_peer.rpartition(":")
         node.pool.trusted_peer = Peer(host, int(port))
@@ -445,6 +479,10 @@ async def run(args) -> int:
     except BaseException:
         PROFILER.stop()
         raise
+
+    if args.populate_test_data:
+        from .core.testdata import populate
+        populate(node)
 
     upnp_client = None
     if settings.getbool("upnp") and not args.no_listen:
@@ -485,6 +523,13 @@ async def run(args) -> int:
         if notifier is not None:
             notifier.notify("apiEnabled")
 
+    if node.smtp_gateway is not None:
+        await node.smtp_gateway.start()
+        logging.info("SMTP gateway on 127.0.0.1:%d",
+                     node.smtp_gateway.listen_port)
+    if node.smtp_deliverer is not None:
+        node.smtp_deliverer.start()
+
     stop = asyncio.Event()
     loop = asyncio.get_running_loop()
     for sig in (signal.SIGINT, signal.SIGTERM):
@@ -496,6 +541,10 @@ async def run(args) -> int:
     logging.info("shutting down...")
     if notifier is not None:
         notifier.stop()
+    if node.smtp_deliverer is not None:
+        node.smtp_deliverer.stop()
+    if node.smtp_gateway is not None:
+        await node.smtp_gateway.stop()
     if api is not None:
         await api.stop()
     if upnp_client is not None:

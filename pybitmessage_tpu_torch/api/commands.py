@@ -7,11 +7,11 @@ are base64 on the wire exactly as the reference's API encodes them.
 Each command returns the JAX package's JSON text, or raises its
 numbered ``APIError``, for the same node state.
 
-Not here yet, so a call answers ``APIError 20`` as for any method the
-handler lacks: the email gateway and mailing lists
+All 77 JAX commands are here, the email gateway's
 (``setEmailGateway``, ``emailGatewayRegister``,
 ``emailGatewayUnregister``, ``emailGatewayStatus``,
-``emailGatewaySettings``, ``sendEmail``, ``setMailingList``).
+``emailGatewaySettings``, ``sendEmail``) and ``setMailingList`` among
+them.
 ``federatedStatus`` answers the node's federation aggregator's fleet
 view.  ``roleStatus``, ``shardStatus`` and
 ``shardShed`` answer as the JAX ones do over the port's ``roles``
@@ -218,6 +218,20 @@ class CommandHandler:
                 "mailinglist": ident.mailinglist,
                 "mailinglistname": ident.mailinglistname})
         return json.dumps({"addresses": out}, indent=4)
+
+    def cmd_setMailingList(self, address, enabled, name=""):
+        """Extension: toggle mailing-list mode on an own identity (the
+        reference's per-address 'mailinglist'/'mailinglistname' config
+        keys, set from the Qt identities context menu)."""
+        ident = self.node.keystore.get(address)
+        if ident is None:
+            raise APIError(13)
+        if not isinstance(enabled, bool):
+            raise APIError(23)
+        ident.mailinglist = enabled
+        ident.mailinglistname = _from_b64(name, 17) if name else ""
+        self.node.keystore.save()
+        return "success"
 
     def cmd_listAddresses(self):
         return self._list_addresses(lambda label: label)
@@ -620,6 +634,56 @@ class CommandHandler:
         TTL = max(60 * 60, min(int(TTL), 28 * 24 * 3600))
         ack = await self.node.send_broadcast(
             fromAddress, subject, message, ttl=TTL, encoding=encodingType)
+        return hexlify(ack).decode()
+
+    # -- email gateway (reference bitmessageqt/account.py:185-345) -----------
+
+    def cmd_setEmailGateway(self, address, gateway, registration="",
+                            unregistration="", relay=""):
+        """Register/unregister one of our identities with an email
+        gateway operator ('mailchuck' ships built in; the three
+        service addresses can be overridden for other operators).
+        Empty gateway clears the setting."""
+        if self.node.keystore.get(address) is None:
+            raise APIError(13)
+        self.node.set_email_gateway(
+            address, str(gateway), registration=str(registration),
+            unregistration=str(unregistration), relay=str(relay))
+        return "Set email gateway of %s to %r" % (address, str(gateway))
+
+    async def _gateway_cmd(self, address, action, email=""):
+        try:
+            ack = await self.node.email_gateway_command(
+                str(address), action, email=str(email))
+        except KeyError as exc:
+            raise APIError(13, str(exc))
+        return hexlify(ack).decode()
+
+    async def cmd_emailGatewayRegister(self, address, email):
+        """Request an email address from the identity's gateway."""
+        return await self._gateway_cmd(address, "register", email)
+
+    async def cmd_emailGatewayUnregister(self, address):
+        return await self._gateway_cmd(address, "unregister")
+
+    async def cmd_emailGatewayStatus(self, address):
+        return await self._gateway_cmd(address, "status")
+
+    async def cmd_emailGatewaySettings(self, address):
+        """Send the commented settings template to the gateway."""
+        return await self._gateway_cmd(address, "settings")
+
+    async def cmd_sendEmail(self, fromAddress, toEmail, subject, message):
+        """Send an email through the registered gateway's relay
+        (subject/message base64 like sendMessage)."""
+        if "@" not in str(toEmail):
+            raise APIError(0, "toEmail does not look like an email")
+        try:
+            ack = await self.node.send_email(
+                str(fromAddress), str(toEmail), _from_b64(subject),
+                _from_b64(message))
+        except KeyError as exc:
+            raise APIError(13, str(exc))
         return hexlify(ack).decode()
 
     def cmd_getStatus(self, ackdata_hex):

@@ -44,15 +44,26 @@ DEFAULTS: dict[str, str] = {
     "apiusername": "",
     "apipassword": "",
     "apinotifypath": "",
+    "smtpdeliver": "",               # smtp://host:port?to=rcpt
+    "smtpdenabled": "false",         # the SMTP submission server
+    "smtpdport": "8425",
+    "smtpdusername": "",
+    "smtpdpassword": "",
     "udp": "true",                   # LAN discovery
     "upnp": "false",                 # map the P2P port on the gateway
     "tls": "true",                   # opportunistic NODE_SSL
-    # "sockstype" (none | SOCKS5 | SOCKS4a | a plugin name) has its JAX
-    # default in the daemon's REFUSED table, which refuses plugin names
+    "sockstype": "none",             # none | SOCKS5 | SOCKS4a | plugin
+                                     # name (e.g. "stem" = private Tor)
     "sockshostname": "",
     "socksport": "9050",
     "socksusername": "",
     "sockspassword": "",
+    "sockslisten": "false",          # the stem plugin's hidden service
+    "onionhostname": "",             # our onion endpoint, announced as
+    "onionport": "8444",             # an ONIONPEER object
+    "torcontrolport": "0",           # adopted-tor control port (0 = none)
+    "onionservicekey": "",           # persisted ephemeral-service key
+    "onionservicekeytype": "",
     "powbatchwindow": "0.05",        # PoW coalescing window, seconds
                                      # (0 = launch immediately)
     "ingestworkers": "8",            # concurrent objects in the
@@ -132,6 +143,8 @@ DEFAULTS: dict[str, str] = {
                                      # (costStatus / profileDump /
                                      # GET /debug/profile)
     "profilehz": "19",               # profiler sampling rate, Hz
+    "notifysound": "false",          # ring/play on new inbox message
+    "notifysoundfile": "",           # optional file for the sound plugin
     # ceilings on recipient-demanded PoW; 0 = unlimited (reference
     # helper_startup sanity cap: ridiculousDifficulty x network default)
     "maxacceptablenoncetrialsperbyte": "20000000000",
@@ -298,6 +311,9 @@ VALIDATORS: dict[str, Callable[[str], bool]] = {
     "dandelion": _validate_int_range(0, 100),
     "port": _validate_int_range(0, 65535),
     "apiport": _validate_int_range(1, 65535),
+    "smtpdport": _validate_int_range(1, 65535),
+    "smtpdenabled": _validate_bool,
+    "notifysound": _validate_bool,
     "powbatchwindow": _validate_float_range(0.0, 10.0),
     "ingestworkers": _validate_int_range(1, 256),
     "cryptoworkers": _validate_int_range(0, 256),

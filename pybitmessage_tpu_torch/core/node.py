@@ -67,8 +67,13 @@ after the veracks.  ``udp_enabled`` (off by default, as in the JAX node;
 the daemon turns it on from ``udp``) runs LAN discovery
 (``network/udp.py``) on the listening port.  Before the engine's first
 drain, ``start`` builds and loads its native rung's library off the
-event loop.  A SOCKS proxy is ``ctx.proxy``; UPnP is the daemon's.  The
-email gateway is not part of this package yet.
+event loop.  A SOCKS proxy is ``ctx.proxy``; UPnP is the daemon's.  An
+identity registered with an email gateway operator
+(``set_email_gateway``) sends its commands (``email_gateway_command``)
+and email (``send_email``) as ordinary messages to the operator's
+service addresses; the SMTP server and deliverer
+(``gateways/``) are the daemon's, held in ``smtp_gateway`` and
+``smtp_deliverer``.
 """
 
 from __future__ import annotations
@@ -81,6 +86,8 @@ from pathlib import Path
 
 from .. import resolve_device
 from ..crypto.keys import priv_to_pub_many
+from ..gateways.email_account import (EmailGatewayAccount,
+                                      spec_for_identity)
 from ..models.constants import NODE_SYNC, NODE_TRACE
 from ..models.payloads import gen_ack_payload
 from ..network.dandelion import Dandelion
@@ -316,13 +323,18 @@ class Node:
             keystore=self.keystore, store=self.store,
             inventory=self.inventory, sender=self.sender, pool=self.pool,
             shutdown=self.shutdown, min_ntpb=min_ntpb, min_extra=min_extra,
-            crypto=self.crypto, ui_signal=self.ui.emit)
+            crypto=self.crypto, ui_signal=self.ui.emit,
+            knownnodes=self.knownnodes)
         self.cleaner = Cleaner(
             inventory=self.inventory, store=self.store,
             knownnodes=self.knownnodes, sender=self.sender, pool=self.pool,
             shutdown=self.shutdown)
         #: the daemon's ``core.config.Settings`` (None outside it)
         self.settings = None
+        #: the daemon's SMTP server and deliverer (``smtpdenabled``,
+        #: ``smtpdeliver``; None outside it or when off)
+        self.smtp_gateway = None
+        self.smtp_deliverer = None
         self._pump_task: asyncio.Task | None = None
         self._metrics_task: asyncio.Task | None = None
         #: always-on runtime health probes: event-loop lag sampler,
@@ -545,3 +557,55 @@ class Node:
     def message_status(self, ackdata: bytes) -> str:
         m = self.store.sent_by_ackdata(ackdata)
         return m.status if m else "notfound"
+
+    # -- email gateway (reference bitmessageqt/account.py:185-345) -----------
+
+    def set_email_gateway(self, address: str, gateway: str, *,
+                          registration: str = "", unregistration: str = "",
+                          relay: str = "") -> None:
+        """Mark one of our identities as registered with an email
+        gateway operator (the reference's per-address 'gateway' config
+        key); empty ``gateway`` clears it."""
+        ident = self.keystore.get(address)
+        if ident is None:
+            raise KeyError("unknown identity %s" % address)
+        ident.gateway = gateway
+        ident.gateway_registration = registration
+        ident.gateway_unregistration = unregistration
+        ident.gateway_relay = relay
+        self.keystore.save()
+
+    def _gateway_account(self, address: str) -> EmailGatewayAccount:
+        ident = self.keystore.get(address)
+        if ident is None:
+            raise KeyError("unknown identity %s" % address)
+        spec = spec_for_identity(ident)
+        if spec is None:
+            raise KeyError("%s is not registered with an email gateway"
+                           % address)
+        return EmailGatewayAccount(address, spec)
+
+    async def email_gateway_command(self, address: str, action: str,
+                                    email: str = "") -> bytes:
+        """Send a register/unregister/status/settings command message
+        to the identity's gateway; returns the ackdata handle."""
+        acct = self._gateway_account(address)
+        try:
+            cmd = {"register": lambda: acct.register(email),
+                   "unregister": acct.unregister,
+                   "status": acct.status,
+                   "settings": acct.settings}[action]()
+        except KeyError:
+            raise ValueError("unknown gateway action %r" % action)
+        return await self.send_message(cmd.to_address, address,
+                                       cmd.subject, cmd.body,
+                                       ttl=cmd.ttl)
+
+    async def send_email(self, from_address: str, to_email: str,
+                         subject: str, body: str) -> bytes:
+        """Send an email through the registered gateway's relay."""
+        acct = self._gateway_account(from_address)
+        cmd = acct.compose_email(to_email, subject, body)
+        return await self.send_message(cmd.to_address, from_address,
+                                       cmd.subject, cmd.body,
+                                       ttl=cmd.ttl)

@@ -65,14 +65,15 @@ def _command(source: Path, out: Path) -> list[str]:
     return [cxx, *FLAGS, "-o", str(out), str(source)]
 
 
-def build(source: Path = SOURCE, build_dir: Path = BUILD_DIR) -> Path:
-    """The library built from ``source``, compiled first when no
-    library of this source and command exists.  Raises when it cannot
-    be built."""
+def build(source: Path = SOURCE, build_dir: Path = BUILD_DIR, *,
+          stem: str = "bmsecp256k1") -> Path:
+    """The library ``lib<stem>-<hash>.so`` built from ``source``,
+    compiled first when no library of this source and command exists.
+    Raises when it cannot be built."""
     source, build_dir = Path(source), Path(build_dir)
     digest = hashlib.sha256(
         " ".join(FLAGS).encode() + b"\0" + source.read_bytes()).hexdigest()
-    lib = build_dir / ("libbmsecp256k1-%s.so" % digest[:16])
+    lib = build_dir / ("lib%s-%s.so" % (stem, digest[:16]))
     if lib.exists():
         return lib
     build_dir.mkdir(parents=True, exist_ok=True)
@@ -86,9 +87,9 @@ def build(source: Path = SOURCE, build_dir: Path = BUILD_DIR) -> Path:
             run = subprocess.run(cmd, capture_output=True, text=True,
                                  timeout=300)
             if run.returncode != 0:
-                raise RuntimeError("native secp256k1 build failed (%d): "
-                                   "%s\n%s" % (run.returncode,
-                                               " ".join(cmd), run.stderr))
+                raise RuntimeError("native %s build failed (%d): %s\n%s"
+                                   % (stem, run.returncode, " ".join(cmd),
+                                      run.stderr))
             os.replace(tmp, lib)
         finally:
             tmp.unlink(missing_ok=True)

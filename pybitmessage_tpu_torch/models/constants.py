@@ -26,6 +26,7 @@ OBJECT_GETPUBKEY = 0
 OBJECT_PUBKEY = 1
 OBJECT_MSG = 2
 OBJECT_BROADCAST = 3
+OBJECT_ONIONPEER = 0x746F72  # "tor"
 
 # limits (src/network/constants.py)
 ADDRESS_ALIVE = 10800            # seconds a peer address is considered live

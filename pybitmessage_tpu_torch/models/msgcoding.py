@@ -92,13 +92,11 @@ def _decode_extended(data: bytes) -> MessageBody:
         obj = _unpackb(out)
     except Exception as exc:
         raise DecodeError("bad msgpack payload") from exc
-    # the extended-type registry whitelists one type, "message"
-    # (reference messagetypes/__init__.py:8-32; ``vote`` ships disabled)
-    if not isinstance(obj, dict):
-        raise DecodeError("extended payload is not a map")
-    if obj.get("") != "message":
-        raise DecodeError("extended type %r not enabled" % (obj.get(""),))
-    for key in ("subject", "body"):
-        if key not in obj:
-            raise DecodeError("message missing required field %r" % key)
-    return MessageBody(str(obj["subject"]), str(obj["body"]))
+    # dispatch through the extended-type registry (whitelisted types
+    # only — reference messagetypes/constructObject)
+    from .messagetypes import MessageTypeError, construct
+    try:
+        mt = construct(obj)
+    except MessageTypeError as exc:
+        raise DecodeError(str(exc)) from exc
+    return MessageBody(mt.data.get("subject", ""), mt.data.get("body", ""))

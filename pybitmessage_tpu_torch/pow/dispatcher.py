@@ -17,8 +17,18 @@ unreachable farm degrades to exactly the node without one.
 The card tier has no rung under it: without a card ``PowDispatcher()``
 raises, and a kernel that fails to build or launch raises out of
 :meth:`solve` / :meth:`solve_batch`, where ``PowService`` requeues the
-batch and finally surfaces the error.  The native C++, multi-device
-and breaker tiers of the reference are not part of this dispatcher.
+batch and finally surfaces the error.  A card failure never falls
+through to the native rung.
+
+``PowDispatcher(use_card=False)`` is the JAX dispatcher's
+``use_tpu=False`` mode: the caller turns the card tier off and the
+native C++ solver (:class:`~.native.NativeSolver`, ``num_threads``
+threads, built from ``native/pow/bitmsgpow.cpp`` at construction) is
+the first tier under the farm, one object after another, behind the
+JAX ``"cpp"`` breaker (3 failures, 60 s cooldown).  It needs no card and
+launches no kernel; a failed build or self-test raises from the
+constructor, and a failed solve raises like the card's.  The
+multi-device tier of the reference is not part of this dispatcher.
 ``pow.device_launch`` is a chaos site at the entry of the card tier;
 ``stall_timeout`` (the daemon's ``powstalltimeout``) is the pipeline's
 per-harvest stall deadline.  A stalled harvest raises the watchdog's
@@ -55,7 +65,7 @@ from ..observability.flightrec import record as _flight
 from ..ops import sha512_cuda
 from ..ops.pow_search import PowInterrupted
 from ..resilience.chaos import inject
-from ..resilience.policy import ERRORS
+from ..resilience.policy import ERRORS, CircuitBreaker
 from ..resilience.watchdog import STALL_RECOVERY_SECONDS, SlabStallError
 from .pipeline import AUTOTUNER, plan_batch, solve_batch_pipelined
 
@@ -124,11 +134,22 @@ def _note_fallback(frm: str, to: str) -> None:
 
 
 class PowDispatcher:
-    """Callable solver for one device (``None`` = the CUDA device)."""
+    """Callable solver for one device (``None`` = the CUDA device), or
+    with ``use_card=False`` for the native C++ solver on the host."""
 
     def __init__(self, device=None, *,
-                 stall_timeout: float = DEFAULT_STALL_TIMEOUT, farm=None):
-        self.device = resolve_device(device)
+                 stall_timeout: float = DEFAULT_STALL_TIMEOUT, farm=None,
+                 use_card: bool = True, num_threads: int = 0):
+        #: the card tier's device; None in the native mode
+        self.device = resolve_device(device) if use_card else None
+        #: the native rung of the card-off mode
+        self.native = None
+        self.breakers: dict[str, CircuitBreaker] = {}
+        if not use_card:
+            from .native import NativeSolver
+            self.native = NativeSolver(num_threads)
+            self.breakers["cpp"] = CircuitBreaker(
+                "pow.tier.cpp", threshold=3, cooldown=60.0)
         #: per-harvest slab stall deadline for the pipelined path
         self.stall_timeout = stall_timeout
         #: optional FarmSolverTier leading the card tier (attach_farm)
@@ -152,6 +173,8 @@ class PowDispatcher:
 
     @property
     def _backend(self) -> str:
+        if self.native is not None:
+            return "cpp"
         return "cuda" if self.device.type == "cuda" else "torch"
 
     def attach_farm(self, farm) -> None:
@@ -187,11 +210,13 @@ class PowDispatcher:
 
     def backends(self) -> list[str]:
         """The tiers this solver runs (clientStatus powBackends): the
-        farm while its breaker lets jobs through, then the card."""
+        farm while its breaker lets jobs through, then the card (the
+        native rung while its breaker does)."""
         out = []
         if self.farm is not None and self.farm.breaker.available():
             out.append("farm")
-        out.append(self._backend)
+        if self.native is None or self.breakers["cpp"].available():
+            out.append(self._backend)
         return out
 
     def __call__(self, initial_hash: bytes, target: int, *,
@@ -263,6 +288,10 @@ class PowDispatcher:
         return results
 
     def _card_batch(self, items, should_stop, starts, progress):
+        if self.native is not None:
+            # one object after another, as the JAX ladder's native tier
+            return [self._solve(ih, t, start, should_stop)
+                    for (ih, t), start in zip(items, starts)]
         if len(items) > 1 or plan_batch(items).mode == "single-sync":
             inject("pow.device_launch")
             self.last_backend = self._backend + "-batch"
@@ -284,6 +313,9 @@ class PowDispatcher:
 
     def _solve(self, initial_hash, target, start_nonce, should_stop,
                progress=None):
+        if self.native is not None:
+            return self._native_solve(initial_hash, target, start_nonce,
+                                      should_stop)
         inject("pow.device_launch")
         self.last_backend = self._backend
         ATTEMPTS.labels(backend=self.last_backend).inc()
@@ -291,3 +323,25 @@ class PowDispatcher:
             initial_hash, target, start_nonce=start_nonce,
             should_stop=should_stop, tuner=AUTOTUNER, progress=progress,
             device=self.device)
+
+    def _native_solve(self, initial_hash, target, start_nonce, should_stop):
+        """The native rung behind its breaker; a failure raises."""
+        cb = self.breakers["cpp"]
+        if not cb.allow():
+            raise RuntimeError("native PoW tier open after repeated "
+                               "failures (breaker %s)" % cb.state)
+        self.last_backend = "cpp"
+        ATTEMPTS.labels(backend="cpp").inc()
+        try:
+            result = self.native.solve(initial_hash, target,
+                                       start_nonce=start_nonce,
+                                       should_stop=should_stop)
+        except PowInterrupted:
+            cb.release_probe()
+            raise
+        except Exception:
+            cb.record_failure()
+            ERRORS.labels(site="pow.tier.cpp").inc()
+            raise
+        cb.record_success()
+        return result

@@ -88,6 +88,12 @@ class Deadline:
                   ) -> float:
         return self.expires_at - clock()
 
+    @property
+    def expired(self) -> bool:
+        """The budget is gone (the reconciler's round and catch-up
+        timeouts read this)."""
+        return self.remaining() <= 0
+
     def __enter__(self) -> "Deadline":
         outer = _DEADLINE.get()
         if outer is not None and outer.expires_at < self.expires_at:

@@ -56,8 +56,7 @@ class OwnIdentity:
     chan: bool = False
     enabled: bool = True
     last_pubkey_send_time: int = 0
-    # keys.dat fields of the mailing-list and email-gateway features,
-    # which this package does not run; kept so a keys.dat round-trips
+    # keys.dat fields of the mailing-list and email-gateway features
     mailinglist: bool = False
     mailinglistname: str = ""
     gateway: str = ""

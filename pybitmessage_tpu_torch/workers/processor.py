@@ -1,11 +1,14 @@
-"""Incoming-object processor: ack matching, pubkey/msg/broadcast pipelines
-(copy of ``pybitmessage_tpu.workers.processor``, without the onion-peer,
-email-gateway and mailing-list branches).
+"""Incoming-object processor: ack matching, pubkey/msg/broadcast/onionpeer
+pipelines (copy of ``pybitmessage_tpu.workers.processor``).
 
 Reference: class_objectProcessor.py — checkackdata (129-154),
-processgetpubkey (176-268), processpubkey (270-433), processmsg
-(435-747) with randomized key order and anti-surreptitious-forwarding,
-processbroadcast (749-973).
+processonion (156-174), processgetpubkey (176-268), processpubkey
+(270-433), processmsg (435-747) with randomized key order,
+anti-surreptitious-forwarding and the mailing-list rebroadcast
+(688-721), processbroadcast (749-973).  Mail an email-gateway identity
+receives from its operator's relay is rewritten to its real sender and
+subject at delivery, and a registration denial raises
+``emailGatewayRegistrationDenied`` (bitmessageqt/account.py:316-345).
 
 ``concurrency`` worker tasks pull from the queue in parallel; every
 trial decrypt and signature check goes through the
@@ -28,10 +31,13 @@ import random
 import time
 
 from ..crypto.screen import NegativeScreen
+from ..gateways.email_account import (
+    ALL_OK, REGISTRATION_DENIED, EmailGatewayAccount, spec_for_identity,
+)
 from ..models import msgcoding
 from ..models.constants import (
     DEFAULT_EXTRA_BYTES, DEFAULT_NONCE_TRIALS_PER_BYTE, OBJECT_BROADCAST,
-    OBJECT_GETPUBKEY, OBJECT_MSG, OBJECT_PUBKEY,
+    OBJECT_GETPUBKEY, OBJECT_MSG, OBJECT_ONIONPEER, OBJECT_PUBKEY,
 )
 from ..models.objects import ObjectHeader
 from ..models.payloads import (
@@ -40,9 +46,11 @@ from ..models.payloads import (
     parse_pubkey_inner,
 )
 from ..models.pow_math import check_pow, pow_target, pow_value
+from ..network.messages import decode_host, is_private_host
 from ..observability import REGISTRY, trace
 from ..observability.lifecycle import LIFECYCLE
 from ..resilience.policy import ERRORS
+from ..storage.knownnodes import Peer
 from ..storage.messages import ACKRECEIVED, MessageStore
 from ..storage.writebehind import WriteBehindStore
 from ..utils.addresses import decode_address, encode_address
@@ -109,8 +117,10 @@ class ObjectProcessor:
                  pool=None, shutdown: asyncio.Event | None = None,
                  min_ntpb: int = DEFAULT_NONCE_TRIALS_PER_BYTE,
                  min_extra: int = DEFAULT_EXTRA_BYTES,
-                 ui_signal=None):
+                 ui_signal=None, knownnodes=None):
         self.keystore = keystore
+        #: where onionpeer objects' peers are recorded (None: ignored)
+        self.knownnodes = knownnodes
         #: ``ui_signal(command, data)``: the node's UI event bus
         self.ui_signal = ui_signal or (lambda cmd, data=(): None)
         #: worker tasks start() spawns; the daemon sets it from
@@ -251,6 +261,9 @@ class ObjectProcessor:
                 elif header.object_type == OBJECT_BROADCAST:
                     kind = "broadcast"
                     await self._process_broadcast(header, payload, h)
+                elif header.object_type == OBJECT_ONIONPEER:
+                    kind = "onionpeer"
+                    self._process_onionpeer(header, payload)
                 span.attrs["type"] = kind
         finally:
             # failed objects count too: a raising handler must not
@@ -260,6 +273,36 @@ class ObjectProcessor:
                 # a storm must not grow the buffer unbounded between
                 # ticks; direct (un-started) calls stay write-through
                 await self._flush_store()
+
+    # -- onionpeer -----------------------------------------------------------
+
+    def _process_onionpeer(self, header: ObjectHeader,
+                           payload: bytes) -> None:
+        """Type 0x746f72 ("tor"): varint port + 16-byte host — record
+        the peer in knownnodes (class_objectProcessor.py:156-174
+        processonion)."""
+        if self.knownnodes is None:
+            return
+        body = payload[header.header_length:]
+        try:
+            port, n = decode_varint(body, 0)
+            host = decode_host(body[n:n + 16])
+        except Exception:
+            logger.debug("undecodable onionpeer object")
+            return
+        if not (1 <= port <= 65535):
+            return
+        # accept onions always; public IPs only (the reference routes
+        # the host through checkIPAddress, which drops private ranges)
+        if not host.endswith(".onion") and is_private_host(host):
+            return
+        peer = Peer(host, port)
+        own = getattr(self.sender, "onion_peer", None)
+        is_self = own is not None \
+            and (own[0].lower(), own[1]) == (host, port)
+        if self.knownnodes.add(peer, header.stream, is_self=is_self):
+            logger.info("onionpeer recorded: %s:%d (stream %d)",
+                        host, port, header.stream)
 
     # -- acks ----------------------------------------------------------------
 
@@ -425,27 +468,82 @@ class ObjectProcessor:
                         from_address, self.list_mode)
             return
         body = msgcoding.decode_message(plain.message, plain.encoding)
+        subject = body.subject
+        display_from = from_address
+        # email-gateway accounts: mail arriving via the operator's
+        # relay is rewritten to its real sender/subject, and a denial
+        # from the registration address is surfaced to every frontend
+        # (the reference rewrites at display time, account.py:316-345;
+        # doing it at delivery covers API consumers too)
+        gw_spec = spec_for_identity(match)
+        feedback = ALL_OK
+        if gw_spec is not None:
+            acct = EmailGatewayAccount(match.address, gw_spec)
+            display_from, subject, feedback = acct.parse_incoming(
+                from_address, subject)
         with _Stage("store"):
             delivered = await self.crypto.run(
                 lambda: self.store.deliver_inbox(
                     msgid=h, toaddress=match.address,
-                    fromaddress=from_address, subject=body.subject,
+                    fromaddress=display_from, subject=subject,
                     message=body.body, encoding=plain.encoding,
                     sighash=sha512(plain.signature)))
         if not delivered:
             logger.debug("duplicate message dropped (sighash)")
             return
         LIFECYCLE.record(h, "delivered")
-        logger.debug("message delivered: %s -> %s", from_address,
+        # denial surfaced only for the first (non-duplicate) delivery:
+        # a gateway retry must not re-notify every frontend
+        if feedback == REGISTRATION_DENIED:
+            logger.warning("email gateway DENIED registration of %s",
+                           match.address)
+            self.ui_signal("emailGatewayRegistrationDenied",
+                           (match.address, gw_spec.name))
+        logger.debug("message delivered: %s -> %s", display_from,
                      match.address)
         self.ui_signal("displayNewInboxMessage",
-                       (h, match.address, from_address, body.subject,
+                       (h, match.address, display_from, subject,
                         body.body))
+        # mailing-list identities re-send what they receive as a
+        # broadcast to their subscribers (objectProcessor.py:688-721)
+        if match.mailinglist and plain.encoding != 0:
+            self._rebroadcast_to_list(match, from_address,
+                                      body.subject, body.body)
         # flood the sender's pre-made ack (objectProcessor.py:723-731);
         # never for chans
         if not match.chan and plain.ack_data \
                 and bitfield_does_ack(plain.bitfield):
             await self._emit_ack(plain.ack_data)
+
+    @staticmethod
+    def _mailing_list_subject(subject: str, name: str) -> str:
+        """'[listname] subject', stripping a leading Re: and avoiding a
+        duplicate prefix (objectProcessor addMailingListNameToSubject)."""
+        subject = subject.strip()
+        if subject[:3].lower() == "re:":
+            subject = subject[3:].strip()
+        if "[" + name + "]" in subject:
+            return subject
+        return "[" + name + "] " + subject
+
+    def _rebroadcast_to_list(self, ident, from_address: str,
+                             subject: str, body: str) -> None:
+        """Queue the received message as a broadcast FROM the list
+        identity, prefixed with the list name and stamped with the
+        ostensible sender (objectProcessor.py:688-721)."""
+        subject = self._mailing_list_subject(
+            subject, ident.mailinglistname or ident.label)
+        message = (time.strftime("%a, %Y-%m-%d %H:%M:%S UTC", time.gmtime())
+                   + "   Message ostensibly from " + from_address
+                   + ":\n\n" + body)
+        ack = self.sender.queue_broadcast(
+            ident.address, subject, message, stream=ident.stream,
+            toaddress="[Broadcast subscribers]")
+        self.ui_signal("displayNewSentMessage",
+                       ("[Broadcast subscribers]", "[Broadcast subscribers]",
+                        ident.address, subject, message, ack))
+        logger.info("mailing list %s rebroadcasting message from %s",
+                    ident.address, from_address)
 
     async def _emit_ack(self, ack_packet: bytes) -> None:
         """The embedded ack is a full wire packet; strip the 24-byte

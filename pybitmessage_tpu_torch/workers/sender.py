@@ -1,10 +1,9 @@
 """Send pipeline: the sent-message state machine + PoW dispatch (copy of
-``pybitmessage_tpu.workers.sender``, without the onion-peer
-announcement).
+``pybitmessage_tpu.workers.sender``).
 
 Reference: class_singleWorker.py — sendMsg (717-1373), sendBroadcast
-(532-715), sendOutOrStoreMyV4Pubkey (417-530), requestPubKey
-(1375-1493).  States: msgqueued -> (doingpubkeypow -> awaitingpubkey)
+(532-715), sendOutOrStoreMyV4Pubkey (417-530), sendOnionPeerObj
+(494-530), requestPubKey (1375-1493).  States: msgqueued -> (doingpubkeypow -> awaitingpubkey)
 -> doingmsgpow -> msgsent -> ackreceived.
 
 Every PoW goes through the port's ``PowService`` (the nonce-search
@@ -31,7 +30,8 @@ from ..crypto.signing import sign
 from ..models import msgcoding
 from ..models.constants import (
     DEFAULT_EXTRA_BYTES, DEFAULT_NONCE_TRIALS_PER_BYTE, OBJECT_BROADCAST,
-    OBJECT_GETPUBKEY, OBJECT_MSG, OBJECT_PUBKEY, RIDICULOUS_DIFFICULTY,
+    OBJECT_GETPUBKEY, OBJECT_MSG, OBJECT_ONIONPEER, OBJECT_PUBKEY,
+    RIDICULOUS_DIFFICULTY,
 )
 from ..models.objects import ObjectHeader
 from ..models.packet import pack_packet
@@ -43,6 +43,7 @@ from ..models.payloads import (
     object_shell, parse_pubkey_inner,
 )
 from ..models.pow_math import pow_target
+from ..network.messages import encode_host
 from ..observability import REGISTRY, trace
 from ..storage.messages import (
     ACKRECEIVED, AWAITINGPUBKEY, BROADCASTSENT, DOINGMSGPOW,
@@ -68,7 +69,8 @@ OBJECTS_PUBLISHED = REGISTRY.counter(
     "Locally generated objects entered into the inventory",
     ("type",))
 _TYPE_NAMES = {OBJECT_GETPUBKEY: "getpubkey", OBJECT_MSG: "msg",
-               OBJECT_PUBKEY: "pubkey", OBJECT_BROADCAST: "broadcast"}
+               OBJECT_PUBKEY: "pubkey", OBJECT_BROADCAST: "broadcast",
+               OBJECT_ONIONPEER: "onionpeer"}
 
 
 def _jitter_ttl(ttl: int) -> int:
@@ -112,6 +114,9 @@ class SendWorker:
             RIDICULOUS_DIFFICULTY * DEFAULT_NONCE_TRIALS_PER_BYTE
         self.max_acceptable_extra = \
             RIDICULOUS_DIFFICULTY * DEFAULT_EXTRA_BYTES
+        #: (host, port) of our own onion endpoint; when set, start()
+        #: publishes it as an ONIONPEER object (sendOnionPeerObj role)
+        self.onion_peer: tuple[str, int] | None = None
         self._task: asyncio.Task | None = None
 
     # -- lifecycle -----------------------------------------------------------
@@ -124,6 +129,11 @@ class SendWorker:
         # for a new command
         self.queue.put_nowait(("sendmessage",))
         self.queue.put_nowait(("sendbroadcast",))
+        # announce our onion endpoint, if configured (the reference
+        # enqueues 'sendOnionPeerObj' at worker startup the same way,
+        # class_singleWorker.py:142-143)
+        if self.onion_peer:
+            self.queue.put_nowait(("sendonionpeer",))
         self._task = asyncio.create_task(self._run())
         return self._task
 
@@ -167,6 +177,8 @@ class SendWorker:
             await self.process_queued_broadcasts()
         elif kind == "sendpubkey":
             await self.send_my_pubkey(cmd[1])
+        elif kind == "sendonionpeer":
+            await self.send_onion_peer(*cmd[1:])
         else:
             logger.warning("unknown worker command %r", kind)
 
@@ -440,6 +452,42 @@ class SendWorker:
             status="broadcastqueued")
         self.queue.put_nowait(("sendbroadcast",))
         return ack
+
+    # -- onionpeer announcement ----------------------------------------------
+
+    async def send_onion_peer(self, peer: tuple[str, int] | None = None,
+                              stream: int = 1) -> None:
+        """Flood an ONIONPEER object naming an onion endpoint, ours by
+        default (reference sendOnionPeerObj,
+        class_singleWorker.py:494-530).  Body: varint port + 16-byte
+        encoded host; dedup by tag so an unexpired copy isn't redone."""
+        peer = peer or self.onion_peer
+        if not peer:
+            return
+        host, port = peer
+        try:
+            body = encode_varint(port) + encode_host(host)
+        except Exception:
+            # expected for v3 onions (56 chars > the 16-byte addr
+            # field): the service still serves inbound Tor dials, it
+            # just can't be flooded
+            logger.debug("onion endpoint %r not wire-encodable; "
+                         "skipping ONIONPEER announcement", host)
+            return
+        tag = inventory_hash(body)
+        if any(item.expires > time.time() for item in
+               self.inventory.by_type_and_tag(OBJECT_ONIONPEER, tag)):
+            return          # an unexpired announcement is circulating
+        ttl = _jitter_ttl(7 * 24 * 3600)
+        expires = int(time.time()) + ttl
+        # object version 2 for v2 onions (22-char hostname), else 3
+        # (the reference's wire choice)
+        version = 2 if len(host) == 22 else 3
+        payload = object_shell(expires, OBJECT_ONIONPEER, version,
+                               stream) + body
+        payload = await self._do_pow(payload, ttl)
+        self._publish(payload, OBJECT_ONIONPEER, stream, tag)
+        logger.info("published onionpeer object for %s:%d", host, port)
 
     # -- broadcast sending ---------------------------------------------------
 

@@ -10,9 +10,9 @@ clock reading in either package: msgids, ackdata, ``receivedTime`` and
 ``lastActionTime``; ``getSettings`` is compared on the options both
 packages know (``powBackends`` names each package's own solver).
 
-Also here: the port's command table is the JAX table less the 8
-commands it has not ported, each of which answers ``APIError 20``; the
-``clientStatus`` keys are a subset of the JAX keys; XML-RPC and JSON-RPC
+Also here: the port's command table is the JAX table, all 77 commands
+(the email gateway's and ``setMailingList``, each held to the JAX
+command by a case of its own); the ``clientStatus`` keys are a subset of the JAX keys; XML-RPC and JSON-RPC
 share one port; a data directory written behind one package's API is
 read behind the other's with equal answers.
 
@@ -39,8 +39,9 @@ USER, PASS = "apiuser", "apipass"
 CALL_TIMEOUT = 30.0
 POLL_TIMEOUT = 45.0
 
-#: the JAX commands the port has not ported (the email gateway)
-UNPORTED = (
+#: the email gateway's commands and ``setMailingList``, the last the
+#: port ported
+GATEWAY_COMMANDS = (
     "setEmailGateway", "emailGatewayRegister", "emailGatewayUnregister",
     "emailGatewayStatus", "emailGatewaySettings", "sendEmail",
     "setMailingList",
@@ -206,30 +207,90 @@ def _commands(handler_cls) -> set[str]:
 
 
 def test_command_table_is_the_jax_table_less_the_unported():
+    """Nothing is left unported: the port's table is the JAX table."""
     JaxHandler = _jax()[2]
     jax_names, port_names = _commands(JaxHandler), _commands(CommandHandler)
-    assert len(UNPORTED) == 7
-    assert port_names == jax_names - set(UNPORTED)
-    assert set(UNPORTED) <= jax_names
-    # 70 commands, plus the five aliases both register
+    assert port_names == jax_names
+    assert set(GATEWAY_COMMANDS) <= port_names
+    # 77 commands, plus the five aliases both register
     aliases = {"getAllInboxMessageIDs", "getAllSentMessageIDs",
                "getInboxMessageByID", "getSentMessageByID",
                "getSentMessagesBySender"}
-    assert len(port_names - aliases) == 70
+    assert len(port_names - aliases) == 77
 
 
-@pytest.mark.parametrize("method", UNPORTED)
-async def test_unported_command_answers_invalid_method(method):
-    """The port answers what the JAX package answers for a method it
-    lacks: ``APIError 20`` naming the method."""
-    JaxHandler = _jax()[2]
-    with pytest.raises(Exception) as port_err:
-        await CommandHandler(node=None).dispatch(method, [])
-    with pytest.raises(Exception) as jax_err:
-        await JaxHandler(node=None).dispatch(method + "Missing", [])
-    assert port_err.value.code == jax_err.value.code == 20
-    assert str(port_err.value) == \
-        str(jax_err.value).replace(method + "Missing", method)
+#: the sent-row fields a gateway command must leave equal in both
+#: packages (status and times move on their own clocks)
+SENT_FIELDS = ("toAddress", "fromAddress", "subject", "message",
+               "encodingType")
+
+
+async def _sent_rows(p: Pair) -> tuple:
+    jr, pr = await p.each("getAllSentMessages", (), ())
+    return tuple(sorted(tuple(m[k] for k in SENT_FIELDS)
+                        for m in json.loads(r["result"])["sentMessages"])
+                 for r in (jr, pr))
+
+
+@pytest.mark.parametrize("method", GATEWAY_COMMANDS)
+async def test_gateway_command_answers_as_jax(method):
+    """Each email-gateway command and ``setMailingList`` against the
+    JAX command on equal node state: the same answer or numbered error,
+    the same identity fields and the same queued command messages."""
+    unknown = "BM-2cWzSnwjJ7yRP3nLEWUV5LisTZyREWSzUK"
+    async with pair() as p:
+        # one passphrase for every case: its three addresses grind in
+        # ~190 attempts
+        addr, other, relay = await deterministic(p, "gateway commands", 3)
+        if method == "setMailingList":
+            await p.same(method, addr, True, b64("the list"))
+            await p.same("listAddresses")
+            assert await p.error_code(method, unknown, True) == 13
+            assert await p.error_code(method, addr, "yes") == 23
+            assert await p.error_code(method, addr, True, "//4=") == 17
+            await p.same(method, addr, False)
+            await p.same("listAddresses")
+            return
+        if method == "setEmailGateway":
+            await p.same(method, addr, "mailchuck")
+            await p.same(method, other, "op", relay, "", relay)
+            assert await p.error_code(method, unknown, "mailchuck") == 13
+            fields = [(n.keystore.get(a).gateway,
+                       n.keystore.get(a).gateway_registration,
+                       n.keystore.get(a).gateway_relay)
+                      for n in (p.jax_node, p.port_node)
+                      for a in (addr, other)]
+            assert fields[:2] == fields[2:] == [
+                ("mailchuck", "", ""), ("op", relay, relay)]
+            await p.same(method, other, "")
+            return
+        # the built-in operator: its addresses are no identity of ours,
+        # so a command queues a pubkey request and no message PoW
+        await p.same("setEmailGateway", addr, "mailchuck")
+        params = {
+            "emailGatewayRegister": (addr, "me@example.com"),
+            "emailGatewayUnregister": (addr,),
+            "emailGatewayStatus": (addr,),
+            "emailGatewaySettings": (addr,),
+            "sendEmail": (addr, "you@example.com", b64("hi there"),
+                          b64("the body")),
+        }[method]
+        jr, pr = await p.each(method, params, params)
+        assert "error" not in jr and "error" not in pr
+        assert len(jr["result"]) == len(pr["result"]) > 64
+        mine, theirs = await _sent_rows(p)
+        assert mine == theirs and len(mine) == 1
+        from pybitmessage_tpu_torch.gateways.email_account import MAILCHUCK
+        assert mine[0][:2] == ({
+            "emailGatewayUnregister": MAILCHUCK.unregistration,
+            "sendEmail": MAILCHUCK.relay}.get(
+                method, MAILCHUCK.registration), addr)
+        # an identity without a gateway, and one the node does not hold
+        assert await p.error_code(method, other, *params[1:]) == 13
+        assert await p.error_code(method, unknown, *params[1:]) == 13
+        if method == "sendEmail":
+            assert await p.error_code(method, addr, "not-an-email",
+                                      b64("s"), b64("b")) == 0
 
 
 @pytest.mark.parametrize("plane", [True, False])

@@ -354,6 +354,49 @@ def test_route_announcement_splits_alike(fanout):
     assert mine == theirs
 
 
+async def _overdue(recon_mod, rng, kind: str):
+    """One session whose round (or catch-up) is past its deadline, then
+    one tick: what the tick settled."""
+    pool = SimpleNamespace(ctx=SimpleNamespace(streams=(1,),
+                                               dandelion=None))
+    rec = recon_mod.Reconciler(pool, clock=lambda: 100.0, **rng)
+    conn = _Conn(1)
+    s = rec.register(conn)
+    big_invs = []
+
+    async def big_inv(c):
+        big_invs.append(c.host)
+    rec._big_inv = big_inv
+    hashes = _hashes(6, 11)
+    if kind == "round":
+        s.state = recon_mod.AWAIT_SKETCH
+        s.snapshot = {i: h for i, h in enumerate(hashes)}
+        s.deadline = recon_mod.Deadline(-1.0)
+    else:
+        s.catchup_salt = 7
+        s.catchup_deadline = recon_mod.Deadline(-1.0)
+    await rec.tick()
+    return (s.state, s.failures, s.deadline is None, s.catchup_salt,
+            s.catchup_deadline is None, conn.tracker.announced, big_invs)
+
+
+@pytest.mark.parametrize("kind", ["round", "catchup"])
+async def test_an_overdue_round_or_catchup_is_settled_alike(kind):
+    """A round awaiting its sketch past its deadline fails as
+    ``timeout`` (its snapshot flooded), and an unanswered catch-up
+    falls back to the big inv, in both packages: the port's tick once
+    raised on the deadline it read (ROADMAP fault 3.10)."""
+    j = _jax().recon
+    random.seed(5)
+    theirs = await _overdue(j, {}, kind)
+    mine = await _overdue(port_recon, {"rng": random.Random(5)}, kind)
+    assert mine == theirs
+    if kind == "round":
+        assert mine[1] == 1 and len(mine[5]) == 6
+    else:
+        assert mine[3] is None and mine[6] == ["10.0.0.1"]
+
+
 # ---------------------------------------------------------------------------
 # the simulated mesh
 # ---------------------------------------------------------------------------
