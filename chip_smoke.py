@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's send and receive paths, its node, daemon, PoW farm, role split, light-client tier, network plane, slab store, failure paths, TLS, SOCKS, UDP, UPnP, crypto rungs, email gateway and native PoW mode on a card.
+"""Drive the PyTorch/CUDA port's send and receive paths, its multi-device tier, its node, daemon, PoW farm, role split, light-client tier, network plane, slab store, failure paths, TLS, SOCKS, UDP, UPnP, crypto rungs, email gateway and native PoW mode on a card.
 
     python3 chip_smoke.py [--seed N] [--report PATH]
 
@@ -37,6 +37,18 @@ Phases (any failure exits non-zero):
    4,096 key derivations through ``CudaSecp().base_mult_batch``; every
    result is checked, both secp kernels must have been launched and no
    crypto drain may fail;
+3c. the multi-device tier (``phase_multi_device``) on four shards of
+   the card, each on its own stream: (a)'s object and (b)'s 128 objects
+   through ``PowService(PowDispatcher())`` with ``_devices()`` pointed
+   at the shards (``cuda-sharded``, ``cuda-sharded-batch``), every nonce
+   the one-device one; (b'') (b)'s objects on a 2x2 mesh, every nonce
+   the one-device one and every trial count the geometry's; (p') a job
+   at ntpb x 64 whose winner lies in shard 1, 2 and 3 in turn, and a
+   solve interrupted after one pod slab and resumed from its checkpoint
+   to the same nonce; one plain torch ``sharded_solve`` held to
+   ``python_solve``; the wrappers' launches are the shards of the
+   ``pod_slab`` / ``pod_batch`` records (``devices`` 4 each) alone, and
+   the meshes 4x1 and 4x4 counted;
 5. the node (``phase_node``), two and three ``Node()``s on the card
    joined by a bridge in this script at network difficulty: (i) the
    two-node flow getpubkey -> pubkey -> msg -> ack and a broadcast to a
@@ -233,7 +245,8 @@ Phases (any failure exits non-zero):
    3 must have launched in A; every object of both daemons' inventories
    and C's passes hashlib's PoW check;
 4. times: each kernel at its main-path shape (CUDA events over warm
-   launches) beside its plain version and its bound; the packed kernel
+   launches) beside its plain version (timed on the one call whose
+   result is compared) and its bound; the packed kernel
    on the storm's own targets and on targets that mostly miss, with the
    trials it executed (its launch counters) against those the data
    needs; the secp kernels at 4,096 and 65,536 lanes, their bound from
@@ -257,6 +270,8 @@ host driver, and is not attributed.
 
 The receive phases draw their data from a second generator seeded from
 ``--seed``, so phases 1-4 keep their inputs.
+Phase 3c draws from a sixteenth generator and reads (a)'s and (b)'s
+objects and nonces from phase 3.
 Phases 5 to 14 run before phase 4 and draw from a fourth, a fifth, a
 sixth, a seventh, an eighth, a ninth ((t)), a tenth ((u)), an eleventh
 (phase 11), a twelfth (phase 12), a thirteenth (phase 13) and a
@@ -273,8 +288,10 @@ process's light client in (u)), in phase 11 (``sync_launches``: its
 set-up's solves in this process and P's and Q's launch records) and in
 phase 12 (``storage_launches``: (aa)'s and (ab)'s solves in this
 process and the launch records of R1, R2, E, A and B), in phase 13
-(``network_launches``) and in phase 14 (``gateway_launches``: C's and
-(al)'s in this process and A's and B's launch records).  Each phase's
+(``network_launches``), in phase 14 (``gateway_launches``: C's and
+(al)'s in this process and A's and B's launch records) and in phase 3c
+(``multidevice_launches``: every shard's launch, with the counts reset
+after (p')'s one-device solve and just before the sharded ones).  Each phase's
 wall is printed on a line of its own (``phase wall: ...``) before the
 kernels line.
 The second-to-last line of output is the ``{"kernels": [...]}`` record,
@@ -326,7 +343,8 @@ KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
                "library_ms", "node_launches", "net_launches",
                "daemon_launches", "farm_launches", "roles_launches",
                "clients_launches", "sync_launches", "storage_launches",
-               "network_launches", "gateway_launches")
+               "network_launches", "gateway_launches",
+               "multidevice_launches")
 MASK64 = (1 << 64) - 1
 ALWAYS_HIT = MASK64
 
@@ -872,9 +890,295 @@ def phase_main_path(rng) -> dict:
         _no_lower_nonce(ih, target, report["b_queue_128"]["results"][i][0])
     print("lowest-nonce proof: (a) and 8 objects of (b) have no valid "
           "nonce below theirs (%.1f s)" % (time.perf_counter() - t0))
+    # (a)'s and (b)'s objects and nonces, for the multi-device tier
+    solved = {name: (phases[name], [n for n, _ in report[name]["results"]])
+              for name in ("a_single_1kB", "b_queue_128")}
     for entry in report.values():
         entry.pop("results")
-    return {"phases": report, "launches": launches}
+    return {"phases": report, "launches": launches, "solved": solved}
+
+
+# ---------------------------------------------------------------------------
+# phase 3c: the multi-device tier on shards of one card
+# ---------------------------------------------------------------------------
+
+#: shards of ``cuda:0`` the phase spreads over
+SHARDS = 4
+
+
+class _LaunchSpy:
+    """Keeps (program, devices) of every ``record_launch`` a module makes
+    while it is open, and passes each on."""
+
+    def __init__(self, module):
+        self.module, self.records = module, []
+
+    def __enter__(self):
+        self.real = self.module.record_launch
+
+        def spy(program, **kwargs):
+            self.records.append((program, kwargs.get("devices", 1)))
+            self.real(program, **kwargs)
+        self.module.record_launch = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.module.record_launch = self.real
+
+    def shard_launches(self, program: str) -> int:
+        devices = [d for p, d in self.records if p == program]
+        require(all(d == SHARDS for d in devices),
+                "%s recorded with devices %s, expected %d each"
+                % (program, sorted(set(devices)), SHARDS))
+        return sum(devices)
+
+
+def phase_multi_device(rng, solved: dict, *, device=None,
+                       p_ntpb: int = 64 * 1000, geometry=None) -> dict:
+    """The multi-device tier (``parallel/``) on ``SHARDS`` shards of
+    ``cuda:0``, each on its own stream, at network difficulty and the
+    production per-shard geometry (single rows 128 x 512 chunks x unroll
+    5, batch 64 objects x 64 chunks x unroll 4).
+
+    (a') (a)'s object through ``PowService(PowDispatcher())`` with the
+    dispatcher's ``_devices()`` pointed at the shards: backend
+    ``cuda-sharded``, (a)'s nonce.  (b') (b)'s 128 objects through the
+    same: backend ``cuda-sharded-batch`` on the JAX rule's 4x4 mesh,
+    every nonce (b)'s, no packed launch.  (b'') (b)'s objects through
+    ``pallas_sharded_solve_batch`` on a 2x2 mesh: every nonce (b)'s, and
+    every trial count the geometry's (whole pod slabs before the hit,
+    the winning shard up to its hit step, the row's other shard its
+    whole slab).  (p') one object at ntpb x 64 (phase 8 (p)'s job): its
+    one-device nonce n, solved before the launch counts are reset, then
+    for d = 1, 2, 3 a
+    sharded solve from ``n - d*slab - k`` returns n from its first pod
+    slab, shard d winning (the slabs of the shards ahead re-checked by
+    kernel 1 to hold no hit); a sharded solve interrupted after one pod
+    slab and resumed from its checkpoint returns n.  One
+    ``sharded_solve`` (plain torch, the JAX XLA tier's twin) at an easy
+    target is held to ``python_solve``.  Kernels 1 and 2 must have
+    launched on the sharded tier, each ``pod_slab`` / ``pod_batch``
+    record carries ``devices`` = the shards, the wrappers' counts equal
+    those records' shards with no one-device launch in the registry,
+    and ``pow_mesh_compiles_total`` holds
+    shapes 4x1 and 4x4.  (p')'s object is drawn until its lowest nonce
+    lies past two pod slabs, so every check has slabs ahead of the
+    winner.
+
+    ``device="cpu"`` (the shards on the CPU, the kernels' plain
+    versions), a small ``p_ntpb`` and a small (p') ``geometry`` (rows,
+    chunks_per_call, unroll) rehearse the phase on the CPU.
+    """
+    import torch
+
+    from pybitmessage_tpu_torch import parallel
+    from pybitmessage_tpu_torch.observability import REGISTRY
+    from pybitmessage_tpu_torch.ops import sha512_cuda as sc
+    from pybitmessage_tpu_torch.ops.pow_search import PowInterrupted
+    from pybitmessage_tpu_torch.ops.sha512 import initial_hash_words
+    from pybitmessage_tpu_torch.parallel import pow_pallas_sharded
+    from pybitmessage_tpu_torch.pow.dispatcher import (PowDispatcher,
+                                                       python_solve)
+    from pybitmessage_tpu_torch.pow.service import PowService
+
+    card = torch.device("cuda", 0) if device is None else \
+        torch.device(device)
+    shards = [card] * SHARDS
+    dispatcher = PowDispatcher(device)
+    dispatcher._devices = lambda: shards
+    kind = "cuda" if card.type == "cuda" else "torch"
+    mesh = parallel.make_mesh(devices=shards)
+    geometry = geometry or dict(rows=sc.DEFAULT_ROWS,
+                                chunks_per_call=sc.DEFAULT_CHUNKS,
+                                unroll=sc.DEFAULT_UNROLL)
+    slab = geometry["rows"] * 128 * geometry["chunks_per_call"] \
+        * geometry["unroll"]
+    stride = SHARDS * slab
+    report: dict = {}
+    # (p'): a job at ntpb x 64 whose lowest nonce lies past two pod slabs,
+    # solved on one device before the counters are reset, so that the
+    # phase's launches are the shards' own
+    day = 86400
+    draws = 0
+    while True:
+        draws += 1
+        p_ih, p_target = _msg(rng, 1016, 28 * day, p_ntpb, 1000,
+                              clamp=False)
+        t0 = time.perf_counter()
+        n, _ = sc.solve(p_ih, p_target, device=card)
+        one_wall = time.perf_counter() - t0
+        if n >= 2 * stride:
+            break
+    meshes0 = {s: REGISTRY.sample("pow_mesh_compiles_total", {"shape": s})
+               for s in ("4x1", "4x4")}
+    before = registry_counts()
+    sc.reset_launches()
+
+    async def drive(items):
+        service = PowService(dispatcher)
+        service.start()
+        try:
+            return await asyncio.gather(
+                *(service.solve(ih, t) for ih, t in items))
+        finally:
+            await service.stop()
+
+    with _LaunchSpy(pow_pallas_sharded) as spy:
+        for name, backend in (("a_single_1kB", kind + "-sharded"),
+                              ("b_queue_128", kind + "-sharded-batch")):
+            items, nonces = solved[name]
+            packed0 = sc.LAUNCHES["packed_search"]
+            t0 = time.perf_counter()
+            results = asyncio.run(drive(items))
+            wall = time.perf_counter() - t0
+            require(dispatcher.last_backend == backend,
+                    "%s' ran on %r, expected %r"
+                    % (name, dispatcher.last_backend, backend))
+            require([n for n, _ in results] == nonces,
+                    "%s': the sharded nonces differ from the one-device "
+                    "ones" % name)
+            require(sc.LAUNCHES["packed_search"] == packed0,
+                    "%s' launched the packed kernel" % name)
+            for (ih, target), (nonce, _) in zip(items, results):
+                require(trial(nonce, ih) <= target,
+                        "%s': invalid nonce %d" % (name, nonce))
+            report[name] = {"objects": len(items), "wall_s": wall,
+                            "backend": backend,
+                            "credited_trials": sum(r[1] for r in results)}
+            print("multi-device %s': %d objects in %.3f s on %d shards "
+                  "(%s), nonces equal to the one-device ones"
+                  % (name, len(items), wall, SHARDS, backend))
+
+        # (b''): (b)'s objects on a 2x2 mesh, so that the batch tier
+        # resolves winners across two nonce shards and credits the row's
+        # other shard its whole slab
+        items, nonces = solved["b_queue_128"]
+        mesh2x2 = parallel.make_mesh(SHARDS, obj_axis="obj", obj_size=2,
+                                     devices=shards)
+        packed0 = sc.LAUNCHES["packed_search"]
+        t0 = time.perf_counter()
+        results = parallel.pallas_sharded_solve_batch(items, mesh2x2)
+        wall = time.perf_counter() - t0
+        require([r[0] for r in results] == nonces,
+                "(b''): the 2x2 nonces differ from the one-device ones")
+        require(sc.LAUNCHES["packed_search"] == packed0,
+                "(b'') launched the packed kernel")
+        b_slab = sc.DEFAULT_ROWS * 128 * sc.BATCH_CHUNKS * sc.BATCH_UNROLL
+        b_step = sc.DEFAULT_ROWS * 128 * sc.BATCH_UNROLL
+        for (nonce, trials) in results:
+            want = nonce // (2 * b_slab) * 2 * b_slab \
+                + (nonce % b_slab // b_step + 1) * b_step + b_slab
+            require(trials == want,
+                    "(b''): nonce %d credited %d trials, the geometry gives "
+                    "%d" % (nonce, trials, want))
+        shard1 = sum(nonce % (2 * b_slab) >= b_slab for nonce, _ in results)
+        require(shard1 > 0 or card.type != "cuda",
+                "(b''): no winner in nonce shard 1, so no winner was "
+                "resolved across the nonce shards")
+        report["b_queue_128_2x2"] = {"objects": len(items), "wall_s": wall,
+                                     "won_by_nonce_shard_1": shard1}
+        print("multi-device (b''): %d objects in %.3f s on a 2x2 mesh, "
+              "nonces equal to the one-device ones, %d won by nonce shard "
+              "1, trials as the geometry gives" % (len(items), wall, shard1))
+
+        # (p'): the sharded solves from below (p)'s one-device nonce
+        winners = {}
+        for d in (1, 2, 3):
+            k = int(rng.integers(0, slab))
+            start = n - d * slab - k
+            t0 = time.perf_counter()
+            nonce, trials = parallel.pallas_sharded_solve(
+                p_ih, p_target, mesh, start_nonce=start, **geometry)
+            require(nonce == n and trials == stride,
+                    "(p') from n - %d*slab - %d: nonce %d after %d trials, "
+                    "expected %d from the first pod slab"
+                    % (d, k, nonce, trials, n))
+            require((nonce - start) // slab == d,
+                    "(p') the winner is not shard %d" % d)
+            winners[d] = {"start": start, "wall_s": time.perf_counter() - t0}
+        checkpoints = []
+        s0 = max(0, n - 4 * stride - int(rng.integers(0, stride)))
+        t0 = time.perf_counter()
+        try:
+            parallel.pallas_sharded_solve(
+                p_ih, p_target, mesh, start_nonce=s0, **geometry,
+                progress=checkpoints.append,
+                should_stop=lambda: bool(checkpoints))
+            require(False, "(p') the interrupted solve was not interrupted")
+        except PowInterrupted:
+            pass
+        require(len(checkpoints) == 2 and checkpoints[-1] == s0 + 2 * stride,
+                "(p') checkpoints %s after one pod slab and the drain"
+                % checkpoints)
+        resumed, _ = parallel.pallas_sharded_solve(
+            p_ih, p_target, mesh, start_nonce=checkpoints[-1], **geometry)
+        require(resumed == n, "(p') resumed at %d: nonce %d, expected %d"
+                % (checkpoints[-1], resumed, n))
+        resume_wall = time.perf_counter() - t0
+        require(trial(n, p_ih) <= p_target, "(p') invalid nonce %d" % n)
+        print("multi-device (p'): n %d (one device %.3f s, %d draws); "
+              "winners in shards 1-3 from the first pod slab; interrupted "
+              "at %d and resumed to n (%.3f s)"
+              % (n, one_wall, draws, checkpoints[-1], resume_wall))
+
+        # the plain torch tier at an easy target
+        easy_ih, easy_t = hashlib.sha512(rng.bytes(64)).digest(), \
+            (1 << 64) // 50000
+        t0 = time.perf_counter()
+        got = parallel.sharded_solve(easy_ih, easy_t, mesh)
+        xla_wall = time.perf_counter() - t0
+        require(got[0] == python_solve(easy_ih, easy_t)[0],
+                "sharded_solve's nonce is not python_solve's")
+        print("multi-device sharded_solve (plain torch, %d shards): nonce "
+              "%d = python_solve's, %d trials, %.3f s"
+              % (SHARDS, got[0], got[1], xla_wall))
+        launches = dict(sc.LAUNCHES)
+        pod = {p: spy.shard_launches(p) for p in ("pod_slab", "pod_batch")}
+
+    now = registry_counts()
+    delta = {k: int(now[k] - before[k]) for k in now if k != "wrappers"}
+    require(pod["pod_slab"] > 0 and pod["pod_batch"] > 0,
+            "multi-device: kernel 1 or 2 not launched on the sharded tier "
+            "(%s)" % pod)
+    if card.type == "cuda":     # the wrappers count CUDA launches only
+        require(launches["search"] == pod["pod_slab"]
+                and launches["batch_search"] == pod["pod_batch"]
+                and launches["packed_search"] == 0
+                and not any(delta.values()),
+                "multi-device: the wrappers' launches %s are not the shards "
+                "of the pod records %s alone (one-device registry launches "
+                "%s)" % (launches, pod, delta))
+    meshes = {s: REGISTRY.sample("pow_mesh_compiles_total", {"shape": s})
+              - meshes0[s] for s in meshes0}
+    require(meshes == {"4x1": 1, "4x4": 1},
+            "pow_mesh_compiles_total deltas %s" % meshes)
+    print("attribution multi-device: wrappers %s = the pod records' shards "
+          "%s, no one-device launch; meshes %s" % (launches, pod, meshes))
+
+    # the slabs of the shards ahead of each winner hold no hit
+    words = initial_hash_words(p_ih, card)
+    for d, entry in winners.items():
+        for j in range(d):
+            found, _ = sc.cuda_search(
+                words, entry["start"] + j * slab, p_target,
+                rows=geometry["rows"], chunks=geometry["chunks_per_call"],
+                unroll=geometry["unroll"])
+            require(not bool(found.any()),
+                    "(p') shard %d ahead of the winner %d holds a hit"
+                    % (j, d))
+    t0 = time.perf_counter()
+    (ih, target), = solved["a_single_1kB"][0]
+    _no_lower_nonce(ih, target, solved["a_single_1kB"][1][0], card.type)
+    items, nonces = solved["b_queue_128"]
+    for i in rng.choice(len(items), size=min(8, len(items)), replace=False):
+        _no_lower_nonce(*items[i], nonces[i], card.type)
+    print("lowest-nonce proof: (a') and 8 objects of (b') have no valid "
+          "nonce below theirs (%.1f s)" % (time.perf_counter() - t0))
+    return {"phases": report, "p": {"nonce": n, "draws": draws,
+                                     "winners": winners,
+                                     "checkpoints": checkpoints},
+            "launches": launches, "pod_shard_launches": pod,
+            "attribution": delta, "meshes": meshes}
 
 
 # ---------------------------------------------------------------------------
@@ -893,6 +1197,20 @@ def _event_ms(fn, reps: int) -> float:
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def _timed_once(fn):
+    """(ms, result) of one call of ``fn``, timed with CUDA events: a
+    plain version is timed on the call whose result is compared."""
+    import torch
+    start, stop = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop), out
 
 
 def _main_shape_objects(rng, n_obj: int, n_trials: int):
@@ -987,8 +1305,7 @@ def phase_times(rng, env: dict, launches: dict, errs: dict) -> list:
         got = kernel()                              # warm
         ms = _event_ms(kernel, 5)
         counters = sc.packed_counters() if name == "packed_search" else {}
-        plain_ms = _event_ms(plain, 1)
-        want = plain()
+        plain_ms, want = _timed_once(plain)
         if name == "search":
             err = _same(name, got, want, ihs, targets, False)
             found, nonce = (t.cpu().tolist() for t in want)
@@ -5107,8 +5424,7 @@ def phase_times_secp(prng, env: dict, launches: dict, errs: dict) -> list:
                       at["ladder_bound_ms"]))
             if count == 4096:
                 got = kernel(*args)
-                plain_ms = _event_ms(lambda: ref(*args), 1)
-                want = ref(*args)
+                plain_ms, want = _timed_once(lambda: ref(*args))
                 if isinstance(got, torch.Tensor):
                     got, want = [got], [want]
                 err = _max_byte_err(got, want)
@@ -6779,6 +7095,10 @@ def main() -> int:
     attribution["main_path"] = check_attribution(
         "send path", before, main_path["launches"])
     done("3 send path")
+    # the multi-device tier on shards of the card: a sixteenth generator
+    multi = phase_multi_device(np.random.default_rng([args.seed, 16]),
+                               main_path.pop("solved"))
+    done("3c multi-device tier")
     before = registry_counts()
     receive = phase_receive(rng2, prng)
     attribution["receive"] = check_attribution(
@@ -6852,6 +7172,8 @@ def main() -> int:
         entry["storage_launches"] = storage["launches"][entry["name"]]
         entry["network_launches"] = network["launches"][entry["name"]]
         entry["gateway_launches"] = gateway["launches"][entry["name"]]
+        entry["multidevice_launches"] = multi["launches"][entry["name"]] \
+            if entry["name"] in multi["launches"] else 0
     for name, seconds in walls.items():
         print("phase wall: %s %.1f s" % (name, seconds))
     wall = time.perf_counter() - t_start
@@ -6859,6 +7181,7 @@ def main() -> int:
     if args.report:
         with open(args.report, "w") as fh:
             json.dump({"env": env, "main_path": main_path,
+                       "multi_device": multi,
                        "selftest": selftest, "receive": receive,
                        "node": node, "sockets": sockets, "daemon": daemon,
                        "farm": farm, "roles": roles, "light": light,

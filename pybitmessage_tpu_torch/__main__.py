@@ -611,6 +611,12 @@ def main(argv=None) -> int:
         return asyncio.run(run(args))
     except KeyboardInterrupt:  # pragma: no cover
         return 0
+    except Exception:
+        # fatal: the flight recorder's ring holds the seconds before
+        # the failure
+        from .observability import FLIGHT_RECORDER
+        FLIGHT_RECORDER.dump("fatal")
+        raise
     finally:
         if lock is not None:
             lock.release()

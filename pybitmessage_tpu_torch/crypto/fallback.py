@@ -105,6 +105,12 @@ def base_mult(k: int):
     return point_mult(k, (GX, GY))
 
 
+def point_add(a: tuple[int, int] | None, b: tuple[int, int] | None):
+    """a + b for affine points (None is infinity) -> affine or None."""
+    return _jac_to_affine(_jac_add(a and (a[0], a[1], 1),
+                                   b and (b[0], b[1], 1)))
+
+
 # --- byte-level helpers shared by every tier --------------------------------
 
 def decode_point(pubkey: bytes) -> tuple[int, int]:

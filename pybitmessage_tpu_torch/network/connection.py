@@ -263,10 +263,10 @@ class BMConnection:
         self._closed = True
         self.close_reason = reason
         # in-flight verifications are NOT cancelled: the payloads are
-        # fully received, and cancelling would strand their hashes in
-        # GlobalTracker.missing for an hour.  They settle within one
-        # verifier round; node shutdown settles them as unverified
-        # (BatchVerifier.stop sets False, never cancels).
+        # fully received, and cancelling would have another connection
+        # download them again.  They settle within one verifier round;
+        # node shutdown settles them as unverified (BatchVerifier.stop
+        # sets False, never cancels).
         if self._handshake_task is not None and \
                 not self._handshake_task.done() and \
                 self._handshake_task is not asyncio.current_task():
@@ -812,5 +812,12 @@ class BMConnection:
             elif not self.ctx.global_tracker.was_requested(h):
                 wanted.append(h)
         if wanted:
-            self.ctx.global_tracker.mark_requested(wanted)
-            await self.send_packet("getdata", encode_inv(wanted))
+            self.ctx.global_tracker.mark_requested(wanted, via=self)
+            try:
+                await self.send_packet("getdata", encode_inv(wanted))
+            except (ConnectionError, OSError):
+                # not sent: the next round (here or on another
+                # connection) asks again
+                self.ctx.global_tracker.forget(wanted)
+                self.tracker.request_failed(wanted)
+                raise

@@ -340,6 +340,9 @@ class ConnectionPool:
         self.inbound.pop(conn, None)
         self.outbound.pop(conn, None)
         self._count_connections()
+        # what this connection was asked for and never delivered may be
+        # fetched over another one
+        self.ctx.global_tracker.release(conn)
         if self.reconciler is not None:
             self.reconciler.unregister(conn)
         if self.ctx.dandelion:

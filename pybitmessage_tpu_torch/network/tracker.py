@@ -32,25 +32,50 @@ ANNOUNCE_BUCKETS = 10
 
 
 class GlobalTracker:
-    """Cross-connection dedup of in-flight downloads."""
+    """Cross-connection dedup of in-flight downloads.
+
+    A request is pinned to the connection it went out on (``via``):
+    when that connection closes, :meth:`release` lets another one ask
+    again, and a getdata that never left is handed back with
+    :meth:`forget`.  (The JAX package keeps every request for
+    ``REQUEST_TIMEOUT``, so an object asked for on a connection that
+    dies before it is served is not fetched again for an hour.)"""
 
     def __init__(self) -> None:
         self._lock = threading.RLock()
         self.missing: dict[bytes, float] = {}
+        #: the connection each request went out on
+        self._via: dict[bytes, object] = {}
 
-    def mark_requested(self, hashes: list[bytes]) -> None:
+    def mark_requested(self, hashes: list[bytes], via=None) -> None:
         now = time.time()
         with self._lock:
             for h in hashes:
                 self.missing[h] = now
+                if via is not None:
+                    self._via[h] = via
 
     def was_requested(self, hash_: bytes) -> bool:
         with self._lock:
             return hash_ in self.missing
 
     def received(self, hash_: bytes) -> None:
+        self.forget([hash_])
+
+    def forget(self, hashes: list[bytes]) -> None:
+        """Drop these requests: any connection may ask for them again."""
         with self._lock:
-            self.missing.pop(hash_, None)
+            for h in hashes:
+                self.missing.pop(h, None)
+                self._via.pop(h, None)
+
+    def release(self, via) -> int:
+        """Forget the requests that went out on ``via`` (a connection
+        that closed before it delivered them); how many."""
+        with self._lock:
+            lost = [h for h, c in self._via.items() if c is via]
+            self.forget(lost)
+            return len(lost)
 
     def pending_count(self) -> int:
         with self._lock:
@@ -60,8 +85,7 @@ class GlobalTracker:
         cutoff = time.time() - REQUEST_TIMEOUT
         with self._lock:
             stale = [h for h, t in self.missing.items() if t < cutoff]
-            for h in stale:
-                del self.missing[h]
+            self.forget(stale)
             return len(stale)
 
 
@@ -122,6 +146,13 @@ class ConnectionTracker:
     def request_batch(self, fair_share: int) -> list[bytes]:
         return self.objects_new_to_me.random_keys(
             max(1, min(fair_share, MAX_REQUEST_CHUNK)))
+
+    def request_failed(self, hashes: list[bytes]) -> None:
+        """A getdata for ``hashes`` never went out: they are eligible
+        for the next :meth:`request_batch` at once."""
+        for h in hashes:
+            if self.objects_new_to_me.pop(h, None) is not None:
+                self.objects_new_to_me[h] = True
 
     def clean(self) -> None:
         cutoff = time.time() - TRACK_TIMEOUT

@@ -51,14 +51,22 @@ daemons), with the kernel each one launches:
   ``crypto.gpu.CudaSecp.verify_prepared``.
 ``secp_ecdh`` - ``bm_secp_ecdh_kernel`` (also P = G), under
   ``CudaSecp.ecdh_batch`` / ``base_mult_batch``.
+``pod_slab`` - ``bm_search_kernel`` on every shard of a mesh, one
+  record per pod slab over ``devices`` shards
+  (``parallel.pallas_sharded_solve``); the wrappers' ``LAUNCHES`` count
+  each shard's launch.
+``pod_batch`` - ``bm_batch_search_kernel`` on every shard
+  (``parallel.pallas_sharded_solve_batch``).
+``sharded_search`` - no hand-written kernel: the plain torch search of
+  ``parallel.sharded_solve`` (the JAX XLA tier's twin), one chunk per
+  shard a round.
+``sharded_batch`` - the same for ``parallel.sharded_solve_batch``.
 
 Left out of the port's catalog: ``pow_slab`` (the XLA windowed search;
 the port's single-object route is ``pallas_slab`` on the card and its
-plain version on the CPU), ``packed_search_xla`` (the XLA stand-in of
-the packed kernel for CPU runs; the port's CPU runs record the plain
-version under the planned program's own name), and ``sharded_search``,
-``sharded_batch``, ``pod_slab`` and ``pod_batch`` (multi-device; they
-wait for a machine with more than one card).
+plain version on the CPU) and ``packed_search_xla`` (the XLA stand-in
+of the packed kernel for CPU runs; the port's CPU runs record the plain
+version under the planned program's own name).
 
 An abandoned speculative launch (the slab in flight when a search has
 its answer) counts as a launch with no work items and no wait: the host

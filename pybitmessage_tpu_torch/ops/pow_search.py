@@ -42,20 +42,30 @@ class PowInterrupted(Exception):
 def _run_host_driver(search_once, initial_hash: bytes, target: int, *,
                      start_nonce: int, trials_per_call_step: int,
                      should_stop: Callable[[], bool] | None,
-                     progress: Callable[[int], None] | None = None):
+                     progress: Callable[[int], None] | None = None,
+                     program: str | None = None, program_key=None,
+                     devices: int = 1):
     """Shared host loop over a search slab.
 
     ``search_once(base) -> (found, nonce, chunks)``;
     ``trials_per_call_step`` = trials one chunk represents; ``progress``
     gets the next base after every miss-free slab.  The winning nonce is
-    re-checked with hashlib before it is returned.
+    re-checked with hashlib before it is returned.  With ``program``,
+    every slab is attributed to that device-telemetry program, over
+    ``devices`` shards.
     """
     base = start_nonce & MASK64
     trials = 0
     while True:
         if should_stop is not None and should_stop():
             raise PowInterrupted("PoW interrupted by shutdown")
+        t0 = time.monotonic()
         found, nonce, chunks = search_once(base)
+        if program is not None:
+            t1 = time.monotonic()
+            record_launch(program, key=program_key, dispatch_seconds=t1 - t0,
+                          span=(t0, t1), items=chunks * trials_per_call_step,
+                          bytes_out=16, devices=devices)
         trials += chunks * trials_per_call_step
         if bool(found):
             nonce = from_i64(nonce)

@@ -1,6 +1,5 @@
-"""Shipped plugins (copy of ``pybitmessage_tpu.plugins`` without the two
-front-end plugins, ``gui.menu`` qrcode and ``desktop`` autostart; role of
-the reference's ``src/plugins/`` package).
+"""Shipped plugins (copy of ``pybitmessage_tpu.plugins``; role of the
+reference's ``src/plugins/`` package).
 
 The reference distributes ~10 small integrations (stem/Tor proxy
 config, notification sounds, qrcode dialog, desktop autostart,
@@ -31,6 +30,12 @@ BUILTIN: dict[str, dict[str, str]] = {
     },
     "notification.sound": {
         "bell": "sound_bell:connect_plugin",
+    },
+    "gui.menu": {
+        "qrcode": "qrcode_menu:connect_plugin",
+    },
+    "desktop": {
+        "autostart": "desktop_autostart:connect_plugin",
     },
 }
 

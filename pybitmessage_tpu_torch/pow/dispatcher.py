@@ -1,10 +1,19 @@
 """PoW solver of the port (twin of ``pow/dispatcher.py``): the farm rung
-over the one-card tier.
+over the card tier.
 
-A single object runs :func:`ops.sha512_cuda.solve` (the single-object
-kernel) and a batch runs the dispatch-ahead pipeline (packed or batch
-kernel).  With ``device="cpu"`` the same host loops run the kernels'
-plain torch versions.
+On one device a single object runs :func:`ops.sha512_cuda.solve` (the
+single-object kernel) and a batch runs the dispatch-ahead pipeline
+(packed or batch kernel).  With more than one device (``_devices()``:
+every card when the dispatcher's device is CUDA) the multi-device tier
+takes over, as the JAX dispatcher routes: a single object runs
+:func:`parallel.pallas_sharded_solve` (kernel 1 on every shard, backend
+``cuda-sharded``), a batch of more than one object
+:func:`parallel.pallas_sharded_solve_batch` (kernel 2 on an
+(obj x nonce) mesh, ``cuda-sharded-batch``), and one object skips the
+pipeline's single-sync path.  Meshes are built once per (device
+count, object rows) shape, counted in ``pow_mesh_compiles_total``.  With
+``device="cpu"`` the same host loops run the kernels' plain torch
+versions (``torch``, ``torch-sharded``, ``torch-sharded-batch``).
 
 An attached :class:`~pybitmessage_tpu_torch.powfarm.FarmSolverTier`
 (``attach_farm``, the daemon's ``powfarmconnect``) leads: jobs are
@@ -28,7 +37,9 @@ the first tier under the farm, one object after another, behind the
 JAX ``"cpp"`` breaker (3 failures, 60 s cooldown).  It needs no card and
 launches no kernel; a failed build or self-test raises from the
 constructor, and a failed solve raises like the card's.  The
-multi-device tier of the reference is not part of this dispatcher.
+multi-device tier has no rung under it either: a kernel failure in any
+shard raises to ``PowService``, where the JAX dispatcher falls to its
+XLA sharded tier.
 ``pow.device_launch`` is a chaos site at the entry of the card tier;
 ``stall_timeout`` (the daemon's ``powstalltimeout``) is the pipeline's
 per-harvest stall deadline.  A stalled harvest raises the watchdog's
@@ -47,8 +58,8 @@ Timing attributes:
     host double-SHA512 re-check of the last single solve's nonce.
 
 Each call runs in a ``pow.solve`` / ``pow.solve_batch`` span and feeds
-the JAX dispatcher's attempt, latency, host-verify and trial families;
-the ladder's fallback and mesh families have nothing to count here.
+the JAX dispatcher's attempt, latency, host-verify, trial, fallback and
+mesh families.
 """
 
 from __future__ import annotations
@@ -59,7 +70,9 @@ from typing import Callable
 
 import logging
 
-from .. import resolve_device
+import torch
+
+from .. import parallel, resolve_device
 from ..observability import REGISTRY, trace
 from ..observability.flightrec import record as _flight
 from ..ops import sha512_cuda
@@ -93,6 +106,10 @@ FALLBACKS = REGISTRY.counter(
 TRIALS = REGISTRY.counter(
     "pow_trials_total", "Double-SHA512 trial hashes executed",
     ("backend",))
+MESH_COMPILES = REGISTRY.counter(
+    "pow_mesh_compiles_total",
+    "Device mesh constructions, one per distinct (ndev, obj) shape",
+    ("shape",))
 
 
 def host_trial(nonce: int, initial_hash: bytes) -> int:
@@ -162,6 +179,39 @@ class PowDispatcher:
         #: monotonic time of the last slab stall; the recovery is
         #: observed when the next call completes
         self._stalled_at: float | None = None
+        #: shard meshes by (device count, object rows)
+        self._meshes: dict = {}
+
+    # -- device topology -----------------------------------------------------
+
+    def _devices(self) -> list[torch.device]:
+        """The devices the card tier spreads over: every card when the
+        dispatcher's device is CUDA, else the device alone."""
+        if self.device.type == "cuda":
+            return [torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())]
+        return [self.device]
+
+    def _mesh(self, ndev: int, batch: int):
+        """(obj x nonce) mesh of the first ``ndev`` devices for ``batch``
+        objects, 1D for one object: the JAX rule, object rows the
+        largest divisor of ``ndev`` not above ``min(ndev, batch)``."""
+        obj_size = 1
+        if batch > 1:
+            for d in range(min(ndev, batch), 0, -1):
+                if ndev % d == 0:
+                    obj_size = d
+                    break
+        key = (ndev, obj_size)
+        if key not in self._meshes:
+            MESH_COMPILES.labels(shape="%dx%d" % key).inc()
+            devices = self._devices()
+            if obj_size == 1:
+                self._meshes[key] = parallel.make_mesh(ndev, devices=devices)
+            else:
+                self._meshes[key] = parallel.make_mesh(
+                    ndev, obj_axis="obj", obj_size=obj_size, devices=devices)
+        return self._meshes[key]
 
     def _record_recovery(self) -> None:
         """A solve completed after a slab stall: how long the rescued
@@ -258,9 +308,11 @@ class PowDispatcher:
                     progress=None):
         """Solve ``[(initial_hash, target), ...]`` -> ``[(nonce, trials)]``.
 
-        More than one object, or one object small enough for a single
-        synchronous launch, goes through the pipeline; otherwise the
-        object takes the single-object route.  ``start_nonces`` resumes
+        On one device, more than one object, or one object small enough
+        for a single synchronous launch, goes through the pipeline; on
+        several, more than one object goes to the sharded batch tier.
+        Otherwise the object takes the single-object route.
+        ``start_nonces`` resumes
         each object from a checkpoint; ``progress(i, next)`` reports
         the highest offset known fully searched for item ``i``.
         """
@@ -292,7 +344,17 @@ class PowDispatcher:
             # one object after another, as the JAX ladder's native tier
             return [self._solve(ih, t, start, should_stop)
                     for (ih, t), start in zip(items, starts)]
-        if len(items) > 1 or plan_batch(items).mode == "single-sync":
+        ndev = len(self._devices())
+        if ndev > 1 and len(items) > 1:
+            inject("pow.device_launch")
+            self.last_backend = self._backend + "-sharded-batch"
+            ATTEMPTS.labels(backend=self.last_backend).inc()
+            return parallel.pallas_sharded_solve_batch(
+                items, self._mesh(ndev, len(items)), should_stop=should_stop,
+                start_nonces=starts, progress=progress)
+        # one object on several devices takes the sharded single route
+        if ndev == 1 and (len(items) > 1
+                          or plan_batch(items).mode == "single-sync"):
             inject("pow.device_launch")
             self.last_backend = self._backend + "-batch"
             ATTEMPTS.labels(backend=self.last_backend).inc()
@@ -317,6 +379,14 @@ class PowDispatcher:
             return self._native_solve(initial_hash, target, start_nonce,
                                       should_stop)
         inject("pow.device_launch")
+        ndev = len(self._devices())
+        if ndev > 1:
+            self.last_backend = self._backend + "-sharded"
+            ATTEMPTS.labels(backend=self.last_backend).inc()
+            return parallel.pallas_sharded_solve(
+                initial_hash, target, self._mesh(ndev, 1),
+                start_nonce=start_nonce, should_stop=should_stop,
+                progress=progress)
         self.last_backend = self._backend
         ATTEMPTS.labels(backend=self.last_backend).inc()
         return sha512_cuda.solve(

@@ -72,6 +72,9 @@ class _Request:
     attempts: int = 0
     #: monotonic time of the last journal checkpoint (write throttle)
     last_checkpoint: float = field(default=0.0)
+    #: the object's wire trace id (``LIFECYCLE.trace_ctx_for``), named in
+    #: the requeue flight events
+    trace_id: bytes = b""
 
 
 class PowService:
@@ -165,6 +168,11 @@ class PowService:
         # lifecycle: a locally-generated object enters the timeline by
         # its pre-nonce initial hash
         LIFECYCLE.record(initial_hash, "pow_queued")
+        # the job joins (or opens) the object's wire trace, so a requeue
+        # can be joined to it
+        ctx = LIFECYCLE.trace_ctx_for(initial_hash)
+        if ctx is not None:
+            req.trace_id = ctx.trace_id
         await self.queue.put(req)
         QUEUE_DEPTH.set(self.queue.qsize())
         return await fut
@@ -228,11 +236,17 @@ class PowService:
                 if not req.future.done():
                     req.future.set_result(res)
 
+    @staticmethod
+    def _trace_ids(batch: list[_Request]) -> list[str]:
+        """8-hex prefixes of the first 8 requests' trace ids."""
+        return [r.trace_id.hex()[:8] for r in batch[:8] if r.trace_id]
+
     def _settle_interrupted(self, batch: list[_Request]) -> None:
         """Shutdown-driven: the jobs stay journaled for the next process;
         the futures cancel so the callers unwind."""
         REQUEUED.labels(reason="interrupt").inc(len(batch))
-        _flight("pow_requeue", reason="interrupt", n=len(batch))
+        _flight("pow_requeue", reason="interrupt", n=len(batch),
+                traces=self._trace_ids(batch))
         for req in batch:
             if req.job_id is not None:
                 self._journal_call(
@@ -267,7 +281,7 @@ class PowService:
             return
         REQUEUED.labels(reason="failure").inc(len(survivors))
         _flight("pow_requeue", reason="failure", n=len(survivors),
-                error=repr(exc)[:120])
+                error=repr(exc)[:120], traces=self._trace_ids(survivors))
         attempt = min(r.attempts for r in survivors) - 1
         pause = self.retry.delay(attempt)
         logger.warning("dispatcher failed (%r); requeueing %d solve(s), "

@@ -1002,3 +1002,27 @@ def test_a_client_daemon_decrypts_a_broadcast_through_an_edges_plane(
             if proc is not None and proc.poll() is None:
                 proc.kill()
                 proc.wait(timeout=STOP_TIMEOUT)
+
+
+def test_a_daemon_that_dies_of_an_exception_dumps_its_flight_recorder(
+        tmp_path, monkeypatch):
+    """Each package's ``main`` with a ``run`` that raises: the error
+    reaches the caller and the ``fatal`` dump counter rises by one in
+    both (ROADMAP fault 3.12)."""
+    _jax()
+    import pybitmessage_tpu.__main__ as jax_main
+    from pybitmessage_tpu.observability import flightrec as jax_flightrec
+    from pybitmessage_tpu_torch.observability import flightrec
+
+    async def dies(args):
+        raise RuntimeError("dies at start")
+
+    deltas = {}
+    for pkg, main, dumps in (("jax", jax_main, jax_flightrec.DUMPS),
+                             ("port", daemon, flightrec.DUMPS)):
+        monkeypatch.setattr(main, "run", dies)
+        before = dumps.labels(trigger="fatal").value
+        with pytest.raises(RuntimeError, match="dies at start"):
+            main.main(["-d", str(tmp_path / pkg), "-t", "-p", "0"])
+        deltas[pkg] = dumps.labels(trigger="fatal").value - before
+    assert deltas == {"jax": 1, "port": 1}

@@ -1,8 +1,10 @@
 """The port's host-only modules the daemon reaches, against the JAX
 package's, on the CPU: ``core.testdata.populate``,
 ``models.messagetypes`` (and ``msgcoding``'s extended encoding through
-it), ``core.plugins`` with the shipped ``sound_bell`` and
-``proxyconfig_stem`` plugins, and ``migrate``.
+it), ``core.plugins`` with the shipped ``sound_bell``,
+``proxyconfig_stem``, ``qrcode_menu`` and ``desktop_autostart``
+plugins, ``migrate``, ``crypto.blindsig`` (signatures and chains made
+in one package verify in the other) and ``utils.qr``.
 
 Inputs come from numpy seeds or from the JAX package's own fixtures
 (``tests/test_migrate.py``'s reference directory, ``tests/test_plugins.py``'s
@@ -132,15 +134,14 @@ def test_messagetypes_and_the_extended_encoding_are_the_jax_ones(seed):
 
 
 def test_plugin_lookups_are_the_jax_ones_but_the_front_ends():
+    """Every group finds the JAX package's plugins, the front-end ones
+    (``gui.menu`` qrcode, ``desktop`` autostart) included, each from the
+    port's own copy."""
     jax_plugins = _jax()[0]
     assert port_plugins.KNOWN_GROUPS == jax_plugins.KNOWN_GROUPS
-    front_end = {"gui.menu", "desktop"}
     for group in port_plugins.KNOWN_GROUPS:
         mine = dict(port_plugins.iter_plugins(group))
         theirs = dict(jax_plugins.iter_plugins(group))
-        if group in front_end:
-            assert mine == {} and theirs
-            continue
         assert sorted(mine) == sorted(theirs), group
         for name, fn in mine.items():
             assert fn.__module__.startswith("pybitmessage_tpu_torch.")
@@ -285,3 +286,118 @@ def test_migrate_gives_the_jax_rows(tmp_path, capsys):
     assert "identities: 2 imported" in capsys.readouterr().out
     assert port_migrate.main([str(tmp_path / "empty"),
                               str(tmp_path / "fourth")]) == 1
+
+
+# ---------------------------------------------------------------------------
+# blind signatures, the QR encoder and the front-end plugins
+# ---------------------------------------------------------------------------
+
+
+def _blindsig():
+    _jax()
+    from pybitmessage_tpu.crypto import blindsig as jax_bs
+    from pybitmessage_tpu_torch.crypto import blindsig as port_bs
+    return {"jax": jax_bs, "port": port_bs}
+
+
+@pytest.mark.parametrize("signer", ["jax", "port"])
+def test_a_blind_signature_verifies_in_both_packages(signer):
+    """The signer of one package, the requester of the other: the
+    unblinded signature verifies under both ``verify``; bound to its
+    message."""
+    mods = _blindsig()
+    other = "port" if signer == "jax" else "jax"
+    rng = np.random.default_rng(3)
+    key = mods[signer].BlindSigner(int(rng.integers(1, 1 << 62)))
+    message = rng.bytes(40)
+    commitment = key.new_request()
+    req = mods[other].BlindRequester(key.pubkey, commitment, message)
+    sig = req.unblind(key.sign_blind(commitment, req.blinded_challenge))
+    wire = sig.serialize()
+    for name, mod in mods.items():
+        theirs = mod.BlindSignature.deserialize(wire)
+        assert theirs.serialize() == wire
+        assert mod.verify(theirs, message), name
+        assert not mod.verify(theirs, message + b"!"), name
+
+
+def test_point_codec_and_challenge_are_byte_equal():
+    mods = _blindsig()
+    jax_bs, port_bs = mods["jax"], mods["port"]
+    rng = np.random.default_rng(4)
+    for _ in range(4):
+        k = int(rng.integers(1, 1 << 62))
+        point = port_bs._mul(k)
+        assert point == jax_bs._mul(k)
+        enc = port_bs._encode_point(point)
+        assert enc == jax_bs._encode_point(point)
+        assert port_bs._decode_point(enc) == jax_bs._decode_point(enc) \
+            == point
+        message = rng.bytes(int(rng.integers(0, 64)))
+        assert port_bs._challenge(point, message) == \
+            jax_bs._challenge(point, message)
+    assert port_bs._encode_point(None) == jax_bs._encode_point(None)
+    with pytest.raises(ValueError):
+        port_bs._decode_point(b"\x02" + (5).to_bytes(32, "big"))
+
+
+@pytest.mark.parametrize("maker", ["jax", "port"])
+def test_a_chain_built_in_one_package_verifies_in_the_other(maker):
+    mods = _blindsig()
+    mod = mods[maker]
+    root, mid, leaf = (mod.BlindSigner(k) for k in (11, 22, 33))
+    chain = mod.SignatureChain(root.pubkey)
+    chain.extend(root, mid.pubkey)
+    chain.extend(mid, leaf.pubkey)
+    sig = mod.blind_sign_roundtrip(leaf, b"payload")
+    for name, other in mods.items():
+        copy = other.SignatureChain(root.pubkey)
+        copy.links = [(pub, other.BlindSignature.deserialize(s.serialize()))
+                      for pub, s in chain.links]
+        theirs = other.BlindSignature.deserialize(sig.serialize())
+        assert copy.verify_payload(b"payload", theirs), name
+        assert not copy.verify_payload(b"other", theirs), name
+
+
+def test_qr_matrices_and_renderings_are_the_jax_ones():
+    _jax()
+    from pybitmessage_tpu.utils import qr as jax_qr
+    from pybitmessage_tpu_torch.utils import qr as port_qr
+    rng = np.random.default_rng(5)
+    alphabet = "123456789ABCDEFGHJKLMNPQRSTUVWXYZabcdefghijkmnopqrstuvwxyz"
+    for _ in range(4):
+        n = int(rng.integers(30, 90))
+        data = "bitmessage:BM-" + "".join(
+            alphabet[i] for i in rng.integers(0, len(alphabet), n))
+        matrix = port_qr.encode(data)
+        assert matrix == jax_qr.encode(data)
+        assert port_qr.render_text(matrix) == jax_qr.render_text(matrix)
+        assert port_qr.render_svg(matrix) == jax_qr.render_svg(matrix)
+
+
+def test_the_front_end_plugins_match_the_jax_ones(tmp_path, monkeypatch):
+    """Both found through the port's loader: the QR plugin's renderings
+    are the JAX plugin's, and the autostart plugin writes the same entry
+    under a temporary home (the port's names its own daemon) and
+    removes it."""
+    jax_plugins = _jax()[0]
+    qr = port_plugins.get_plugin("gui.menu", "qrcode")
+    autostart = port_plugins.get_plugin("desktop", "autostart")
+    assert qr.__module__ == "pybitmessage_tpu_torch.plugins.qrcode_menu"
+    address = "BM-2cWy7cvHoq3f1rYMerRJp8PT653jjSuEdY"
+    assert qr(address) == jax_plugins.get_plugin("gui.menu", "qrcode")(
+        address)
+    monkeypatch.delenv("XDG_CONFIG_HOME", raising=False)
+    entries = {}
+    for pkg, fn in (("port", autostart), ("jax", jax_plugins.get_plugin(
+            "desktop", "autostart"))):
+        monkeypatch.setenv("HOME", str(tmp_path / pkg))
+        path = tmp_path / pkg / ".config" / "autostart" / \
+            "pybitmessage-tpu.desktop"
+        assert fn(exec_line="bmd -d /srv/bm") is True
+        entries[pkg] = path.read_text()
+        assert fn(enable=False) is True and not path.exists()
+        assert fn() is True
+        assert "-m %s -d" % ("pybitmessage_tpu_torch" if pkg == "port"
+                             else "pybitmessage_tpu") in path.read_text()
+    assert entries["port"] == entries["jax"]

@@ -538,3 +538,68 @@ def test_powmaxretries_and_powstalltimeout_reach_service_and_dispatcher(
     finally:
         node.pow_journal.close()
         node.db.close()
+
+
+# ---------------------------------------------------------------------------
+# a requeued request names its wire trace (ROADMAP fault 3.11)
+# ---------------------------------------------------------------------------
+
+
+class _RaisesOnce:
+    """A dispatcher whose first ``solve_batch`` raises ``exc``; later
+    calls return ``[(0, 1)]``."""
+
+    last_backend = "stub"
+
+    def __init__(self, exc):
+        self.exc = exc
+
+    def solve_batch(self, items, **kwargs):
+        if self.exc is not None:
+            exc, self.exc = self.exc, None
+            raise exc
+        return [(0, 1)] * len(items)
+
+
+@pytest.mark.parametrize("reason", ["failure", "interrupt"])
+async def test_a_requeued_request_names_its_trace_as_the_jax_service_does(
+        reason):
+    """One solve through each package's ``PowService``: the failure
+    requeue (a dispatcher that raises once) or the interrupt requeue
+    (a set shutdown) leaves a ``pow_requeue`` flight event with the
+    same keys in both packages, ``traces`` holding the 8-hex prefix of
+    the object's trace id."""
+    from pybitmessage_tpu.observability import flightrec as jax_flightrec
+    from pybitmessage_tpu_torch.observability import flightrec
+    from pybitmessage_tpu_torch.ops.pow_search import PowInterrupted
+    resilience, service, _ = _jax()
+    from pybitmessage_tpu.ops.pow_search import \
+        PowInterrupted as JaxInterrupted
+
+    ih = hashlib.sha512(b"probe").digest()
+    events = {}
+    for pkg, svc_cls, retry_cls, recorder, interrupted in (
+            ("jax", service.PowService, resilience.RetryPolicy,
+             jax_flightrec.FLIGHT_RECORDER, JaxInterrupted),
+            ("port", PowService, RetryPolicy, flightrec.FLIGHT_RECORDER,
+             PowInterrupted)):
+        d = _RaisesOnce(RuntimeError("first launch fails")
+                        if reason == "failure" else interrupted("stop"))
+        svc = svc_cls(d, window=0.0, max_attempts=3,
+                      retry=retry_cls(attempts=3, base_delay=0.01))
+        svc.start()
+        try:
+            if reason == "failure":
+                assert await asyncio.wait_for(
+                    svc.solve(ih, 1 << 63), 10) == (0, 1)
+            else:
+                with pytest.raises(asyncio.CancelledError):
+                    await asyncio.wait_for(svc.solve(ih, 1 << 63), 10)
+        finally:
+            await svc.stop()
+        events[pkg] = [e for e in recorder.events(kind="pow_requeue")
+                       if e["reason"] == reason][-1]
+    assert events["port"].keys() == events["jax"].keys()
+    for event in events.values():
+        [prefix] = event["traces"]
+        assert len(prefix) == 8 and int(prefix, 16) >= 0

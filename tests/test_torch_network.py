@@ -7,7 +7,9 @@ random-order download dict and the circuit breaker make the same
 choices under the same seed.  Over loopback TCP, port to port: the
 handshake, big-inv sync, inv gossip, the closes (bad PoW, connection
 to self, verack before version), addr gossip, the dial loop and its
-breaker, and a three-node line that relays without echoing.  Port
+breaker, a three-node line that relays without echoing, and a
+download asked for again when its connection closes before it is
+served or its getdata fails to send.  Port
 against JAX, both dial directions: handshake, sync both ways, a bad-PoW
 close on either side, and a getpubkey -> pubkey -> msg -> ack flow
 between a port ``Node`` and a JAX ``Node`` with their set-reconciliation
@@ -642,6 +644,81 @@ async def test_big_inv_then_inv_gossip():
         assert a.connections()[0].objects_sent == 2
 
 
+async def _withheld_request(a, b, h):
+    """B dials A; A withholds its objects (its getdata service paused)
+    until B has asked for ``h``.  B's connection and A's end of it."""
+    conn = await dial(b, a)
+    theirs, = a.established()
+    theirs.skip_until = float("inf")
+    await until(lambda: h in theirs.pending_upload, "B's getdata")
+    return conn, theirs
+
+
+@limited
+async def test_a_request_lost_with_its_connection_is_asked_again():
+    """B asks A for an object over a connection that closes before A
+    serves it; over the next connection B asks again and gets it (a
+    request stays pinned to its connection, not for REQUEST_TIMEOUT)."""
+    a, b = port_pool(), port_pool()
+    payload = solved(b"asked for on a connection that dies")
+    h = hold(a.ctx, payload)
+    async with running(a, b, listen=[True, False]):
+        conn, _ = await _withheld_request(a, b, h)
+        assert b.ctx.global_tracker.was_requested(h)
+        await conn.close("test")
+        await until(lambda: not a.connections() and not b.connections(),
+                    "both ends to close")
+        assert not b.ctx.global_tracker.was_requested(h)
+        await dial(b, a)
+        await until(lambda: h in b.ctx.inventory, "the second request")
+        assert b.ctx.inventory[h].payload == payload
+        assert b.ctx.global_tracker.pending_count() == 0
+
+
+@limited
+async def test_a_getdata_that_fails_to_send_is_sent_again(monkeypatch):
+    """B's first getdata for A's object fails to send (the connection
+    stays up): the next download round asks again at once, not after
+    the download dict's 60 s pending window."""
+    send, fails = port_conn.BMConnection.send_packet, []
+
+    async def flaky(conn, command, payload=b""):
+        if command == "getdata" and not fails:
+            fails.append(payload)
+            raise ConnectionError("getdata lost")
+        await send(conn, command, payload)
+    monkeypatch.setattr(port_conn.BMConnection, "send_packet", flaky)
+    a, b = port_pool(), port_pool()
+    payload = solved(b"its first getdata never left")
+    h = hold(a.ctx, payload)
+    async with running(a, b, listen=[True, False]):
+        await dial(b, a)
+        await until(lambda: h in b.ctx.inventory, "the getdata sent again")
+        assert len(fails) == 1 and b.ctx.inventory[h].payload == payload
+
+
+def test_global_tracker_releases_a_closed_connections_requests():
+    hashes = _hashes(5, 16)
+    one, two = object(), object()
+    g = tracker.GlobalTracker()
+    g.mark_requested(hashes[:2], via=one)
+    g.mark_requested(hashes[2:4], via=two)
+    g.mark_requested(hashes[4:])
+    g.received(hashes[2])
+    assert g.release(one) == 2 and g.release(one) == 0
+    assert [g.was_requested(h) for h in hashes] == \
+        [False, False, False, True, True]
+    g.forget(hashes[3:])
+    assert g.release(two) == 0 and g.pending_count() == 0
+    t = tracker.ConnectionTracker(buckets=1)
+    for h in hashes:
+        t.peer_announced(h)
+    first = t.request_batch(2)
+    assert not set(first) & set(t.request_batch(10))
+    t.request_failed(first)
+    assert sorted(t.request_batch(10)) == sorted(first)
+
+
 @limited
 async def test_bad_pow_drops_the_peer():
     a, b = port_pool(), port_pool()
@@ -1111,12 +1188,16 @@ def cuda_device():
 @pytest.mark.cuda
 def test_two_nodes_over_tcp_on_the_card(cuda_device):
     """Two port nodes with every device service on the card meet over
-    loopback TCP and run getpubkey -> pubkey -> msg -> ack."""
+    loopback TCP and run getpubkey -> pubkey -> msg -> ack.  Their
+    crypto engines send every drain to the card (``cryptotpubatchmin``
+    1): by default drains under 64 run on the native rung."""
     from pybitmessage_tpu_torch.ops import secp256k1_cuda, sha512_cuda
 
     async def flow():
         a = Node(device=cuda_device, test_mode=True)
         b = Node(device=cuda_device, test_mode=True)
+        for node in (a, b):
+            node.crypto.batch.gpu_batch_min = 1
         await a.start()
         await b.start()
         try:

@@ -812,12 +812,15 @@ def cuda_device():
 def test_two_node_flow_on_the_card(cuda_device):
     """The two-node flow with every device service on the card: the
     nonce searches, the verifier, the engine's verify and ECDH drains
-    and the identity grind."""
+    (``cryptotpubatchmin`` 1: by default drains under 64 run on the
+    native rung) and the identity grind."""
     from pybitmessage_tpu_torch.ops import secp256k1_cuda, sha512_cuda
 
     async def flow():
         a = Node(device=cuda_device, test_mode=True)
         b = Node(device=cuda_device, test_mode=True)
+        for node in (a, b):
+            node.crypto.batch.gpu_batch_min = 1
         bridge = Bridge()
         bridge.link(a, b)
         bridge.link(b, a)

@@ -97,6 +97,10 @@ def test_the_import_scan_covers_the_farm_and_the_journal(tmp_path):
             "core/testdata.py", "core/plugins.py", "plugins/__init__.py",
             "plugins/sound_bell.py", "plugins/proxyconfig_stem.py",
             "models/messagetypes.py", "migrate.py"} <= scanned
+    # the multi-device tier
+    assert {"parallel/%s.py" % m for m in
+            ("__init__", "mesh", "pow_sharded", "pow_pallas_sharded")} \
+        <= scanned
     # the scan sees a dynamic import of the reference
     probe = tmp_path / "probe.py"
     probe.write_text('import importlib\n'

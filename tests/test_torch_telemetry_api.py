@@ -169,9 +169,12 @@ def test_device_status_says_no_cuda_context(daemon):
     assert doc["env"]["kernels"] == {"built": False, "loaded": False,
                                      "nvccSeconds": 0.0}
     # the secp programs register when their driver is imported, which a
-    # daemon with cryptobatch=false never does
+    # daemon with cryptobatch=false never does; the dispatcher brings the
+    # multi-device tier's
     assert set(doc["programs"]) == {"pallas_slab", "batch_search",
-                                    "packed_search", "pow_verify"}
+                                    "packed_search", "pow_verify",
+                                    "pod_slab", "pod_batch",
+                                    "sharded_search", "sharded_batch"}
 
 
 def test_profile_device_returns_a_cpu_trace(daemon):
